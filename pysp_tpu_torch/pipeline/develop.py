@@ -1,0 +1,146 @@
+"""The develop pipeline: normalized Bayer -> demosaic -> camera->lin-sRGB -> sRGB.
+
+Counterpart of ``pysp_tpu/pipeline/develop.py``. PyTorch runs eagerly, so
+there is no jit and ``DevelopConfig`` is a plain frozen dataclass with the same
+fields and defaults. Only the Best (AHD) tier and the ``"clip"`` highlight mode
+are ported; Draft, Fast and ``highlights="reconstruct"`` raise
+``NotImplementedError`` (ROADMAP.md queue A, items A1 and A2).
+
+``use_pallas`` keeps its name and meaning: use the hand-written kernels. On a
+CUDA frame, Best then develops through the AHD kernel, with the postprocess
+kernel in its border strips (and alone where the frame is too small for the
+strips), and a kernel that cannot build or launch raises. On a CPU frame the plain PyTorch
+path runs, as the JAX package runs XLA off the TPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..colorimetry.transforms import cam_to_lin_srgb_matrix
+from ..const import BayerPattern, QualityDemosaic
+from ..core.bayer import reversible_transform_rggb
+from ..core.frame import DevelopedImage, RawFrame
+from ..demosaic import demosaic
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DevelopConfig:
+    """Develop knobs (same fields and defaults as the JAX package)."""
+
+    quality: QualityDemosaic = QualityDemosaic.Best
+    postprocess_stages: int = 1
+    clip_highlights: bool = True
+    gamma_encode: bool = True
+    # Use the hand-written CUDA kernels for frames on a CUDA device.
+    use_pallas: bool = True
+    # "clip" = saturate at 1.0; "reconstruct" is not ported yet.
+    highlights: str = "clip"
+
+
+def _check_ported(cfg: DevelopConfig) -> None:
+    if cfg.highlights == "reconstruct":
+        raise NotImplementedError(
+            'highlights="reconstruct" is not ported to pysp_tpu_torch yet '
+            "(ROADMAP.md queue A, item A2: correct/highlights.py)"
+        )
+    if cfg.quality != QualityDemosaic.Best:
+        raise NotImplementedError(
+            f"Quality {cfg.quality!r} is not ported to pysp_tpu_torch yet "
+            "(ROADMAP.md queue A, item A1: Draft and Fast)"
+        )
+
+
+def _use_kernel(frame: RawFrame, cfg: DevelopConfig) -> bool:
+    return cfg.use_pallas and frame.bayer.device.type == "cuda" and frame.bayer.ndim == 2
+
+
+def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
+    """Demosaic + un-canonicalize to the source pattern orientation."""
+    _check_ported(cfg)
+    dev = demosaic(frame, cfg.quality, cfg.postprocess_stages, cfg.use_pallas)
+    if frame.source_pattern != BayerPattern.Rggb:
+        dev = dev.replace(
+            image=reversible_transform_rggb(dev.image, frame.source_pattern)
+        )
+    return dev
+
+
+def _demosaic_channels(frame: RawFrame, cfg: DevelopConfig):
+    from ..demosaic.ahd import demosaic_ahd_channels
+
+    if _use_kernel(frame, cfg):
+        from ..demosaic.ahd_mega import demosaic_ahd_mega
+
+        # The AHD kernel; falls back internally for frames it cannot stitch.
+        return demosaic_ahd_mega(frame, cfg.postprocess_stages)
+    return demosaic_ahd_channels(frame, cfg.postprocess_stages, cfg.use_pallas)
+
+
+def _color_tail_channels(
+    r: Tensor, g: Tensor, b: Tensor, mat: Tensor,
+    clip_highlights: bool, gamma_encode: bool,
+):
+    """Channelwise colour tail: clip -> cam->lin-sRGB matrix -> sRGB gamma.
+    The plain version of the AHD kernel's fused tail."""
+    if clip_highlights:
+        r = torch.clamp(r, 0.0, 1.0)
+        g = torch.clamp(g, 0.0, 1.0)
+        b = torch.clamp(b, 0.0, 1.0)
+    ir = mat[0, 0] * r + mat[0, 1] * g + mat[0, 2] * b
+    ig = mat[1, 0] * r + mat[1, 1] * g + mat[1, 2] * b
+    ib = mat[2, 0] * r + mat[2, 1] * g + mat[2, 2] * b
+
+    if gamma_encode:
+        def gamma(x):
+            x = torch.clamp(x, 0.0, 1.0)
+            return torch.where(
+                x <= 0.0031308,
+                x * 12.92,
+                1.055 * torch.pow(torch.clamp(x, min=1e-12), 1.0 / 2.4) - 0.055,
+            )
+
+        ir, ig, ib = gamma(ir), gamma(ig), gamma(ib)
+    return ir, ig, ib
+
+
+def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
+    """Full develop: demosaic -> camera->lin-sRGB -> (optional) gamma encode,
+    returning the (H, W, 3) float32 image in the source pattern's orientation.
+
+    With the kernel, the colour tail runs inside the AHD kernel and the image
+    leaves it in its final layout."""
+    _check_ported(cfg)
+    out = None
+    if _use_kernel(frame, cfg):
+        from ..demosaic.ahd_mega import develop_channels_mega
+
+        out = develop_channels_mega(
+            frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
+        )
+    if out is None:
+        r, g, b = _demosaic_channels(frame, cfg)
+        mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+        ir, ig, ib = _color_tail_channels(
+            r, g, b, mat, cfg.clip_highlights, cfg.gamma_encode
+        )
+        out = torch.stack([ir, ig, ib], dim=-1).to(torch.float32)
+    if frame.source_pattern != BayerPattern.Rggb:
+        out = reversible_transform_rggb(out, frame.source_pattern)
+    return out
+
+
+def develop_burst(frames: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
+    """Develop a burst: every tensor of ``frames`` carries a leading frame axis.
+
+    Frames develop one after another, as ``lax.map`` runs them in the JAX
+    package; the result is (N, H, W, 3)."""
+    fields = ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat")
+    outs = [
+        develop(frames.replace(**{k: getattr(frames, k)[i] for k in fields}), cfg)
+        for i in range(frames.bayer.shape[0])
+    ]
+    return torch.stack(outs)
