@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pysp_tpu_torch import DevelopConfig, RawFrame, develop
+from pysp_tpu_torch import BayerPattern, DevelopConfig, RawFrame, develop
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, margin_for
@@ -48,10 +48,11 @@ def test_postprocess_kernel_bit_exact(cuda, shape):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("shape", [(256, 320), (250, 334)])
 @pytest.mark.parametrize("stages", [0, 1, 2])
 @pytest.mark.parametrize("is_hdr", [False, True])
-def test_ahd_kernel_against_plain(cuda, is_hdr, stages):
-    frame = _frame(256, 320, seed=stages, is_hdr=is_hdr, device=cuda)
+def test_ahd_kernel_against_plain(cuda, is_hdr, stages, shape):
+    frame = _frame(*shape, seed=stages, is_hdr=is_hdr, device=cuda)
     before = K.ahd_kernel_launches
     got = torch.stack(demosaic_ahd_mega(frame, stages))
     assert K.ahd_kernel_launches == before + 1
@@ -66,12 +67,29 @@ def test_ahd_kernel_against_plain(cuda, is_hdr, stages):
     assert np.mean(np.abs(g - w) > 1e-4) < 0.05
 
 
-def test_develop_with_kernels_against_plain(cuda):
-    frame = _frame(256, 320, seed=3, is_hdr=False, device=cuda)
-    got = develop(frame)
-    want = develop(frame, DevelopConfig(use_pallas=False))
+@pytest.mark.parametrize("stages,clip,gamma,pattern", [
+    (1, True, True, BayerPattern.Rggb),
+    (0, False, False, BayerPattern.Bggr),
+    (2, True, False, BayerPattern.Grbg),
+])
+def test_develop_with_kernels_against_plain(cuda, stages, clip, gamma, pattern):
+    frame = _frame(256, 320, seed=3, is_hdr=False, device=cuda).replace(
+        source_pattern=pattern)
+    kw = dict(postprocess_stages=stages, clip_highlights=clip, gamma_encode=gamma)
+    got = develop(frame, DevelopConfig(**kw))
+    want = develop(frame, DevelopConfig(use_pallas=False, **kw))
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert psnr(got.cpu().numpy(), want.cpu().numpy()) >= 50
+
+
+def test_small_frames_take_the_postprocess_kernel_alone(cuda):
+    """Frames under four strip widths develop by the plain AHD with the
+    postprocess kernel, which is bit-exact, so the image equals plain."""
+    frame = _frame(96, 160, seed=5, is_hdr=False, device=cuda)
+    before = (K.ahd_kernel_launches, K.postprocess_kernel_launches)
+    got = develop(frame)
+    assert (K.ahd_kernel_launches, K.postprocess_kernel_launches) == (before[0], before[1] + 1)
+    assert torch.equal(got, develop(frame, DevelopConfig(use_pallas=False)))
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):

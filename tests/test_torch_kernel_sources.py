@@ -131,11 +131,12 @@ def test_postprocess_source_bit_exact(postprocess_lib, shape):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(96, 128), (90, 118)])
 @pytest.mark.parametrize("tail", [None, (True, True), (False, True)])
 @pytest.mark.parametrize("stages", [0, 1, 2])
 @pytest.mark.parametrize("is_hdr", [False, True])
-def test_ahd_source_against_plain(ahd_lib, is_hdr, stages, tail):
-    h, w = 96, 128
+def test_ahd_source_against_plain(ahd_lib, is_hdr, stages, tail, shape):
+    h, w = shape  # whole tiles, and tiles that overhang the frame
     frame = RawFrame.synthetic(mosaic_rggb(make_scene(h, w, seed=stages)), cam_mat=CAM,
                                wb_neutral=WB, is_hdr=is_hdr)
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
