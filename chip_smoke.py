@@ -9,24 +9,50 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    limit, builds the CUDA kernels from ``pysp_tpu_torch/csrc`` with nvcc and
    prints the build time and ptxas report.
 2. Each kernel against its plain PyTorch version on the card, on structured
-   512x768 scenes (non-HDR and HDR, 0-2 chroma-median stages):
-   - AHD kernel (through ``demosaic_ahd_mega``) against
-     ``demosaic_ahd_channels``: stitched border bit-exact, interior >= 50 dB
-     PSNR with < 5% of pixels off by > 1e-4 (H/V picks that flip at exact
-     homogeneity ties); the fused colour tail within 2e-6 of the external tail.
+   512x768 scenes:
+   - AHD kernel (through ``demosaic_ahd_mega``, non-HDR and HDR, 0-2
+     chroma-median stages) against ``demosaic_ahd_channels``: stitched border
+     bit-exact, interior >= 50 dB PSNR with < 5% of pixels off by > 1e-4 (H/V
+     picks that flip at exact homogeneity ties); the fused colour tail within
+     2e-6 of the external tail.
    - postprocess kernel against ``postprocess_color_channels``: bit-exact.
-3. The main path at 24 MP: a 4000x6000 RGGB synthetic DNG through
-   ``load_raw -> .to("cuda") -> develop(Best) -> save_image``, then a 1500x2000
-   BGGR DNG the same way. Asserts that both kernels launched during that run,
-   that the images are finite, of the right shape and within [0, 1], and that
-   each is >= 50 dB PSNR against the same develop through the plain version on
-   the card.
-4. Each kernel's wrapper against its plain version at the shapes the main path
-   gives it, and times (CUDA events, median of 10 runs after 2 warm-ups) of the
-   kernels, their plain versions and the whole develop.
+   - RL kernel against ``rl_plain``: sigma 1 and 2, 3 and 20 iterations, 1
+     and 3 channels, and a 509x763 frame that is not a whole number of
+     tiles: within 2e-6 (bit-exact expected).
+   - remap kernel against ``remap_plain``: bilinear and Lanczos4, maps shared
+     and per channel, with and without displacement bounds, 1 and 3
+     channels: bilinear within 1e-6, Lanczos4 within 5e-6.
+3. Two main paths, each driven with every launch count set to 0 just before
+   it and read just after it:
+   - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
+     device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
+     BGGR DNG the same way. Asserts that the AHD and postprocess kernels
+     launched, that the images are finite, of the right shape and within
+     [0, 1], and that each is >= 50 dB PSNR against the same develop through
+     the plain version on the card.
+   - finishing: a 4000x6000 RGGB DNG carrying an OpcodeList3 WarpRectilinear
+     block through ``load_raw -> develop(gamma off) ->
+     gaussian_rt_deconvolution_yuv(1.0, 20) -> unsharp_mask_lab(2.0, 0.5) ->
+     lin_srgb_to_srgb(clip) -> apply_opcode_3_warp(lanczos4) -> save_image``,
+     what ``python -m pysp_tpu_torch develop --deconv 1.0:20 --unsharp 0.5:2
+     --warp`` runs. Asserts that all four kernels launched, that the image is
+     finite, (H, W, 3) and within [0, 1], that the TIFF is full length, that
+     the finishing stages are within 1e-4 of the same stages through the plain
+     versions on the card from the same developed image, and that the CLI,
+     run once more in a subprocess, writes the same TIFF.
+4. Each kernel's wrapper against its plain version at the shapes the main
+   paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
+   the plain finishing path median of 3 after 1) of the kernels, their plain
+   versions, ``grid_sample`` (the one PyTorch call that computes the bilinear
+   remap), the whole develop and the whole finishing path. Each kernel's bound
+   is the larger of its bytes (each input read once, each output written once)
+   over 3.35 TB/s and its float32 operations, counted on its plain version at
+   the same inputs, over 67 TFLOP/s.
 
 The line before the last holds the per-kernel JSON summary, the one before it
-the card's name and power limit; the last line is the device JSON.
+the card's name and power limit; the last line is the device JSON. Each
+kernel's ``launches`` there is the sum of its counts over the two main paths
+and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
 
@@ -41,18 +67,26 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from pysp_tpu_torch import QualityDemosaic, RawFrame, load_raw, save_image
-from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
+from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix, lin_srgb_to_srgb
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
 from pysp_tpu_torch.demosaic.ahd_mega import (
     demosaic_ahd_mega,
     develop_channels_mega,
     margin_for,
 )
+from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
+from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
+from pysp_tpu_torch.io.metadata import get_opcode_3_block
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
 from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
+from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
 
 CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
 WB = np.array([0.45, 1.0, 0.62], np.float32)
@@ -62,7 +96,21 @@ FLIP_TOL = 1e-4      # a pixel differing by more is counted as a flipped pick
 MIN_PSNR = 50.0
 MAX_FLIP_FRAC = 0.05
 TAIL_ATOL = 2e-6
+RL_ATOL = 2e-6                     # after 20 iterations on values in [0, 1]
+REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
+FINISH_ATOL = 1e-4                 # finished sRGB image, kernels against plain
+# The finishing path: DNG lens warp (about 11 px at the corners at 24 MP) and
+# the filters of `develop --deconv 1.0:20 --unsharp 0.5:2 --warp`.
+WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
+WARP_CENTER = (0.5, 0.5)
+DECONV = (1.0, 20)                 # sigma, iterations
+UNSHARP = (2.0, 0.5)               # radius, amount
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the
+# tensor cores (an add, a multiply or a min counts as one operation here).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 DEVICE = "cuda"
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -91,6 +139,79 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# Arithmetic ATen ops whose every output element is one float32 operation.
+_ARITH = frozenset((
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "minimum", "maximum", "clamp",
+    "clamp_min", "clamp_max", "where", "lt", "le", "gt", "ge", "eq", "ne", "pow",
+    "sin", "floor", "copysign", "reciprocal", "sqrt", "exp", "log",
+))
+
+
+class FloatOpCount(TorchDispatchMode):
+    """Counts the float32 operations of what runs under it: one per output
+    element of each arithmetic op on floating-point operands. Data movement
+    (pads, gathers, copies, stacks) and integer index arithmetic count
+    nothing, so the count is a floor of the work."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket.__name__.rstrip("_") in _ARITH:
+            operands = [a for a in args if isinstance(a, torch.Tensor)]
+            if operands and any(a.is_floating_point() for a in operands):
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                self.ops += sum(o.numel() for o in outs if isinstance(o, torch.Tensor))
+        return out
+
+
+def float_ops(fn) -> int:
+    with FloatOpCount() as counter:
+        fn()
+    return counter.ops
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms, "bytes" or "operations") of work moving ``nbytes`` and doing
+    ``ops`` float32 operations on an H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+COUNTERS = ("ahd", "postprocess", "rl", "remap")
+
+
+def zero_launch_counts() -> None:
+    for name in COUNTERS:
+        setattr(K, f"{name}_kernel_launches", 0)
+
+
+def launch_counts() -> dict:
+    return {name: getattr(K, f"{name}_kernel_launches") for name in COUNTERS}
+
+
+def device_busy(fn, runs: int = 3):
+    """(host ms per run, device kernel ms per run, kernel launches per run) of
+    ``fn`` under ``torch.profiler``, after one warm-up. The profiler slows the
+    host, so the host time here is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / runs
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / runs
+    return host_ms, device_ms, len(kernels) / runs
 
 
 def interior_stats(got: torch.Tensor, want: torch.Tensor):
@@ -142,8 +263,56 @@ def check_kernels_small() -> None:
         raise AssertionError("postprocess kernel differs from plain")
     log("postprocess kernel vs plain 512x768: bit-exact")
 
+    for h, w in ((512, 768), (509, 763)):
+        for channels in (1, 3):
+            img = scene_on_card(h, w, channels, seed=h + channels)
+            for sigma in (1.0, 2.0):
+                taps = get_1d_gaussian_filter(sigma)
+                for iters in (3, 20):
+                    err = (K.rl_kernel(img, taps, iters) - K.rl_plain(img, taps, iters))
+                    err = err.abs().max().item()
+                    log(f"RL kernel vs plain {h}x{w}x{channels} sigma {sigma} "
+                        f"{iters} iterations: max abs err {err:.3g}")
+                    if err > RL_ATOL:
+                        raise AssertionError("RL kernel outside tolerance")
 
-def synthetic_dng(h: int, w: int, seed: int, bggr: bool) -> bytes:
+    h, w = 512, 768
+    for channels, maps in ((1, "shared"), (3, "shared"), (3, "per_channel")):
+        img = scene_on_card(h, w, channels, seed=20 + channels)
+        mx, my = warp_maps(h, w, channels if maps == "per_channel" else 1)
+        if maps == "shared":
+            mx, my = mx[0], my[0]
+        for bounds in (None, ((-3, 1), (-2, 3))):
+            for kind in ("bilinear", "lanczos4"):
+                got = K.remap_kernel(img, mx, my, kind, bounds, channels_last=channels > 1)
+                want = K.remap_plain(img, mx, my, kind, bounds, channels_last=channels > 1)
+                err = (got - want).abs().max().item()
+                log(f"remap kernel vs plain {h}x{w}x{channels} {kind} {maps} maps, "
+                    f"bounds {bounds}: max abs err {err:.3g}")
+                if err > REMAP_ATOL[kind]:
+                    raise AssertionError("remap kernel outside tolerance")
+
+
+def scene_on_card(h: int, w: int, channels: int, seed: int) -> torch.Tensor:
+    """A structured scene in [0.05, 0.95]: (H, W) or (H, W, 3) on the card."""
+    img = make_scene(h, w, seed=seed) * 0.9 + 0.05
+    img = img[..., 1] if channels == 1 else img
+    return torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(DEVICE)
+
+
+def warp_maps(h: int, w: int, n: int):
+    """n clipped lens-warp tables (n, H, W) on the card, beyond the bounds used
+    above so that the bounded remap clips displacements."""
+    xs, ys = [], []
+    for k in range(n):
+        co = (1.0, -0.02 + 0.006 * k, 0.002, 0.0, 0.001, -0.001)
+        mx, my = compute_remapping_table(co, w, h, (0.45, 0.55), device=DEVICE)
+        xs.append(mx.clamp(0, w - 1))
+        ys.append(my.clamp(0, h - 1))
+    return torch.stack(xs), torch.stack(ys)
+
+
+def synthetic_dng(h: int, w: int, seed: int, bggr: bool, **tags) -> bytes:
     """A structured scene as a u16 DNG in about [200, 4000]. A BGGR file holds
     the 180-degree rotation of an RGGB mosaic of the rotated scene, so that it
     develops to the scene in its own orientation."""
@@ -154,12 +323,12 @@ def synthetic_dng(h: int, w: int, seed: int, bggr: bool) -> bytes:
         mosaic = mosaic_rggb(rgb)
     u16 = np.ascontiguousarray(200 + mosaic * 3800).astype(np.uint16)
     pattern = (2, 1, 1, 0) if bggr else (0, 1, 1, 2)
-    return write_synthetic_dng(u16, cfa_pattern=pattern)
+    return write_synthetic_dng(u16, cfa_pattern=pattern, **tags)
 
 
 def main_path(tmp: str):
-    """Phase 3: file -> develop -> file on the card; returns the launch counts
-    and the frames and images for the checks."""
+    """Phase 3, develop: file -> develop -> file on the card; returns the
+    launch counts and the 24 MP frame."""
     paths = {}
     for name, (h, w, bggr) in {"rggb": (FULL_H, FULL_W, False),
                                "bggr": (BGGR_H, BGGR_W, True)}.items():
@@ -168,25 +337,24 @@ def main_path(tmp: str):
             fh.write(synthetic_dng(h, w, seed=7, bggr=bggr))
 
     cfg = DevelopConfig(quality=QualityDemosaic.Best)
-    K.ahd_kernel_launches = 0
-    K.postprocess_kernel_launches = 0
+    zero_launch_counts()
     results = {}
     t0 = time.perf_counter()
     for name, path in paths.items():
-        frame = load_raw(path).to(DEVICE)
+        frame = load_raw(path)
         out = develop(frame, cfg)
         save_image(os.path.join(tmp, f"{name}.tif"), out)
         results[name] = (frame, out)
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"ahd": K.ahd_kernel_launches,
-                "postprocess_color": K.postprocess_kernel_launches}
-    log(f"main path (2 DNGs, load_raw -> develop Best -> save_image): "
+    launches = launch_counts()
+    log(f"develop path (2 DNGs, load_raw -> develop Best -> save_image): "
         f"{seconds:.3f} s host clock, kernel launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the main path never launched the {name} kernel")
+    if results["rggb"][0].bayer.device.type != DEVICE:
+        raise AssertionError("load_raw did not put the frame on the card")
+    for name in ("ahd", "postprocess"):
+        if launches[name] == 0:
+            raise AssertionError(f"the develop path never launched the {name} kernel")
 
     plain_cfg = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
     for name, (frame, out) in results.items():
@@ -210,9 +378,122 @@ def main_path(tmp: str):
     return launches, results["rggb"][0]
 
 
-def kernels_at_main_shapes(frame: RawFrame):
-    """Phase 4: each wrapper against its plain version at the main path's
-    shapes, and the times. Returns the per-kernel summary records."""
+def sharpen_stages(deconv: torch.Tensor) -> torch.Tensor:
+    """After the deconvolution: Oklab unsharp, clip and sRGB gamma."""
+    out = unsharp_mask_lab(deconv, UNSHARP[0], UNSHARP[1])
+    return lin_srgb_to_srgb(torch.clamp(out, 0.0, 1.0))
+
+
+def filter_stages(lin: torch.Tensor) -> torch.Tensor:
+    """The filters after develop: RL luma deconvolution (the RL kernel), Oklab
+    unsharp, clip and sRGB gamma."""
+    return sharpen_stages(gaussian_rt_deconvolution_yuv(lin, DECONV[0], DECONV[1]))
+
+
+def finish_stages(lin: torch.Tensor, block: bytes) -> torch.Tensor:
+    """The filters, then the OpcodeList3 lens warp (Lanczos4, the remap kernel)."""
+    return apply_opcode_3_warp(filter_stages(lin), block)
+
+
+def finish_stages_plain(lin: torch.Tensor) -> torch.Tensor:
+    """The same stages with the kernels' plain versions in their place: RL on
+    the linear luma and its gain on RGB, then the lens warp's shared, clipped
+    table and bounds through the remap kernel's plain version."""
+    y = 0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]
+    y_mod = K.rl_plain(y, get_1d_gaussian_filter(DECONV[0]), DECONV[1])
+    srgb = sharpen_stages(lin * (y_mod / y)[..., None])
+    h, w = srgb.shape[0], srgb.shape[1]
+    mx, my = compute_remapping_table(WARP_COEFFS, w, h, WARP_CENTER, device=srgb.device)
+    bounds = displacement_bounds(WARP_COEFFS, w, h, WARP_CENTER)
+    return K.remap_plain(srgb, mx.clamp(0, w - 1), my.clamp(0, h - 1), "lanczos4", bounds,
+                         channels_last=True)
+
+
+def lanczos4_overshoot() -> float:
+    """How far a Lanczos4 remap of an image in [0, 1] can leave [0, 1]: with
+    separable weights that sum to 1 and absolute sum S per axis, (S^2 - 1) / 2,
+    S taken at its largest over the fractional phase."""
+    from pysp_tpu_torch.ops.resample import _lanczos4_weights
+
+    frac = torch.linspace(0.0, 1.0, 4097)[:-1]
+    s = _lanczos4_weights(frac).abs().sum(dim=-1).max().item()
+    return (s * s - 1.0) / 2.0
+
+
+def finishing_path(tmp: str):
+    """Phase 3, finishing: DNG with a lens warp -> develop -> filters -> warp
+    -> TIFF on the card, then the same through the CLI. Returns the launch
+    counts, the developed linear image and the warp block."""
+    path = os.path.join(tmp, "lens.dng")
+    block = encode_warp_rectilinear([WARP_COEFFS] * 3, WARP_CENTER)
+    with open(path, "wb") as fh:
+        fh.write(synthetic_dng(FULL_H, FULL_W, seed=11, bggr=False, opcode_list_3=block))
+    bounds = displacement_bounds(WARP_COEFFS, FULL_W, FULL_H, WARP_CENTER)
+    if bounds is None:
+        raise AssertionError("the lens warp has no displacement bounds")
+    log(f"lens warp {WARP_COEFFS} at {FULL_H}x{FULL_W}: displacement bounds {bounds}")
+
+    tif = os.path.join(tmp, "lens.tif")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    lin = develop(load_raw(path), DevelopConfig(gamma_encode=False))
+    srgb = filter_stages(lin)
+    out = apply_opcode_3_warp(srgb, get_opcode_3_block(path))
+    save_image(tif, out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"finishing path (load_raw -> develop, gamma off -> deconv {DECONV} -> unsharp "
+        f"{UNSHARP} -> gamma -> lens warp -> save_image): {seconds:.3f} s host clock, "
+        f"kernel launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the finishing path never launched the {name} kernel")
+
+    if tuple(out.shape) != (FULL_H, FULL_W, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"finished image {tuple(out.shape)} is not finite (H, W, 3)")
+    # The filters end in [0, 1]; the Lanczos4 warp rings past it by at most its
+    # overshoot (as in the JAX package), and the TIFF writer clips.
+    if srgb.min().item() < 0.0 or srgb.max().item() > 1.0:
+        raise AssertionError("the filtered image before the warp is outside [0, 1]")
+    lo, hi = out.min().item(), out.max().item()
+    ring = lanczos4_overshoot()
+    log(f"finished image range [{lo:.4f}, {hi:.4f}]; before the warp within [0, 1]; "
+        f"Lanczos4 overshoot bound {ring:.4f}")
+    if lo < -ring or hi > 1.0 + ring:
+        raise AssertionError(f"finished image outside [-{ring}, 1 + {ring}]: [{lo}, {hi}]")
+    if os.path.getsize(tif) < FULL_H * FULL_W * 6:
+        raise AssertionError(f"{tif} is too short")
+    want = finish_stages_plain(lin)
+    p, flips, err = interior_stats(out, want)
+    log(f"finishing stages, kernels vs plain on the card from the same developed image: "
+        f"max abs {err:.3g}, PSNR {p:.2f} dB")
+    if err > FINISH_ATOL:
+        raise AssertionError(f"finishing stages differ from plain by {err} > {FINISH_ATOL}")
+    del want, out
+
+    cli_tif = os.path.join(tmp, "lens_cli.tif")
+    cmd = [sys.executable, "-m", "pysp_tpu_torch", "develop", path, "-o", cli_tif,
+           "--deconv", f"{DECONV[0]}:{DECONV[1]}", "--unsharp", f"{UNSHARP[1]}:{UNSHARP[0]}",
+           "--warp"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n{proc.stderr}")
+    with open(tif, "rb") as a, open(cli_tif, "rb") as b:
+        same = a.read() == b.read()
+    log(f"CLI {' '.join(cmd[3:])}: {time.perf_counter() - t0:.3f} s host clock "
+        f"(a new process: start-up, load and develop included); "
+        f"{proc.stdout.strip()}; TIFF identical to the in-process one: {same}")
+    if not same:
+        raise AssertionError("the CLI's TIFF differs from the in-process path's")
+    return launches, lin, srgb, block
+
+
+def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tensor,
+                           block: bytes):
+    """Phase 4: each wrapper against its plain version at the main paths'
+    shapes, the times and the bounds. Returns the per-kernel records."""
     stages = 1
     f = 2 * margin_for(stages)
     s = 2 * f + 8
@@ -246,6 +527,46 @@ def kernels_at_main_shapes(frame: RawFrame):
     log(f"postprocess kernel vs plain at the strips {s}x{w}, {h}x{s} and at "
         f"{h}x{w}: bit-exact")
 
+    # The RL kernel's main-path input: the developed image's linear luma.
+    luma = 0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]
+    taps = get_1d_gaussian_filter(DECONV[0])
+    iters = DECONV[1]
+    got, want = K.rl_kernel(luma, taps, iters), K.rl_plain(luma, taps, iters)
+    rl_err = (got - want).abs().max().item()
+    rl_scale = max(1.0, want.abs().max().item())
+    log(f"RL kernel vs plain at {h}x{w}, {iters} iterations: max abs err {rl_err:.3g} "
+        f"(bit-exact: {torch.equal(got, want)}; luma in [{luma.min().item():.4f}, "
+        f"{luma.max().item():.4f}])")
+    if rl_err > RL_ATOL * rl_scale:
+        raise AssertionError("RL kernel at 24 MP outside tolerance")
+
+    # The remap kernel's main-path input: the filtered (H, W, 3) image and the
+    # lens warp's shared, clipped maps with their bounds.
+    mx, my = compute_remapping_table(WARP_COEFFS, w, h, WARP_CENTER, device=DEVICE)
+    mx, my = mx.clamp(0, w - 1).contiguous(), my.clamp(0, h - 1).contiguous()
+    bounds = displacement_bounds(WARP_COEFFS, w, h, WARP_CENTER)
+    remap_err = {}
+    for kind in ("lanczos4", "bilinear"):
+        got = K.remap_kernel(srgb, mx, my, kind, bounds, channels_last=True)
+        want = K.remap_plain(srgb, mx, my, kind, bounds, channels_last=True)
+        remap_err[kind] = (got - want).abs().max().item()
+        log(f"remap kernel vs plain at {h}x{w}x3, {kind}, shared maps, bounds {bounds}: "
+            f"max abs err {remap_err[kind]:.3g} (bit-exact: {torch.equal(got, want)})")
+        if remap_err[kind] > REMAP_ATOL[kind]:
+            raise AssertionError(f"remap kernel ({kind}) at 24 MP outside tolerance")
+    bilinear = got
+    planes = srgb.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], dim=-1)[None]
+
+    def grid_sample():
+        return F.grid_sample(planes, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    gs_diff = (grid_sample()[0].permute(1, 2, 0) - bilinear).abs().max().item()
+    log(f"grid_sample(bilinear, border, align_corners) vs the remap kernel at {h}x{w}x3: "
+        f"max abs diff {gs_diff:.3g} (it takes normalised coordinates)")
+    del got, want, bilinear
+
     cfg = DevelopConfig(quality=QualityDemosaic.Best)
     plain_cfg = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
     t = {
@@ -255,22 +576,102 @@ def kernels_at_main_shapes(frame: RawFrame):
         "pp_strips_plain": median_ms(lambda: [postprocess_color_channels(*c) for c in strips]),
         "pp_full": median_ms(lambda: K.postprocess_color_kernel(*full)),
         "pp_full_plain": median_ms(lambda: postprocess_color_channels(*full)),
+        "rl": median_ms(lambda: K.rl_kernel(luma, taps, iters)),
+        "rl_plain": median_ms(lambda: K.rl_plain(luma, taps, iters)),
+        "remap_lanczos4": median_ms(
+            lambda: K.remap_kernel(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
+        "remap_lanczos4_plain": median_ms(
+            lambda: K.remap_plain(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
+        "remap_bilinear": median_ms(
+            lambda: K.remap_kernel(srgb, mx, my, "bilinear", bounds, channels_last=True)),
+        "remap_bilinear_plain": median_ms(
+            lambda: K.remap_plain(srgb, mx, my, "bilinear", bounds, channels_last=True)),
+        "grid_sample": median_ms(grid_sample),
         "develop": median_ms(lambda: develop(frame, cfg)),
         "develop_plain": median_ms(lambda: develop(frame, plain_cfg)),
+        "finish": median_ms(lambda: finish_stages(lin, block)),
+        "finish_plain": median_ms(lambda: finish_stages_plain(lin), runs=3, warmup=1),
     }
+    # Where the finishing stages' time goes, stage by stage.
+    deconv = gaussian_rt_deconvolution_yuv(lin, DECONV[0], DECONV[1])
+    sharp = unsharp_mask_lab(deconv, UNSHARP[0], UNSHARP[1])
+    stage_ms = {
+        "deconv_yuv": median_ms(lambda: gaussian_rt_deconvolution_yuv(lin, *DECONV)),
+        "unsharp_lab": median_ms(lambda: unsharp_mask_lab(deconv, *UNSHARP)),
+        "gamma": median_ms(lambda: lin_srgb_to_srgb(torch.clamp(sharp, 0.0, 1.0))),
+        "warp": median_ms(lambda: apply_opcode_3_warp(srgb, block)),
+    }
+    log("finishing stages one by one, median of 10 by CUDA events: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+    del deconv, sharp
+    for name, fn in (("develop", lambda: develop(frame, cfg)),
+                     ("finishing stages", lambda: finish_stages(lin, block))):
+        host_ms, device_ms, n = device_busy(fn)
+        log(f"{name} under torch.profiler, 3 runs: {host_ms:.3f} ms host clock per run, "
+            f"{device_ms:.3f} ms of device kernels ({n:.0f} kernels) per run, device "
+            f"idle {max(0.0, 1 - device_ms / host_ms):.1%} of the host time")
+
     mp = h * w / 1e6
-    log(f"times at {h}x{w} ({mp:g} MP), median of 10 by CUDA events: "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log(f"times at {h}x{w} ({mp:g} MP) by CUDA events, median of 10 (finish_plain: "
+        f"median of 3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
     log(f"develop Best {mp / (t['develop'] / 1e3):.2f} MP/s with the kernels, "
-        f"{mp / (t['develop_plain'] / 1e3):.2f} MP/s plain")
+        f"{mp / (t['develop_plain'] / 1e3):.2f} MP/s plain; finishing stages "
+        f"{mp / (t['finish'] / 1e3):.2f} MP/s with the kernels, "
+        f"{mp / (t['finish_plain'] / 1e3):.2f} MP/s plain")
+
+    # Bounds: bytes (inputs read once, outputs written once) and the plain
+    # versions' float32 operations on the same inputs.
+    px, strip_px = h * w, sum(c[0].numel() for c in strips)
+    ops = {
+        "ahd": float_ops(lambda: K.ahd_plain(frame.bayer, mat, wb, frame.is_hdr, stages, tail)),
+        "postprocess": float_ops(lambda: [postprocess_color_channels(*c) for c in strips]),
+        "rl": float_ops(lambda: K.rl_plain(luma, taps, iters)),
+        "lanczos4": float_ops(
+            lambda: K.remap_plain(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
+        "bilinear": float_ops(
+            lambda: K.remap_plain(srgb, mx, my, "bilinear", bounds, channels_last=True)),
+    }
+    nbytes = {
+        "ahd": px * (4 + 12),                 # mosaic in, (H, W, 3) out
+        "postprocess": strip_px * (12 + 12),  # three planes in, three out
+        "rl": px * 12 * iters,                # est and image in, est out, per iteration
+        "lanczos4": px * (8 + 12 + 12),       # two maps, (H, W, 3) in and out
+        "bilinear": px * (8 + 12 + 12),
+    }
+    b = {k: bound(nbytes[k], ops[k]) for k in ops}
+    log("bounds (NVIDIA H100 SXM, 3.35 TB/s, 67 TFLOP/s float32): " + ", ".join(
+        f"{k} {nbytes[k] / 1e6:.1f} MB, {ops[k] / 1e9:.2f} G ops "
+        f"({ops[k] / (strip_px if k == 'postprocess' else px):.1f} per px) -> "
+        f"{b[k][0]:.4f} ms by {b[k][1]}" for k in ops))
+    # The record keeps RL's per-launch bound (each of the 20 launches reads est
+    # and the image and writes est); the 20-iteration function as a whole
+    # needs the image read once and the estimate written once.
+    rl_whole = bound(px * 8, ops["rl"])
+    log(f"RL bound for the whole {iters}-iteration function: {px * 8 / 1e6:.1f} MB, "
+        f"{ops['rl'] / 1e9:.2f} G ops -> {rl_whole[0]:.4f} ms by {rl_whole[1]}; the kernel "
+        f"at {t['rl'] / b['rl'][0]:.2f}x the per-launch bound and "
+        f"{t['rl'] / rl_whole[0]:.2f}x the whole function's")
+
+    def record(name, counter, source, replaces, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": f"pysp_tpu_torch/csrc/{source}",
+                "replaces": f"pysp_tpu/ops/pallas_kernels.py:{replaces}",
+                "counter": counter, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
     return [
-        {"name": "ahd", "route": "cuda", "source": "pysp_tpu_torch/csrc/ahd.cu",
-         "replaces": "pysp_tpu/ops/pallas_kernels.py:672",
-         "max_abs_err": ahd_err, "ms": t["ahd"], "plain_ms": t["ahd_plain"]},
-        {"name": "postprocess_color", "route": "cuda",
-         "source": "pysp_tpu_torch/csrc/postprocess.cu",
-         "replaces": "pysp_tpu/ops/pallas_kernels.py:337",
-         "max_abs_err": pp_err, "ms": t["pp_strips"], "plain_ms": t["pp_strips_plain"]},
+        record("ahd", "ahd", "ahd.cu", 672, ahd_err, t["ahd"], t["ahd_plain"],
+               b["ahd"], None),
+        record("postprocess_color", "postprocess", "postprocess.cu", 337, pp_err,
+               t["pp_strips"], t["pp_strips_plain"], b["postprocess"], None),
+        record("rl_deconv", "rl", "rl.cu", 1544, rl_err, t["rl"], t["rl_plain"],
+               b["rl"], None),
+        dict(record("remap_lanczos4", "remap", "remap.cu", 1325, remap_err["lanczos4"],
+                    t["remap_lanczos4"], t["remap_lanczos4_plain"], b["lanczos4"], None),
+             bilinear={"max_abs_err": remap_err["bilinear"], "ms": t["remap_bilinear"],
+                       "plain_ms": t["remap_bilinear_plain"], "bound_ms": b["bilinear"][0],
+                       "bound_by": b["bilinear"][1], "library_ms": t["grid_sample"],
+                       "library": "torch.nn.functional.grid_sample",
+                       "library_max_abs_diff": gs_diff}),
     ]
 
 
@@ -289,10 +690,17 @@ def main() -> int:
 
     check_kernels_small()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, frame = main_path(tmp)
-    records = kernels_at_main_shapes(frame)
+        develop_launches, frame = main_path(tmp)
+        finishing_launches, lin, srgb, block = finishing_path(tmp)
+    records = kernels_at_main_shapes(frame, lin, srgb, block)
+    # Each path's counts were set to 0 just before it and read just after it;
+    # "launches" is their sum, "launches_by_path" each path's own.
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        counter = rec.pop("counter")
+        by_path = {"develop": develop_launches[counter],
+                   "finishing": finishing_launches[counter]}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
 
     log(json.dumps({"kernels": records}))
     log(card)

@@ -5,12 +5,16 @@ tensors, with hand-written CUDA kernels (``csrc/``) on the hot path, built with
 ``nvcc`` at first CUDA use. Importing the package imports neither JAX nor
 ``pysp_tpu``.
 
-Canonical flow:
+Entry points run on the GPU unless the caller asks for another device
+(``device="cpu"``); without a GPU the default raises. Canonical flow:
 
-    from pysp_tpu_torch import load_raw, develop, DevelopConfig, QualityDemosaic
-    frame = load_raw("shot.dng").to("cuda")
+    from pysp_tpu_torch import load_raw, develop, save_image, DevelopConfig, QualityDemosaic
+    frame = load_raw("shot.dng")  # on the card
     srgb = develop(frame, DevelopConfig(quality=QualityDemosaic.Best))
     save_image("out.tif", srgb)
+
+The command line: ``python -m pysp_tpu_torch develop shot.dng -o out.tif
+--deconv 1.0:20 --unsharp 0.5:2 --warp``.
 """
 
 from .const import BayerPattern, QualityDemosaic

@@ -1,0 +1,197 @@
+"""Command-line develop: ``python -m pysp_tpu_torch develop shot.dng -o out.tif``.
+
+Counterpart of ``pysp_tpu/cli.py`` for one input: load -> develop -> the
+linear-light filters (``--deconv``, ``--unsharp``, ``--blur``) -> clip and sRGB
+gamma -> the DNG OpcodeList3 warp (``--warp``) -> save, in the JAX CLI's order.
+The image stays on the device from the load to the save.
+
+The JAX CLI takes its device from JAX's backend; this one takes ``--device``,
+``cuda`` unless asked otherwise, and raises without a GPU. Every flag and
+subcommand that is not ported yet parses as in the JAX CLI and raises
+``NotImplementedError`` naming its ROADMAP.md item; so does an output format
+other than TIFF (through ``save_image``).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="pysp_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    dev = sub.add_parser("develop", help="develop a raw file to an sRGB image")
+    dev.add_argument("inputs", nargs="+", help="raw file path (uncompressed DNG)")
+    dev.add_argument("-o", "--output", help="output path (.tif) or directory")
+    dev.add_argument("--device", default="cuda",
+                     help="torch device to develop on (default: cuda)")
+    dev.add_argument("--quality", choices=["draft", "fast", "best"], default="best")
+    dev.add_argument("--postprocess", type=int, default=1,
+                     help="AHD chroma-median stages (best quality only)")
+    dev.add_argument("--no-gamma", action="store_true",
+                     help="emit linear sRGB instead of gamma-encoded")
+    dev.add_argument("--highlights", choices=["clip", "reconstruct"], default="clip")
+    dev.add_argument("--temperature", type=float, default=None)
+    dev.add_argument("--repair-hot-pixels", action="store_true")
+    dev.add_argument("--denoise", type=float, default=0.0, metavar="STRENGTH")
+    dev.add_argument("--ca", nargs="?", const="template", default=None,
+                     choices=["template", "gradient", "refine"])
+    dev.add_argument("--warp", action="store_true",
+                     help="apply the file's embedded DNG OpcodeList3 "
+                          "rectilinear warp to the output")
+    dev.add_argument("--unsharp", metavar="AMOUNT[:RADIUS]",
+                     help="Oklab-L unsharp mask on the linear image "
+                          "(default radius 2.0)")
+    dev.add_argument("--deconv", metavar="SIGMA[:ITERS]",
+                     help="Richardson-Lucy luma deconvolution on the linear "
+                          "image (default 20 iterations)")
+    dev.add_argument("--blur", type=float, metavar="SIGMA",
+                     help="Gaussian blur on the linear image")
+    dev.add_argument("--hdr", action="store_true")
+    dev.add_argument("--flat")
+    dev.add_argument("--dark")
+    dev.add_argument("--stats", action="store_true")
+    dev.add_argument("--bit-depth", type=int, choices=[8, 16], default=8,
+                     help="PNG sample depth (TIFF output is always 16-bit)")
+    dev.add_argument("--save-params", metavar="FILE")
+    dev.add_argument("--params", metavar="FILE")
+
+    info = sub.add_parser("info", help="print raw metadata (not ported yet)")
+    info.add_argument("input")
+    for name in ("harvest", "verify-decode"):
+        sub.add_parser(name, help="not ported yet").add_argument("inputs", nargs="+")
+    return p
+
+
+# Subcommands that are not ported, with the ROADMAP.md item that ports them.
+_SUBCOMMAND_ITEMS = {
+    "info": "queue A, item 15 (the host-only subcommands)",
+    "harvest": "queue A, item A5 (the camera-matrix autoharvest)",
+    "verify-decode": "queue A, item A6 (the other-format decoders)",
+}
+
+
+def _refuse_unported(args) -> None:
+    """Raise ``NotImplementedError`` for a develop flag that is not ported."""
+    corrections = "queue A, item 10 (corrections and the pipeline)"
+    unported = [
+        (len(args.inputs) > 1, "several inputs (the streamed develop)",
+         "queue A, item 15 (pipeline/stream.py)"),
+        (args.temperature is not None, "--temperature",
+         "queue A, item 15 (the rest of the CLI)"),
+        (args.repair_hot_pixels, "--repair-hot-pixels",
+         "queue A, item 9 and queue B, item B3 (the heal kernel)"),
+        (args.denoise > 0.0, "--denoise", corrections),
+        (args.flat is not None, "--flat", corrections),
+        (args.dark is not None, "--dark", corrections),
+        (args.hdr, "--hdr", corrections),
+        (args.ca is not None, "--ca", "queue A, item 13 (correct/ca)"),
+        (args.stats, "--stats", "queue A, item A7 (develop_with_stats)"),
+        (args.save_params is not None or args.params is not None,
+         "--save-params / --params", "queue A, item 13 (the CA sidecar)"),
+    ]
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to pysp_tpu_torch yet (ROADMAP.md {item})"
+            )
+
+
+def _split_spec(spec, default_second):
+    parts = str(spec).split(":")
+    return float(parts[0]), (float(parts[1]) if len(parts) > 1 else default_second)
+
+
+def _dst_for(args, src: str) -> str:
+    name = os.path.splitext(os.path.basename(src))[0] + ".tif"
+    if args.output is None:
+        return os.path.join(os.path.dirname(src), name)
+    if os.path.isdir(args.output):
+        return os.path.join(args.output, name)
+    return args.output
+
+
+def _apply_filters(args, out: torch.Tensor) -> torch.Tensor:
+    """The linear-light filters, then clip and gamma unless ``--no-gamma``."""
+    from .colorimetry.transforms import lin_srgb_to_srgb
+    from .filters.blur import blur_gaussian
+    from .filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
+
+    if args.deconv:
+        sigma, iters = _split_spec(args.deconv, 20.0)
+        out = gaussian_rt_deconvolution_yuv(out, sigma, int(iters))
+    if args.unsharp:
+        amount, radius = _split_spec(args.unsharp, 2.0)
+        out = unsharp_mask_lab(out, radius, amount)
+    if args.blur is not None:
+        out = blur_gaussian(out, args.blur)
+    if not args.no_gamma:
+        out = lin_srgb_to_srgb(torch.clamp(out, 0.0, 1.0))
+    return out
+
+
+def _apply_warp(out: torch.Tensor, src: str) -> torch.Tensor:
+    from .io.metadata import get_opcode_3_block
+    from .warp.opcodes import apply_opcode_3_warp
+
+    block = get_opcode_3_block(src)
+    if block is None:
+        print(f"{src}: no OpcodeList3 block; --warp skipped", file=sys.stderr)
+        return out
+    return apply_opcode_3_warp(out, block)
+
+
+def _develop(args) -> int:
+    from . import DevelopConfig, QualityDemosaic, develop, load_raw, save_image
+    from .core.device import resolve_device
+
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    quality = {
+        "draft": QualityDemosaic.Draft,
+        "fast": QualityDemosaic.Fast,
+        "best": QualityDemosaic.Best,
+    }[args.quality]
+    filtering = bool(args.unsharp or args.deconv or args.blur is not None)
+    cfg = DevelopConfig(
+        quality=quality,
+        postprocess_stages=args.postprocess,
+        # The filters work on LINEAR sRGB; gamma is applied after them.
+        gamma_encode=not args.no_gamma and not filtering,
+        highlights=args.highlights,
+    )
+
+    src = args.inputs[0]
+    t0 = time.time()
+    out = develop(load_raw(src, device=device), cfg)
+    if filtering:
+        out = _apply_filters(args, out)
+    if args.warp:
+        out = _apply_warp(out, src)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    dst = _dst_for(args, src)
+    save_image(dst, out)
+    mp = out.shape[0] * out.shape[1] / 1e6
+    print(f"{src} -> {dst}  ({mp:.1f} MP, {dt * 1e3:.0f} ms)")
+    return 0
+
+
+def main(argv=None) -> int:
+    args = _build_parser().parse_args(argv)
+    if args.command == "develop":
+        return _develop(args)
+    raise NotImplementedError(
+        f"the {args.command!r} subcommand is not ported to pysp_tpu_torch yet "
+        f"(ROADMAP.md {_SUBCOMMAND_ITEMS[args.command]})"
+    )
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -57,6 +57,14 @@ def cbrt(x: Tensor) -> Tensor:
     return y + (x / (y * y) - y) * (1.0 / 3.0)
 
 
+def cbrt_signed(x: Tensor) -> Tensor:
+    """Cube root of any real tensor, as ``jnp.cbrt``: :func:`cbrt` of ``|x|``
+    with the sign of ``x``, and 0 at 0."""
+    a = x.abs()
+    root = torch.where(a > 0, cbrt(torch.where(a > 0, a, 1.0)), 0.0)
+    return torch.copysign(root, x)
+
+
 def clip_rgb(rgb: Tensor) -> Tensor:
     """Clip an RGB image to [0,1]."""
     return torch.clamp(rgb, 0.0, 1.0)
@@ -122,6 +130,38 @@ def lin_srgb_to_srgb(rgb: Tensor) -> Tensor:
         rgb * 12.92,
         1.055 * torch.pow(torch.clamp(rgb, min=1e-12), 1.0 / 2.4) - 0.055,
     )
+
+
+def lin_srgb_to_oklab(lin_srgb: Tensor) -> Tensor:
+    """Linear sRGB (..., 3) -> Oklab (Björn Ottosson's constants)."""
+    r, g, b = lin_srgb[..., 0], lin_srgb[..., 1], lin_srgb[..., 2]
+
+    l = 0.4122214708 * r + 0.5363325363 * g + 0.0514459929 * b
+    m = 0.2119034982 * r + 0.6806995451 * g + 0.1073969566 * b
+    s = 0.0883024619 * r + 0.2817188376 * g + 0.6299787005 * b
+
+    lp, mp, sp = cbrt_signed(l), cbrt_signed(m), cbrt_signed(s)
+
+    ok_l = 0.2104542553 * lp + 0.7936177850 * mp - 0.0040720468 * sp
+    ok_a = 1.9779984951 * lp - 2.4285922050 * mp + 0.4505937099 * sp
+    ok_b = 0.0259040371 * lp + 0.7827717662 * mp - 0.8086757660 * sp
+    return torch.stack([ok_l, ok_a, ok_b], dim=-1)
+
+
+def oklab_to_lin_srgb(oklab: Tensor) -> Tensor:
+    """Oklab (..., 3) -> linear sRGB. No clamping applied."""
+    ok_l, ok_a, ok_b = oklab[..., 0], oklab[..., 1], oklab[..., 2]
+
+    lp = ok_l + 0.3963377774 * ok_a + 0.2158037573 * ok_b
+    mp = ok_l - 0.1055613458 * ok_a - 0.0638541728 * ok_b
+    sp = ok_l - 0.0894841775 * ok_a - 1.2914855480 * ok_b
+
+    l, m, s = lp * lp * lp, mp * mp * mp, sp * sp * sp
+
+    r = 4.0767416621 * l - 3.3077115913 * m + 0.2309699292 * s
+    g = -1.2684380046 * l + 2.6097574011 * m - 0.3413193965 * s
+    b = -0.0041960863 * l - 0.7034186147 * m + 1.7076147010 * s
+    return torch.stack([r, g, b], dim=-1)
 
 
 # --- CIELAB (cv2.cvtColor-compatible float path) -------------------------------------

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..const import BayerPattern
+from .device import CARD, resolve_device
 
 Tensor = torch.Tensor
 
@@ -84,10 +85,12 @@ class RawFrame:
         lim_sat,
         is_hdr: bool = False,
         source_pattern: BayerPattern = BayerPattern.Rggb,
-        device="cpu",
+        device=CARD,
     ) -> "RawFrame":
         """Build a frame from NumPy arrays (or anything ``np.asarray`` takes),
-        copied into float32 contiguous tensors on ``device``."""
+        copied into float32 contiguous tensors on ``device`` (the card unless
+        the caller asks for another)."""
+        device = resolve_device(device)
         return cls(
             bayer=_f32(bayer, device),
             cam_mat=_f32(cam_mat, device),
@@ -110,9 +113,10 @@ class RawFrame:
         lim_sat: float = 1.0,
         is_hdr: bool = False,
         source_pattern: BayerPattern = BayerPattern.Rggb,
-        device="cpu",
+        device=CARD,
     ) -> "RawFrame":
-        """Build a frame with identity colour metadata, for tests and benchmarks."""
+        """Build a frame with identity colour metadata, for tests and benchmarks,
+        on ``device`` (the card unless the caller asks for another)."""
         return cls.from_numpy(
             bayer,
             np.eye(3) if cam_mat is None else cam_mat,

@@ -19,6 +19,7 @@ import torch
 from ..colorimetry.wb import CameraWhiteBalanceController
 from ..const import BayerPattern
 from ..core.bayer import reversible_transform_rggb
+from ..core.device import CARD, resolve_device
 from ..core.frame import RawFrame
 from . import tiff as T
 from .metadata import (
@@ -115,12 +116,14 @@ def _black_white_levels(raw_ifd: T.Ifd, n: int = 4) -> Tuple[np.ndarray, np.ndar
     return black[:n].astype(np.float64), white[:n].astype(np.float64)
 
 
-def load_raw_dng(source: Source, device="cpu") -> RawFrame:
-    """Load an uncompressed DNG through the built-in parser onto ``device``.
+def load_raw_dng(source: Source, device=CARD) -> RawFrame:
+    """Load an uncompressed DNG through the built-in parser onto ``device``
+    (the card unless the caller asks for another; see ``core.device``).
 
     Raises ``NotImplementedError`` for a DNG that carries OpcodeList1 or
     OpcodeList2: the opcode decoders are not ported yet, and skipping them would
     develop a different image than the JAX package does."""
+    device = resolve_device(device)
     tf = T.read_tiff(source)
     raw_ifd = tf.find_raw_ifd()
     if raw_ifd is None:
@@ -179,9 +182,11 @@ def frame_from_parts(
     ev: float,
     lim_sat: float = 1.0,
     is_hdr: bool = False,
-    device="cpu",
+    device=CARD,
 ) -> RawFrame:
-    """Assemble a canonical-RGGB RawFrame on ``device`` from decoded parts."""
+    """Assemble a canonical-RGGB RawFrame on ``device`` (the card unless the
+    caller asks for another) from decoded parts."""
+    device = resolve_device(device)
     canonical = reversible_transform_rggb(
         torch.from_numpy(np.ascontiguousarray(sensor_scaled, np.float32)), pattern
     )
@@ -211,9 +216,11 @@ def _is_dng(source: Source) -> bool:
     return bool(ifds) and ifds[0].get(T.TAG_DNG_VERSION) is not None
 
 
-def load_raw(source: Source, device="cpu") -> RawFrame:
-    """Load a raw file onto ``device``. Only DNGs are ported: any other format
-    raises ``NotImplementedError``."""
+def load_raw(source: Source, device=CARD) -> RawFrame:
+    """Load a raw file onto ``device``: the card unless the caller asks for
+    another, such as ``device="cpu"``. Without a GPU the default raises. Only
+    DNGs are ported: any other format raises ``NotImplementedError``."""
+    device = resolve_device(device)
     if not _is_dng(source):
         raise NotImplementedError(
             "pysp_tpu_torch decodes DNG only; the other raw formats are not "

@@ -1,11 +1,15 @@
 """The port's hand-written CUDA kernels for Hopper and their Python wrappers.
 
-Two kernels, both CUDA C++ under ``pysp_tpu_torch/csrc/``:
+Four kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``:
 
 - ``ahd.cu``: the whole AHD demosaic plus the optional develop colour tail,
   counterpart of ``pysp_tpu/ops/pallas_kernels.py::ahd_mega_pallas``;
 - ``postprocess.cu``: one AHD chroma-median stage, counterpart of
-  ``pysp_tpu/ops/pallas_kernels.py::postprocess_color_pallas_channels``.
+  ``pysp_tpu/ops/pallas_kernels.py::postprocess_color_pallas_channels``;
+- ``rl.cu``: one Richardson-Lucy iteration over every channel, counterpart of
+  ``pysp_tpu/ops/pallas_kernels.py::rl_deconv_pallas``;
+- ``remap.cu``: the bilinear / Lanczos4 remap over every channel, counterpart
+  of ``pysp_tpu/ops/pallas_kernels.py::remap_bounded_pallas``.
 
 At the first CUDA call the sources are compiled with ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface under
@@ -16,7 +20,8 @@ PyTorch's current stream and allocate nothing; the wrappers allocate outputs.
 A wrapper given CPU tensors runs the kernel's plain PyTorch version instead;
 given CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches in a module-level integer (``ahd_kernel_launches``,
-``postprocess_kernel_launches``), incremented only where the kernel launches.
+``postprocess_kernel_launches``, ``rl_kernel_launches``,
+``remap_kernel_launches``), incremented only where the kernel launches.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ Tensor = torch.Tensor
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("ahd.cu", "postprocess.cu")
+_SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu")
 _HEADERS = ("median5.cuh",)
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
@@ -51,8 +56,14 @@ NVCC_FLAGS = (
 # Chroma-median stages the AHD kernel takes (a template parameter in ahd.cu).
 AHD_MAX_STAGES = 2
 
+# The RL kernel's largest PSF reach (taps // 2), as the JAX kernel's gate.
+RL_MAX_REACH = 32
+REMAP_KINDS = ("bilinear", "lanczos4")
+
 ahd_kernel_launches = 0
 postprocess_kernel_launches = 0
+rl_kernel_launches = 0
+remap_kernel_launches = 0
 
 # The loaded library and what its build printed; set by load_library().
 _lib = None
@@ -111,6 +122,12 @@ def load_library() -> ctypes.CDLL:
     lib.pysp_ahd.restype = i32
     lib.pysp_postprocess_color.argtypes = [ptr] * 6 + [i32, i32, ptr]
     lib.pysp_postprocess_color.restype = i32
+    i64 = ctypes.c_longlong
+    lib.pysp_rl_iter.argtypes = [ptr, ptr, ptr, i32, i32, i32, i64, i32,
+                                 ctypes.POINTER(ctypes.c_float), i32, ptr]
+    lib.pysp_rl_iter.restype = i32
+    lib.pysp_remap.argtypes = [ptr] * 4 + [i32] * 3 + [i64, i32, i64] + [i32] * 6 + [ptr]
+    lib.pysp_remap.restype = i32
     _lib = lib
     return lib
 
@@ -247,3 +264,172 @@ def postprocess_color_kernel(r: Tensor, g: Tensor, b: Tensor):
     _raise_on_error(err, "postprocess kernel")
     postprocess_kernel_launches += 1
     return out[0], out[1], out[2]
+
+
+def _layout(t: Tensor, channels_last: bool):
+    """(H, W, C, plane stride, pixel stride) of a contiguous (H, W), (C, H, W)
+    or, with ``channels_last``, (H, W, C) tensor, in elements."""
+    if t.ndim == 2:
+        h, w = t.shape
+        return h, w, 1, h * w, 1
+    if t.ndim != 3:
+        raise ValueError(f"image must be 2-D or 3-D, got {tuple(t.shape)}")
+    if channels_last:
+        h, w, c = t.shape
+        return h, w, c, 1, c
+    c, h, w = t.shape
+    return h, w, c, h * w, 1
+
+
+# --- Richardson-Lucy iteration ----------------------------------------------------
+
+
+def rl_kernel_admits(shape, taps) -> bool:
+    """Whether the RL kernel takes an (H, W) or (H, W, C) image of ``shape``
+    with these 1-D taps: an odd count of at least 3 taps, reach (taps // 2) at
+    most ``RL_MAX_REACH``, and H and W at least twice the reach, the gate of
+    the JAX package's kernel. The caller runs the plain loop for the rest."""
+    n = len(np.asarray(taps).reshape(-1))
+    reach = n // 2
+    return (
+        len(shape) in (2, 3) and n >= 3 and n % 2 == 1 and reach <= RL_MAX_REACH
+        and shape[0] >= 2 * reach and shape[1] >= 2 * reach
+    )
+
+
+def rl_kernel(image: Tensor, taps, iterations: int) -> Tensor:
+    """``iterations`` Richardson-Lucy iterations with the separable symmetric
+    PSF ``taps`` on an (H, W) or (H, W, C) float32 image, starting from the
+    image, by the RL kernel: one launch per iteration over every channel, the
+    estimate in two buffers that take turns. Equal to :func:`rl_plain`, which
+    runs instead on CPU tensors. Raises for an image outside
+    :func:`rl_kernel_admits`."""
+    global rl_kernel_launches
+    taps = np.asarray(taps, np.float32).reshape(-1)
+    if image.device.type == "cpu":
+        return rl_plain(image, taps, iterations)
+    if not rl_kernel_admits(tuple(image.shape), taps):
+        raise ValueError(
+            f"the RL kernel does not take {len(taps)} taps on {tuple(image.shape)} "
+            f"(odd taps, reach <= {RL_MAX_REACH}, H and W >= 2 * reach)"
+        )
+    image = image.contiguous()
+    _check(image, "image")
+    h, w, c, plane, pix = _layout(image, channels_last=True)
+    host_taps = (ctypes.c_float * len(taps))(*taps.tolist())
+    bufs = (torch.empty_like(image), torch.empty_like(image))
+    lib = load_library()
+    est = image
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        for it in range(int(iterations)):
+            out = bufs[it % 2]
+            err = lib.pysp_rl_iter(
+                est.data_ptr(), image.data_ptr(), out.data_ptr(), h, w, c, plane, pix,
+                host_taps, len(taps), stream,
+            )
+            _raise_on_error(err, "RL kernel")
+            rl_kernel_launches += 1
+            est = out
+    return est
+
+
+def rl_plain(image: Tensor, taps, iterations: int) -> Tensor:
+    """The RL kernel's plain version, the JAX package's loop:
+    ``est <- est * blur(image / (blur(est) + 1e-25))`` with the separable blur
+    of ``filters.blur.blur_taps`` (symmetric border)."""
+    from ..filters.blur import blur_taps
+
+    taps = np.asarray(taps, np.float32).reshape(-1)
+    est = image
+    for _ in range(int(iterations)):
+        blurred = blur_taps(est, taps)
+        est = est * blur_taps(image / (blurred + 1e-25), taps)
+    return est
+
+
+# --- remap ------------------------------------------------------------------------
+
+
+def _check_remap_args(img, map_x, map_y, kind, bounds, channels_last):
+    if kind not in REMAP_KINDS:
+        raise ValueError(f"remap kind must be one of {REMAP_KINDS}, got {kind!r}")
+    if map_x.shape != map_y.shape or map_x.ndim not in (2, 3):
+        raise ValueError(
+            f"maps must be (H, W) or (C, H, W) and alike, got {tuple(map_x.shape)} "
+            f"and {tuple(map_y.shape)}"
+        )
+    if channels_last and img.ndim != 3:
+        raise ValueError(f"a channels-last image must be (H, W, C), got {tuple(img.shape)}")
+    h, w, c = _layout(img, channels_last)[:3]
+    if tuple(map_x.shape[-2:]) != (h, w):
+        raise ValueError(f"maps {tuple(map_x.shape)} do not fit the image {tuple(img.shape)}")
+    if map_x.ndim == 3 and (img.ndim != 3 or map_x.shape[0] != c):
+        raise ValueError(
+            f"per-channel maps {tuple(map_x.shape)} need an image with "
+            f"{map_x.shape[0]} channels, got {tuple(img.shape)}"
+        )
+    if bounds is not None and any(int(lo) > int(hi) for lo, hi in bounds):
+        raise ValueError(f"bounds must be ((dy0, dy1), (dx0, dx1)) with lo <= hi, got {bounds}")
+
+
+def remap_kernel(
+    img: Tensor, map_x: Tensor, map_y: Tensor, kind: str = "bilinear",
+    bounds=None, channels_last: bool = False,
+) -> Tensor:
+    """Remap ``img`` by the remap kernel, one launch over every channel.
+
+    ``img`` is an (H, W) plane, a (C, H, W) stack or, with ``channels_last``,
+    an (H, W, C) image, and the result has its layout. The maps are float32
+    (H, W), shared by the channels, or (C, H, W), one per channel. ``kind`` is
+    "bilinear" or "lanczos4". ``bounds = ((dy0, dy1), (dx0, dx1))`` clips each
+    floor displacement from the identity grid into them first (the bounded
+    remap); None is the plain gather. Equal to :func:`remap_plain`, which runs
+    instead on CPU tensors."""
+    global remap_kernel_launches
+    _check_remap_args(img, map_x, map_y, kind, bounds, channels_last)
+    if img.device.type == "cpu":
+        return remap_plain(img, map_x, map_y, kind, bounds, channels_last)
+    img, map_x, map_y = img.contiguous(), map_x.contiguous(), map_y.contiguous()
+    _check(img, "img")
+    _check(map_x, "map_x", device=img.device)
+    _check(map_y, "map_y", device=img.device)
+    h, w, c, plane, pix = _layout(img, channels_last)
+    map_plane = h * w if map_x.ndim == 3 else 0
+    (dy0, dy1), (dx0, dx1) = bounds if bounds is not None else ((0, 0), (0, 0))
+    out = torch.empty_like(img)
+    lib = load_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.pysp_remap(
+            img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(), out.data_ptr(),
+            h, w, c, plane, pix, map_plane, REMAP_KINDS.index(kind),
+            int(bounds is not None), int(dy0), int(dy1), int(dx0), int(dx1), stream,
+        )
+    _raise_on_error(err, "remap kernel")
+    remap_kernel_launches += 1
+    return out
+
+
+def remap_plain(
+    img: Tensor, map_x: Tensor, map_y: Tensor, kind: str = "bilinear",
+    bounds=None, channels_last: bool = False,
+) -> Tensor:
+    """The remap kernel's plain version: ``ops.resample``'s gather remaps
+    (``remap_at_bounds`` with bounds), plane by plane where the maps are per
+    channel."""
+    from .resample import remap_at_bounds, remap_bilinear, remap_lanczos4
+
+    _check_remap_args(img, map_x, map_y, kind, bounds, channels_last)
+
+    def one(planes, mx, my):
+        if bounds is not None:
+            return remap_at_bounds(planes, mx, my, bounds[0], bounds[1], kind)
+        return (remap_lanczos4 if kind == "lanczos4" else remap_bilinear)(planes, mx, my)
+
+    planes = img.movedim(-1, 0) if channels_last else img
+    if map_x.ndim == 3:
+        out = torch.stack([one(planes[k], map_x[k], map_y[k]) for k in range(map_x.shape[0])])
+    else:
+        out = one(planes, map_x, map_y)
+    return out.movedim(0, -1).contiguous() if channels_last else out

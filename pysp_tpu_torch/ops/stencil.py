@@ -106,6 +106,13 @@ def filter2d(x: Tensor, kernel, border: str = "reflect101") -> Tensor:
     return _conv_valid(pad_fn(x, (pt, pb, pl, pr)), kernel)
 
 
+def filter2d_hwc(x: Tensor, kernel, border: str = "reflect101") -> Tensor:
+    """filter2d for channel-last images (H, W, C) or single-channel (H, W)."""
+    if x.ndim == 2:
+        return filter2d(x, kernel, border)
+    return filter2d(x.movedim(-1, 0), kernel, border).movedim(0, -1)
+
+
 def box_sum3(x: Tensor) -> Tensor:
     """Unnormalized 3x3 box sum (reflect101 border). On integer-valued inputs
     (the AHD homogeneity counts) every sum is exact."""

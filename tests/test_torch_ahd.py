@@ -41,7 +41,8 @@ def _frames(h, w, seed, is_hdr=False):
     """The same scene as a pysp_tpu frame and, from its NumPy leaves, a port frame."""
     jf = JaxFrame.synthetic(mosaic_rggb(make_scene(h, w, seed=seed)), cam_mat=CAM,
                             wb_neutral=WB, is_hdr=is_hdr)
-    tf = RawFrame.from_numpy(*(np.asarray(getattr(jf, k)) for k in FIELDS), is_hdr=is_hdr)
+    tf = RawFrame.from_numpy(*(np.asarray(getattr(jf, k)) for k in FIELDS), is_hdr=is_hdr,
+                             device="cpu")
     return jf, tf
 
 

@@ -1,0 +1,124 @@
+"""The port's command line (``python -m pysp_tpu_torch develop``) on the CPU.
+
+The finishing path, ``develop --device cpu --deconv --unsharp --warp``, is held
+against the same chain composed from the JAX package's functions, run op by
+op (``jax.disable_jit()``), on the 16-bit TIFF it writes.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pysp_tpu.colorimetry.transforms import lin_srgb_to_srgb
+from pysp_tpu.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
+from pysp_tpu.io.raw_loader import load_raw_dng as jax_load_raw_dng
+from pysp_tpu.pipeline.develop import DevelopConfig, develop
+from pysp_tpu.warp.opcodes import apply_opcode_3_warp
+from pysp_tpu_torch.cli import main
+from pysp_tpu_torch.io import tiff as T
+from pysp_tpu_torch.io.image_out import to_uint16
+from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.warp.opcodes import encode_warp_rectilinear
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+# The AHD tie-flip floor of DIVERGENCES.md on synthetic quantized scenes.
+MIN_PSNR = 50.0
+WARP = [(1.0, -0.02, 0.0, 0.0, 0.0, 0.0)] * 3
+
+
+@pytest.fixture(scope="module")
+def warped_dng(tmp_path_factory):
+    """A 160x192 RGGB DNG carrying an OpcodeList3 WarpRectilinear block."""
+    rgb = make_scene(160, 192, seed=3)
+    u16 = (200 + mosaic_rggb(rgb) * 3800).astype(np.uint16)
+    block = encode_warp_rectilinear(WARP, (0.5, 0.5))
+    path = tmp_path_factory.mktemp("cli") / "shot.dng"
+    path.write_bytes(T.write_synthetic_dng(u16, opcode_list_3=block))
+    return path, block
+
+
+def _read_rgb16(path) -> np.ndarray:
+    tf = T.read_tiff(str(path))
+    ifd = tf.ifds[0]
+    h = ifd.require(T.TAG_IMAGE_LENGTH).as_ints()[0]
+    w = ifd.require(T.TAG_IMAGE_WIDTH).as_ints()[0]
+    (offset,) = ifd.require(T.TAG_STRIP_OFFSETS).as_ints()
+    data = np.frombuffer(tf.data, dtype=tf.endian + "u2", count=h * w * 3, offset=offset)
+    return data.reshape(h, w, 3)
+
+
+def test_finishing_path_matches_the_jax_chain(warped_dng, tmp_path):
+    path, block = warped_dng
+    out = tmp_path / "out.tif"
+    assert main(["develop", str(path), "-o", str(out), "--device", "cpu",
+                 "--deconv", "1.0:20", "--unsharp", "0.5:2", "--warp"]) == 0
+    got = _read_rgb16(out)
+
+    with jax.disable_jit():
+        img = develop(jax_load_raw_dng(path.read_bytes()), DevelopConfig(gamma_encode=False))
+        img = gaussian_rt_deconvolution_yuv(img, 1.0, 20)
+        img = unsharp_mask_lab(img, 2.0, 0.5)
+        img = lin_srgb_to_srgb(jnp.clip(img, 0.0, 1.0))
+        img = np.asarray(apply_opcode_3_warp(img, block))
+    want = to_uint16(img)
+    assert got.shape == want.shape == (160, 192, 3)
+    assert psnr(got.astype(np.float64) / 65535, want.astype(np.float64) / 65535) >= MIN_PSNR
+
+
+def test_the_cli_runs_as_a_module(warped_dng, tmp_path):
+    path, _ = warped_dng
+    out = tmp_path / "plain.tif"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pysp_tpu_torch", "develop", str(path), "-o", str(out),
+         "--device", "cpu", "--blur", "0.8", "--no-gamma"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert f"-> {out}" in proc.stdout
+    assert _read_rgb16(out).shape == (160, 192, 3)
+
+
+def test_the_cli_defaults_to_the_card(warped_dng, tmp_path):
+    """Without --device the CLI develops on the card; with no GPU it raises."""
+    path, _ = warped_dng
+    args = ["develop", str(path), "-o", str(tmp_path / "card.tif")]
+    if torch.cuda.is_available():
+        assert main(args) == 0
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--ca"], "item 13"),
+    (["--repair-hot-pixels"], "B3"),
+    (["--denoise", "1.0"], "item 10"),
+    (["--hdr"], "item 10"),
+    (["--stats"], "A7"),
+    (["--temperature", "5000"], "item 15"),
+    (["--params", "p.json"], "item 13"),
+])
+def test_unported_flags_name_their_roadmap_item(warped_dng, flags, item):
+    path, _ = warped_dng
+    with pytest.raises(NotImplementedError, match=item):
+        main(["develop", str(path), "--device", "cpu", *flags])
+
+
+def test_unported_outputs_and_subcommands_raise(warped_dng, tmp_path):
+    path, _ = warped_dng
+    with pytest.raises(NotImplementedError, match="A3"):
+        main(["develop", str(path), "--device", "cpu", "-o", str(tmp_path / "x.png")])
+    with pytest.raises(NotImplementedError, match="A1"):
+        main(["develop", str(path), "--device", "cpu", "--quality", "fast"])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        main(["develop", str(path), str(path), "--device", "cpu"])
+    for sub in ("info", "harvest", "verify-decode"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main([sub, str(path)])

@@ -104,3 +104,168 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.ahd_kernel(frame.bayer, mat, wb, False, K.AHD_MAX_STAGES + 1)
     with pytest.raises(ValueError, match="shape"):
         K.postprocess_color_kernel(frame.bayer, frame.bayer, frame.bayer[:32])
+
+
+# --- the finishing path's kernels: RL and remap -------------------------------------
+
+RL_ATOL = 2e-6       # after 20 iterations on values in [0, 1]
+REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
+
+
+def _rl_image(h, w, channels, device):
+    img = np.clip(make_scene(h, w, seed=h) * 0.9 + 0.05, 0.01, 1.0)
+    img = img[..., 1] if channels == 1 else img
+    return torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(device)
+
+
+@pytest.mark.parametrize("sigma,iters", [(1.0, 3), (1.0, 20), (2.0, 20)])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_rl_kernel_against_plain(cuda, sigma, iters, channels):
+    """One launch per iteration over every channel, on a frame that is not a
+    whole number of 32x32 tiles."""
+    from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
+
+    img = _rl_image(203, 330, channels, cuda)
+    taps = get_1d_gaussian_filter(sigma)
+    before = K.rl_kernel_launches
+    got = K.rl_kernel(img, taps, iters)
+    assert K.rl_kernel_launches == before + iters
+    want = K.rl_plain(img, taps, iters)
+    assert (got - want).abs().max().item() <= RL_ATOL
+
+
+def test_rl_gate_on_the_card(cuda):
+    """Inside the gate gaussian_rt_deconvolution launches the kernel; outside it
+    (H < 2 * reach) runs the plain loop; the wrapper itself raises there."""
+    from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
+    from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution
+
+    taps = get_1d_gaussian_filter(2.0)
+    small = _rl_image(64, 80, 1, cuda)[:10].contiguous()
+    before = K.rl_kernel_launches
+    out = gaussian_rt_deconvolution(small, 2.0, 3)
+    assert K.rl_kernel_launches == before
+    assert torch.equal(out, K.rl_plain(small, taps, 3))
+    with pytest.raises(ValueError, match="RL kernel"):
+        K.rl_kernel(small, taps, 3)
+    gaussian_rt_deconvolution(_rl_image(64, 80, 3, cuda), 2.0, 3)
+    assert K.rl_kernel_launches == before + 3
+
+
+def _remap_maps(h, w, channels, device):
+    from pysp_tpu_torch.warp.rectilinear import compute_remapping_table
+
+    xs, ys = [], []
+    for k in range(channels):
+        co = (1.0, -0.02 + 0.006 * k, 0.002, 0.0, 0.001, -0.001)
+        mx, my = compute_remapping_table(co, w, h, (0.45, 0.55), device=device)
+        xs.append(mx.clamp(0, w - 1))
+        ys.append(my.clamp(0, h - 1))
+    return torch.stack(xs), torch.stack(ys)
+
+
+@pytest.mark.parametrize("kind", ["bilinear", "lanczos4"])
+@pytest.mark.parametrize("bounds", [None, ((-3, 1), (-2, 3))])
+@pytest.mark.parametrize("channels,maps", [(1, "shared"), (3, "shared"), (3, "per_channel")])
+def test_remap_kernel_against_plain(cuda, kind, bounds, channels, maps):
+    """(H, W) planes and (H, W, C) images, maps shared or per channel, bounded
+    (tighter than the maps' displacement) or not."""
+    h, w = 203, 330
+    img = _rl_image(h, w, channels, cuda)
+    mx, my = _remap_maps(h, w, channels if maps == "per_channel" else 1, cuda)
+    if maps == "shared":
+        mx, my = mx[0], my[0]
+    before = K.remap_kernel_launches
+    got = K.remap_kernel(img, mx, my, kind, bounds, channels_last=channels > 1)
+    assert K.remap_kernel_launches == before + 1
+    want = K.remap_plain(img, mx, my, kind, bounds, channels_last=channels > 1)
+    assert (got - want).abs().max().item() <= REMAP_ATOL[kind]
+
+
+def _plain_warp(img, co, center):
+    """The lens warp of one coefficient set shared by every channel, through
+    the remap kernel's plain version with the warp's own bounds."""
+    from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
+
+    h, w = img.shape[0], img.shape[1]
+    mx, my = compute_remapping_table(co, w, h, center, device=img.device)
+    bounds = displacement_bounds(co, w, h, center)
+    return K.remap_plain(img, mx.clamp(0, w - 1), my.clamp(0, h - 1), "lanczos4", bounds,
+                         channels_last=True)
+
+
+def test_finishing_path_with_kernels_against_plain(cuda):
+    """deconv (RL kernel) -> unsharp -> gamma -> lens warp (remap kernel)
+    against the same stages composed from the plain versions on the card."""
+    from pysp_tpu_torch.colorimetry.transforms import lin_srgb_to_srgb
+    from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
+    from pysp_tpu_torch.filters.sharpen import (
+        gaussian_rt_deconvolution_yuv,
+        unsharp_mask_lab,
+    )
+    from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
+
+    co, center = (1.0, -0.02, 0.0, 0.0, 0.0, 0.0), (0.5, 0.5)
+    block = encode_warp_rectilinear([co] * 3, center)
+    lin = _rl_image(256, 320, 3, cuda)
+
+    def sharpen(deconv):
+        return lin_srgb_to_srgb(torch.clamp(unsharp_mask_lab(deconv, 2.0, 0.5), 0.0, 1.0))
+
+    before = (K.rl_kernel_launches, K.remap_kernel_launches)
+    got = apply_opcode_3_warp(sharpen(gaussian_rt_deconvolution_yuv(lin, 1.0, 20)), block)
+    assert (K.rl_kernel_launches, K.remap_kernel_launches) == (before[0] + 20, before[1] + 1)
+    y = 0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]
+    y_mod = K.rl_plain(y, get_1d_gaussian_filter(1.0), 20)
+    want = _plain_warp(sharpen(lin * (y_mod / y)[..., None]), co, center)
+    assert (K.rl_kernel_launches, K.remap_kernel_launches) == (before[0] + 20, before[1] + 1)
+    assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_bounded_and_prior_warps_with_kernels_against_plain(cuda):
+    """remap_bounded and the prior-composed per-channel warp with the remap
+    kernel, against the same remaps through its plain version on the card."""
+    from pysp_tpu_torch.ops.resample import remap_bounded
+    from pysp_tpu_torch.warp.opcodes import (
+        apply_opcode_3_warp,
+        encode_warp_rectilinear,
+        stack_warp_prior,
+    )
+    from pysp_tpu_torch.warp.rectilinear import compute_offset_remapping_table
+
+    h, w = 120, 170
+    img = _rl_image(h, w, 3, cuda)
+    mx, my = _remap_maps(h, w, 3, cuda)
+    planes = img.permute(2, 0, 1).contiguous()
+    for kind in ("bilinear", "lanczos4"):
+        before = K.remap_kernel_launches
+        got = remap_bounded(planes, mx, my, (-3, 1), (-2, 3), kind)
+        assert K.remap_kernel_launches == before + 1
+        want = remap_bounded(planes, mx, my, (-3, 1), (-2, 3), kind, use_pallas=False)
+        assert K.remap_kernel_launches == before + 1
+        assert (got - want).abs().max().item() <= REMAP_ATOL[kind]
+    co, center = (1.0, -0.02, 0.0, 0.0, 0.0, 0.0), (0.5, 0.5)
+    block = encode_warp_rectilinear([co] * 3, center)
+    prior = stack_warp_prior((h, w), (mx[0], my[0]), None, (mx[2], my[2]))
+    before = K.remap_kernel_launches
+    got = apply_opcode_3_warp(img, block, prior=prior)
+    assert K.remap_kernel_launches == before + 3
+    want = []
+    for idx in range(3):
+        tx, ty = compute_offset_remapping_table(prior[idx][0], prior[idx][1], co, w, h, center)
+        want.append(K.remap_plain(img[..., idx].contiguous(), tx.clamp(0, w - 1),
+                                  ty.clamp(0, h - 1), "lanczos4"))
+    assert K.remap_kernel_launches == before + 3
+    assert (got - torch.stack(want, dim=-1)).abs().max().item() <= REMAP_ATOL["lanczos4"]
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    img = _rl_image(64, 80, 3, cuda)
+    mx, my = _remap_maps(64, 80, 1, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        K.rl_kernel(img.double(), np.ones(3, np.float32), 1)
+    with pytest.raises(TypeError, match="float32"):
+        K.remap_kernel(img.double(), mx[0], my[0], "bilinear", channels_last=True)
+    with pytest.raises(ValueError, match="kind"):
+        K.remap_kernel(img, mx[0], my[0], "bicubic", channels_last=True)

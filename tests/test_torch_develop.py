@@ -42,7 +42,7 @@ def _frames(pattern="rggb", identity=False, seed=0, h=160, w=192):
     jf = JaxFrame.synthetic(mosaic_rggb(make_scene(h, w, seed=seed)),
                             source_pattern=jax_pattern, **meta)
     tf = RawFrame.from_numpy(*(np.asarray(getattr(jf, k)) for k in FIELDS),
-                             source_pattern=BayerPattern(int(jax_pattern)))
+                             source_pattern=BayerPattern(int(jax_pattern)), device="cpu")
     return jf, tf
 
 

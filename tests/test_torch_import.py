@@ -15,6 +15,13 @@ MODULES = [
     "pysp_tpu_torch.ops.cuda_kernels",
     "pysp_tpu_torch.colorimetry.wb",
     "pysp_tpu_torch.utils.testing",
+    "pysp_tpu_torch.core.device",
+    "pysp_tpu_torch.filters.blur",
+    "pysp_tpu_torch.filters.sharpen",
+    "pysp_tpu_torch.ops.resample",
+    "pysp_tpu_torch.warp.rectilinear",
+    "pysp_tpu_torch.warp.opcodes",
+    "pysp_tpu_torch.cli",
 ]
 
 

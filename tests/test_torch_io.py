@@ -39,7 +39,7 @@ def test_load_raw_matches_jax(pattern, geometry, tmp_path):
     path.write_bytes(blob)
     want = jax_load_raw_dng(blob)
     for source in (blob, str(path)):
-        got = load_raw(source)
+        got = load_raw(source, device="cpu")
         assert got.source_pattern == want.source_pattern == want_pattern
         assert got.is_hdr == want.is_hdr
         for k in FIELDS:
@@ -48,6 +48,18 @@ def test_load_raw_matches_jax(pattern, geometry, tmp_path):
             np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(want, k)), err_msg=k)
     if geometry == "area_crop":
         assert tuple(got.bayer.shape) == (52, 64)
+
+
+def test_load_raw_defaults_to_the_card(tmp_path):
+    """Without ``device`` the frame goes to the card; with no GPU the call
+    raises instead of loading onto the CPU."""
+    path = tmp_path / "shot.dng"
+    path.write_bytes(JT.write_synthetic_dng(_bayer_u16()))
+    if torch.cuda.is_available():
+        assert load_raw(str(path)).bayer.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_raw(str(path))
 
 
 def _with_compression(blob: bytes, compression: int) -> bytes:
@@ -62,14 +74,14 @@ def _with_compression(blob: bytes, compression: int) -> bytes:
 def test_lossless_jpeg_dng_not_ported():
     blob = _with_compression(JT.write_synthetic_dng(_bayer_u16()), 7)
     with pytest.raises(NotImplementedError, match="LJ92"):
-        load_raw(blob)
+        load_raw(blob, device="cpu")
 
 
 def test_opcode_lists_not_ported():
     for key in ("opcode_list_1", "opcode_list_2"):
         blob = JT.write_synthetic_dng(_bayer_u16(), **{key: b"\x00\x00\x00\x00"})
         with pytest.raises(NotImplementedError, match="OpcodeList"):
-            load_raw(blob)
+            load_raw(blob, device="cpu")
 
 
 def test_non_dng_sources_not_ported(tmp_path):
@@ -77,7 +89,7 @@ def test_non_dng_sources_not_ported(tmp_path):
     image_out.save_tiff16(str(rgb_tif), np.zeros((4, 6, 3), np.float32))
     for source in (b"not a raw file at all", str(rgb_tif)):
         with pytest.raises(NotImplementedError, match="DNG only"):
-            load_raw(source)
+            load_raw(source, device="cpu")
 
 
 def test_save_image_tiff_matches_jax_writer(tmp_path):

@@ -43,23 +43,32 @@ DRIVER = r"""
 #define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(n)
+#define __ldg(p) (*(p))
 struct Dim3 { unsigned x, y, z; };
 static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 static inline void __syncthreads() {}
 namespace { float smem[1 << 17]; }
 #include KERNEL_SOURCE
-static void each_block(int H, int W, void (*run)(void*), void* arg) {
-  for (unsigned by = 0; by < (unsigned)((H + kTile - 1) / kTile); ++by)
-    for (unsigned bx = 0; bx < (unsigned)((W + kTile - 1) / kTile); ++bx) {
-      blockIdx.x = bx;
-      blockIdx.y = by;
-      memset(smem, 0xff, sizeof(smem));
-      run(arg);
-    }
+static void each_block(unsigned gx, unsigned gy, unsigned gz, void (*run)(void*),
+                       void* arg) {
+  for (unsigned bz = 0; bz < gz; ++bz)
+    for (unsigned by = 0; by < gy; ++by)
+      for (unsigned bx = 0; bx < gx; ++bx) {
+        blockIdx.x = bx;
+        blockIdx.y = by;
+        blockIdx.z = bz;
+        memset(smem, 0xff, sizeof(smem));
+        run(arg);
+      }
 }
-struct Args { const float *a, *b, *c; float *x, *y, *z; int H, W, s, hdr, flags; };
+static unsigned cdiv(int n, int d) { return (unsigned)((n + d - 1) / d); }
+struct Args {
+  const float *a, *b, *c, *d; float *x, *y, *z;
+  int H, W, s, hdr, flags, C, plane, pix, map_plane, kind, bounded, lo_y, hi_y, lo_x, hi_x;
+  const void* taps; int r;
+};
 extern "C" {
-#ifdef EMULATE_AHD
+#if defined(EMULATE_AHD)
 static void run_ahd(void* p) {
   Args* a = (Args*)p;
   if (a->s == 0) ahd_kernel<0>(a->a, a->b, a->x, a->H, a->W, a->hdr, a->flags);
@@ -68,8 +77,44 @@ static void run_ahd(void* p) {
 }
 void emulate(const float* bayer, const float* params, float* out, int H, int W,
              int stages, int is_hdr, int flags) {
-  Args a{bayer, params, nullptr, out, nullptr, nullptr, H, W, stages, is_hdr, flags};
-  each_block(H, W, run_ahd, &a);
+  Args a{};
+  a.a = bayer; a.b = params; a.x = out; a.H = H; a.W = W; a.s = stages;
+  a.hdr = is_hdr; a.flags = flags;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_ahd, &a);
+}
+#elif defined(EMULATE_RL)
+static void run_rl(void* p) {
+  Args* a = (Args*)p;
+  rl_iter_kernel(a->a, a->b, a->x, a->H, a->W, a->plane, a->pix,
+                 *(const Taps*)a->taps, a->r);
+}
+void emulate(const float* est, const float* img, float* out, const float* taps,
+             int H, int W, int C, int plane, int pix, int n_taps) {
+  Taps t;
+  for (int i = 0; i < kMaxTaps; ++i) t.w[i] = i < n_taps ? taps[i] : 0.0f;
+  Args a{};
+  a.a = est; a.b = img; a.x = out; a.H = H; a.W = W; a.plane = plane; a.pix = pix;
+  a.taps = &t; a.r = n_taps / 2;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), (unsigned)C, run_rl, &a);
+}
+#elif defined(EMULATE_REMAP)
+static void run_remap(void* p) {
+  Args* a = (Args*)p;
+  if (a->kind == 1)
+    remap_kernel<true>(a->a, a->b, a->c, a->x, a->H, a->W, a->C, a->plane, a->pix,
+                       a->map_plane, a->bounded, a->lo_y, a->hi_y, a->lo_x, a->hi_x);
+  else
+    remap_kernel<false>(a->a, a->b, a->c, a->x, a->H, a->W, a->C, a->plane, a->pix,
+                        a->map_plane, a->bounded, a->lo_y, a->hi_y, a->lo_x, a->hi_x);
+}
+void emulate(const float* img, const float* map_x, const float* map_y, float* out,
+             int H, int W, int C, int plane, int pix, int map_plane, int kind,
+             int bounded, int dy0, int dy1, int dx0, int dx1) {
+  Args a{};
+  a.a = img; a.b = map_x; a.c = map_y; a.x = out; a.H = H; a.W = W; a.C = C;
+  a.plane = plane; a.pix = pix; a.map_plane = map_plane; a.kind = kind;
+  a.bounded = bounded; a.lo_y = dy0; a.hi_y = dy1; a.lo_x = dx0; a.hi_x = dx1;
+  each_block(cdiv(W, kTileX), cdiv(H, kTileY), 1, run_remap, &a);
 }
 #else
 static void run_pp(void* p) {
@@ -78,8 +123,9 @@ static void run_pp(void* p) {
 }
 void emulate(const float* r, const float* g, const float* b, float* ro, float* go,
              float* bo, int H, int W) {
-  Args a{r, g, b, ro, go, bo, H, W, 0, 0, 0};
-  each_block(H, W, run_pp, &a);
+  Args a{};
+  a.a = r; a.b = g; a.c = b; a.x = ro; a.y = go; a.z = bo; a.H = H; a.W = W;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_pp, &a);
 }
 #endif
 }
@@ -138,7 +184,7 @@ def test_postprocess_source_bit_exact(postprocess_lib, shape):
 def test_ahd_source_against_plain(ahd_lib, is_hdr, stages, tail, shape):
     h, w = shape  # whole tiles, and tiles that overhang the frame
     frame = RawFrame.synthetic(mosaic_rggb(make_scene(h, w, seed=stages)), cam_mat=CAM,
-                               wb_neutral=WB, is_hdr=is_hdr)
+                               wb_neutral=WB, is_hdr=is_hdr, device="cpu")
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
     wb = frame.wb_reciprocal()
     params = K._ahd_params(mat, wb)
@@ -158,3 +204,93 @@ def test_ahd_source_against_plain(ahd_lib, is_hdr, stages, tail, shape):
     got, ref = out[inner].numpy(), want[inner].numpy()
     assert psnr(got, ref) >= 50
     assert np.mean(np.abs(got - ref) > 1e-4) < 0.05
+
+
+@pytest.fixture(scope="module")
+def rl_lib(tmp_path_factory):
+    return _build(tmp_path_factory, "rl.cu", "EMULATE_RL", n_ptrs=4, n_ints=6)
+
+
+@pytest.fixture(scope="module")
+def remap_lib(tmp_path_factory):
+    return _build(tmp_path_factory, "remap.cu", "EMULATE_REMAP", n_ptrs=4, n_ints=12)
+
+
+def _rl_image(h, w, c, seed):
+    rng = np.random.default_rng(seed)
+    img = make_scene(h, w, seed=seed)[..., :c] * 0.9 + 0.05
+    img = img + rng.normal(0, 0.01, img.shape).astype(np.float32)
+    img = np.clip(img, 0.01, 1.0).astype(np.float32)
+    return torch.from_numpy(img[..., 0] if c == 1 else img).contiguous()
+
+
+@pytest.mark.parametrize("sigma,iters,shape", [
+    (1.0, 3, (45, 70)),     # tiles overhang the frame on both axes
+    (2.0, 2, (37, 50)),
+    (2.0, 2, (12, 40)),     # H = 2 * reach, the gate's edge
+    (10.5, 1, (64, 80)),    # reach 31, next to the gate's largest
+])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_rl_source_bit_exact(rl_lib, sigma, iters, shape, channels):
+    """The RL iteration's device code equals the plain loop bit for bit,
+    mirrored ratio border included, in the (H, W) and (H, W, C) layouts."""
+    from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
+
+    h, w = shape
+    taps = torch.from_numpy(get_1d_gaussian_filter(sigma))
+    assert K.rl_kernel_admits((h, w), taps.numpy())
+    img = _rl_image(h, w, channels, seed=h + channels)
+    est = img
+    for _ in range(iters):
+        out = torch.full_like(img, float("nan"))
+        rl_lib.emulate(_ptr(est), _ptr(img), _ptr(out), _ptr(taps), h, w, channels,
+                       1 if channels > 1 else h * w, channels, len(taps))
+        est = out
+    assert torch.equal(est, K.rl_plain(img, taps.numpy(), iters))
+
+
+def _warp_maps(h, w, c, seed):
+    """Smooth lens-like maps (C, H, W) with a few samples pushed past the frame."""
+    from pysp_tpu_torch.warp.rectilinear import compute_remapping_table
+
+    xs, ys = [], []
+    for k in range(c):
+        kr1 = -0.02 + 0.01 * k + 0.001 * seed
+        mx, my = compute_remapping_table((1.0, kr1, 0.002, 0.0, 0.001, -0.001), w, h,
+                                         (0.45, 0.55), device="cpu")
+        xs.append(mx)
+        ys.append(my)
+    mx, my = torch.stack(xs), torch.stack(ys)
+    mx[:, 0, :5] -= 3.5        # off the left edge: clamped gathers
+    my[:, -1, -4:] += 2.25     # off the bottom edge
+    my[:, h // 2, 8:12] += 2.5  # inside the frame, beyond the bounds tested
+    return mx.contiguous(), my.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["bilinear", "lanczos4"])
+@pytest.mark.parametrize("bounds", [None, ((-2, 1), (-1, 2))])
+@pytest.mark.parametrize("channels,shape,maps", [
+    (1, (40, 70), "shared"), (3, (37, 45), "shared"), (3, (37, 45), "per_channel"),
+])
+def test_remap_source_against_plain(remap_lib, kind, bounds, channels, shape, maps):
+    """The remap's device code against ``remap_plain``: bilinear bit-exact,
+    Lanczos4 within 5e-6 (the host's sinf against torch's sin). The bounds are
+    tighter than the maps' displacement, so the clip is exercised."""
+    h, w = shape
+    img = _rl_image(h, w, channels, seed=w)           # (H, W) or (H, W, C)
+    mx, my = _warp_maps(h, w, channels if maps == "per_channel" else 1, seed=h)
+    if maps == "shared":
+        mx, my = mx[0].contiguous(), my[0].contiguous()
+    out = torch.full_like(img, float("nan"))
+    (dy0, dy1), (dx0, dx1) = bounds or ((0, 0), (0, 0))
+    remap_lib.emulate(_ptr(img), _ptr(mx), _ptr(my), _ptr(out), h, w, channels,
+                      1 if channels > 1 else h * w, channels,
+                      h * w if maps == "per_channel" else 0,
+                      K.REMAP_KINDS.index(kind), int(bounds is not None),
+                      dy0, dy1, dx0, dx1)
+    want = K.remap_plain(img, mx, my, kind, bounds, channels_last=channels > 1)
+    assert not bool(torch.isnan(out).any())
+    if kind == "bilinear":
+        assert torch.equal(out, want)
+    else:
+        assert (out - want).abs().max().item() <= 5e-6
