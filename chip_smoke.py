@@ -22,7 +22,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    - remap kernel against ``remap_plain``: bilinear and Lanczos4, maps shared
      and per channel, with and without displacement bounds, 1 and 3
      channels: bilinear within 1e-6, Lanczos4 within 5e-6.
-3. Two main paths, each driven with every launch count set to 0 just before
+   - heal kernel against ``heal_plain``: planes 256x384, 253x381 and 3x5,
+     masks at densities 1e-4, 3e-3 and 0.6 with every plane corner set, a
+     3x3 cluster, a 13x13 blob that the fill cannot reach and blobs across
+     tile corners that a halo one site short would get wrong, 4 + 2 and 6 + 2
+     sweeps: bit-exact.
+3. Three main paths, each driven with every launch count set to 0 just before
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
@@ -40,18 +45,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the finishing stages are within 1e-4 of the same stages through the plain
      versions on the card from the same developed image, and that the CLI,
      run once more in a subprocess, writes the same TIFF.
+   - corrections (BASELINE configs 3 and 4): a 4000x6000 RGGB DNG with hot
+     photosites planted in dark parts of the scene and a 4000x6000 vignetting
+     flat DNG through ``load_raw -> develop_pipeline(flat field, hot-pixel
+     heal) -> save_image``; then five 4000x6000 brackets of the scene a stop
+     apart (exposure 1/400 to 1/25 s, the same hot photosites) through
+     ``load_raw -> stack_frames -> develop_pipeline(consensus heal, HDR fuse)
+     -> save_image``. Asserts that the heal and AHD kernels launched (1 + 5
+     heals), that every planted site was flagged and healed into the range of
+     its plane's 4-neighbours, that the images are finite (H, W, 3) within
+     [0, 1], that the fused frame is HDR with ``lim_sat > 1``, that each image
+     is >= 50 dB PSNR against the same pipeline composed from the plain
+     versions on the card, and that the CLI (``develop --flat
+     --repair-hot-pixels``, ``develop b0..b4 --hdr --repair-hot-pixels``), run
+     in subprocesses, writes the same TIFFs.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
-   the plain finishing path median of 3 after 1) of the kernels, their plain
-   versions, ``grid_sample`` (the one PyTorch call that computes the bilinear
-   remap), the whole develop and the whole finishing path. Each kernel's bound
-   is the larger of its bytes (each input read once, each output written once)
+   the plain finishing path and the plain corrections pipelines median of 3
+   after 1) of the kernels, their plain versions, ``grid_sample`` (the one
+   PyTorch call that computes the bilinear remap), the whole develop, the
+   whole finishing path and the two corrections pipelines, with the device
+   busy share of each path under ``torch.profiler``. Each kernel's bound is
+   the larger of its bytes (each input read once, each output written once)
    over 3.35 TB/s and its float32 operations, counted on its plain version at
    the same inputs, over 67 TFLOP/s.
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the two main paths
+kernel's ``launches`` there is the sum of its counts over the three main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
@@ -70,8 +91,21 @@ import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from pysp_tpu_torch import QualityDemosaic, RawFrame, load_raw, save_image
+from pysp_tpu_torch import (
+    PipelineConfig,
+    QualityDemosaic,
+    RawFrame,
+    develop_pipeline,
+    load_raw,
+    save_image,
+    stack_frames,
+)
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix, lin_srgb_to_srgb
+from pysp_tpu_torch.core.bayer import bayer_to_planes, planes_to_bayer
+from pysp_tpu_torch.core.frame import unstack_frames
+from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median, repair_bad_pixels
+from pysp_tpu_torch.correct.flat_field import flat_frame_correction
+from pysp_tpu_torch.correct.hdr import fuse_exposures_to_raw
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
 from pysp_tpu_torch.demosaic.ahd_mega import (
     demosaic_ahd_mega,
@@ -84,7 +118,7 @@ from pysp_tpu_torch.io.metadata import get_opcode_3_block
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
-from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
 from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
 from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
 
@@ -105,6 +139,11 @@ WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
 WARP_CENTER = (0.5, 0.5)
 DECONV = (1.0, 20)                 # sigma, iterations
 UNSHARP = (2.0, 0.5)               # radius, amount
+# The corrections path: BASELINE config 3 (flat field + hot-pixel heal + Best)
+# and config 4 (five brackets a stop apart, consensus heal, Bayer-domain fuse).
+CFG3 = PipelineConfig(flat_field=True, repair_hot_pixels=True)
+CFG4 = PipelineConfig(fuse_hdr=True, repair_hot_pixels=True, hot_pixel_shared_ratio=0.5)
+BRACKETS = 5
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the
 # tensor cores (an add, a multiply or a min counts as one operation here).
 HBM_BYTES_PER_S = 3.35e12
@@ -183,7 +222,7 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-COUNTERS = ("ahd", "postprocess", "rl", "remap")
+COUNTERS = ("ahd", "postprocess", "rl", "remap", "heal")
 
 
 def zero_launch_counts() -> None:
@@ -229,7 +268,8 @@ def frame_on_card(h: int, w: int, seed: int, is_hdr: bool) -> RawFrame:
 
 
 def check_kernels_small() -> None:
-    """Phase 2: each kernel against its plain version at 512x768."""
+    """Phase 2: each kernel against its plain version at 512x768 (the heal on
+    planes of 256x384, 253x381 and 3x5)."""
     for is_hdr in (False, True):
         for stages in (0, 1, 2):
             frame = frame_on_card(512, 768, seed=1 + stages, is_hdr=is_hdr)
@@ -291,6 +331,20 @@ def check_kernels_small() -> None:
                     f"bounds {bounds}: max abs err {err:.3g}")
                 if err > REMAP_ATOL[kind]:
                     raise AssertionError("remap kernel outside tolerance")
+
+    for shape in ((256, 384), (253, 381), (3, 5)):
+        for density in (1e-4, 3e-3, 0.6):
+            planes, mask = (torch.from_numpy(a).to(DEVICE)
+                            for a in heal_case(*shape, density, seed=shape[1]))
+            for sweeps in ((4, 2), (6, 2)):
+                same = torch.equal(K.heal_kernel(planes, mask, *sweeps),
+                                   K.heal_plain(planes, mask, *sweeps))
+                log(f"heal kernel vs plain 4x{shape[0]}x{shape[1]}, density {density:g} "
+                    f"({int(mask.sum())} sites), {sweeps[0]} + {sweeps[1]} sweeps: "
+                    f"bit-exact {same}")
+                if not same:
+                    raise AssertionError("heal kernel differs from plain")
+
 
 
 def scene_on_card(h: int, w: int, channels: int, seed: int) -> torch.Tensor:
@@ -446,8 +500,8 @@ def finishing_path(tmp: str):
     log(f"finishing path (load_raw -> develop, gamma off -> deconv {DECONV} -> unsharp "
         f"{UNSHARP} -> gamma -> lens warp -> save_image): {seconds:.3f} s host clock, "
         f"kernel launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("ahd", "postprocess", "rl", "remap"):
+        if launches[name] == 0:
             raise AssertionError(f"the finishing path never launched the {name} kernel")
 
     if tuple(out.shape) != (FULL_H, FULL_W, 3) or not bool(torch.isfinite(out).all()):
@@ -488,6 +542,273 @@ def finishing_path(tmp: str):
     if not same:
         raise AssertionError("the CLI's TIFF differs from the in-process path's")
     return launches, lin, srgb, block
+
+
+# --- the corrections path: BASELINE configs 3 and 4 ---------------------------------
+
+# The in-plane index of a mosaic site's CFA phase (row parity, column parity):
+# planes are (R, G1, B, G2).
+_PLANE_OF = {(0, 0): 0, (0, 1): 1, (1, 1): 2, (1, 0): 3}
+
+
+def plant_hot_sites(mosaic: np.ndarray):
+    """Mosaic sites to set to full scale where the scene is dark (< 0.25):
+    100 singles and 100 2x2 mosaic clusters (one site in each plane), on a
+    16-px grid so that no two lie within 8 sites of each other in a plane;
+    at most 200 sites per plane, under the detector's 1e-4 quantile share of
+    each plane's 6 M sites. Returns an (n, 2) array of (y, x)."""
+    h, w = mosaic.shape
+    rng = np.random.default_rng(21)
+    grid = [(y, x) for y in range(16, h - 16, 16) for x in range(16, w - 16, 16)]
+    singles, clusters = [], []
+    for i in rng.permutation(len(grid)):
+        y, x = grid[i]
+        quad = mosaic[y:y + 2, x:x + 2]
+        if len(clusters) < 400 and quad.max() < 0.25:
+            clusters += [(y, x), (y, x + 1), (y + 1, x), (y + 1, x + 1)]
+        elif len(singles) < 100 and quad.min() < 0.25:
+            dy, dx = np.unravel_index(int(np.argmin(quad)), (2, 2))
+            singles.append((y + int(dy), x + int(dx)))
+        if len(singles) == 100 and len(clusters) == 400:
+            break
+    if len(singles) < 100 or len(clusters) < 400:
+        raise AssertionError(f"only {len(singles)} singles and {len(clusters) // 4} "
+                             f"clusters found dark sites")
+    return np.array(singles + clusters)
+
+
+def flat_u16(h: int, w: int) -> np.ndarray:
+    """A smooth vignetting flat: 1.0 in the centre to 0.6 in the corners, as
+    u16 in the DNG's [256, 4095] range."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r2 = ((yy - h / 2) / (h / 2)) ** 2 + ((xx - w / 2) / (w / 2)) ** 2
+    flat = 1.0 - 0.4 * r2 / 2.0
+    return np.round(256 + flat * 3839).astype(np.uint16)
+
+
+def heal_frame_plain(frame: RawFrame, masks: torch.Tensor) -> RawFrame:
+    healed = K.heal_plain(bayer_to_planes(frame.bayer), masks, CFG3.hot_pixel_iterations)
+    return frame.replace(bayer=planes_to_bayer(healed))
+
+
+def corrections_plain(frames: RawFrame, flat: RawFrame | None = None):
+    """develop_pipeline of config 3 (a frame and its flat) or config 4 (a burst)
+    composed from the plain versions on the card: ``heal_plain`` for the
+    heal, ``DevelopConfig(use_pallas=False)`` for the develop. Returns the
+    image and the frame it developed."""
+    plain = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
+    if flat is not None:
+        frame = flat_frame_correction(frames, flat)
+        frame = heal_frame_plain(frame, find_erroneous_pixels_median(frame))
+        return develop(frame, plain), frame
+    burst = unstack_frames(frames)
+    need = float(np.ceil(np.float32(len(burst) * CFG4.hot_pixel_shared_ratio)))
+    shared = sum(find_erroneous_pixels_median(f).to(torch.int32) for f in burst) >= need
+    healed = stack_frames([heal_frame_plain(f, shared) for f in burst], device=DEVICE)
+    fused, _ = fuse_exposures_to_raw(healed)
+    return develop(fused, plain), fused
+
+
+def check_image(name: str, out: torch.Tensor, h: int, w: int) -> None:
+    if tuple(out.shape) != (h, w, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: output {tuple(out.shape)} is not a finite (H, W, 3)")
+    lo, hi = out.min().item(), out.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"{name}: output outside [0, 1]: [{lo}, {hi}]")
+
+
+def run_cli(args, tif: str, cli_tif: str) -> None:
+    cmd = [sys.executable, "-m", "pysp_tpu_torch", "develop", *args, "-o", cli_tif]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n{proc.stderr}")
+    with open(tif, "rb") as a, open(cli_tif, "rb") as b:
+        same = a.read() == b.read()
+    log(f"CLI develop {' '.join(os.path.basename(a) for a in args)}: "
+        f"{time.perf_counter() - t0:.3f} s host clock (a new process); "
+        f"{proc.stdout.strip()}; TIFF identical to the in-process one: {same}")
+    if not same:
+        raise AssertionError("the CLI's TIFF differs from the in-process path's")
+
+
+def corrections_path(tmp: str):
+    """Phase 3, corrections: configs 3 and 4 file -> develop_pipeline -> file on
+    the card, then both through the CLI. Returns the launch counts and what
+    phase 4 measures at these shapes."""
+    scene = mosaic_rggb(make_scene(FULL_H, FULL_W, seed=13))
+    hot = plant_hot_sites(scene)
+    ys, xs = hot[:, 0], hot[:, 1]
+    paths = {"shot": os.path.join(tmp, "shot.dng"), "flat": os.path.join(tmp, "flat.dng")}
+    u16 = (200 + scene * 3800).astype(np.uint16)
+    u16[ys, xs] = 4095
+    with open(paths["shot"], "wb") as fh:
+        fh.write(write_synthetic_dng(u16))
+    with open(paths["flat"], "wb") as fh:
+        fh.write(write_synthetic_dng(flat_u16(FULL_H, FULL_W)))
+    brackets = []
+    for k in range(BRACKETS):
+        u16 = (200 + np.clip(scene * 2.0 ** (k - 2), 0.0, 1.0) * 3800).astype(np.uint16)
+        u16[ys, xs] = 4095
+        brackets.append(os.path.join(tmp, f"b{k}.dng"))
+        with open(brackets[-1], "wb") as fh:
+            fh.write(write_synthetic_dng(u16, exposure_time=(1, 400 // 2 ** k)))
+    del u16
+    per_plane = np.bincount([_PLANE_OF[(int(y) % 2, int(x) % 2)] for y, x in hot], minlength=4)
+    log(f"corrections inputs: {len(hot)} hot photosites planted (R, G1, B, G2 planes: "
+        f"{per_plane.tolist()}) in a {FULL_H}x{FULL_W} scene, a flat 1.0 -> 0.6, "
+        f"{BRACKETS} brackets 1/400 .. 1/{400 // 2 ** (BRACKETS - 1)} s")
+
+    tifs = {"config3": os.path.join(tmp, "config3.tif"), "config4": os.path.join(tmp, "config4.tif")}
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    frame, flat = load_raw(paths["shot"]), load_raw(paths["flat"])
+    out3 = develop_pipeline(frame, CFG3, flat=flat)
+    save_image(tifs["config3"], out3)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    burst = stack_frames([load_raw(p) for p in brackets])
+    out4 = develop_pipeline(burst, CFG4)
+    save_image(tifs["config4"], out4)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"corrections path: config 3 (load_raw x2 -> develop_pipeline(flat, heal) -> "
+        f"save_image) {t3:.3f} s, config 4 (load_raw x{BRACKETS} -> stack_frames -> "
+        f"develop_pipeline(consensus heal, fuse) -> save_image) {t4:.3f} s host clock; "
+        f"kernel launches {launches}")
+    if frame.bayer.device.type != DEVICE or burst.bayer.device.type != DEVICE:
+        raise AssertionError("load_raw / stack_frames did not put the frames on the card")
+    if launches["heal"] != 1 + BRACKETS:
+        raise AssertionError(f"expected {1 + BRACKETS} heal launches, got {launches['heal']}")
+    if launches["ahd"] != 2:
+        raise AssertionError(f"expected 2 AHD launches (configs 3 and 4), got {launches['ahd']}")
+    evs = [round(v, 4) for v in burst.ev.tolist()]
+    log(f"bracket EVs {evs}")
+
+    # Config 3: every planted site flagged and healed into its neighbours' range.
+    corrected = flat_frame_correction(frame, flat)
+    masks = find_erroneous_pixels_median(corrected)
+    planes = bayer_to_planes(repair_bad_pixels(corrected, masks).bayer)
+    pl = torch.tensor([_PLANE_OF[(int(y) % 2, int(x) % 2)] for y, x in hot], device=DEVICE)
+    py = torch.from_numpy(ys // 2).to(DEVICE)
+    px = torch.from_numpy(xs // 2).to(DEVICE)
+    flagged = masks[pl, py, px]
+    h2, w2 = planes.shape[-2:]
+    nb = torch.stack([planes[pl, (py - 1).clamp(0, h2 - 1), px],
+                      planes[pl, (py + 1).clamp(0, h2 - 1), px],
+                      planes[pl, py, (px - 1).clamp(0, w2 - 1)],
+                      planes[pl, py, (px + 1).clamp(0, w2 - 1)]])
+    healed = planes[pl, py, px]
+    inside = (healed >= nb.amin(dim=0)) & (healed <= nb.amax(dim=0))
+    log(f"config 3: {int(masks.sum())} sites flagged ({int(flagged.sum())} of the "
+        f"{len(hot)} planted); healed planted sites within their 4-neighbours' range: "
+        f"{int(inside.sum())} of {len(hot)}")
+    if not bool(flagged.all()):
+        raise AssertionError("a planted hot photosite was not flagged")
+    if not bool(inside.all()):
+        raise AssertionError("a healed site lies outside its 4-neighbours' range")
+    del planes, nb
+
+    check_image("config 3", out3, FULL_H, FULL_W)
+    check_image("config 4", out4, FULL_H, FULL_W)
+    want3, _ = corrections_plain(frame, flat)
+    p3, flips3, err3 = interior_stats(out3, want3)
+    del want3
+    want4, fused = corrections_plain(burst)
+    p4, flips4, err4 = interior_stats(out4, want4)
+    del want4
+    log(f"config 3 {FULL_H}x{FULL_W}: kernels vs plain on the card PSNR {p3:.2f} dB, "
+        f"{flips3:.6f} of pixels off by > {FLIP_TOL:g}, max abs {err3:.3g}")
+    log(f"config 4 {BRACKETS}x{FULL_H}x{FULL_W}: fused frame is_hdr {fused.is_hdr}, "
+        f"lim_sat {fused.lim_sat.item():.4f}, ev {fused.ev.item():.4f}; kernels vs plain "
+        f"PSNR {p4:.2f} dB, {flips4:.6f} of pixels off by > {FLIP_TOL:g}, max abs {err4:.3g}")
+    if not fused.is_hdr or fused.lim_sat.item() <= 1.0:
+        raise AssertionError("the fused frame is not an HDR frame with lim_sat > 1")
+    if p3 < MIN_PSNR or p4 < MIN_PSNR:
+        raise AssertionError(f"corrections PSNR {p3:.2f} / {p4:.2f} dB < {MIN_PSNR}")
+    del out3, out4, fused
+
+    run_cli([paths["shot"], "--flat", paths["flat"], "--repair-hot-pixels"],
+            tifs["config3"], os.path.join(tmp, "config3_cli.tif"))
+    run_cli([*brackets, "--hdr", "--repair-hot-pixels"],
+            tifs["config4"], os.path.join(tmp, "config4_cli.tif"))
+    return launches, frame, flat, burst, corrected, masks
+
+
+def corrections_at_main_shapes(frame, flat, burst, corrected, masks):
+    """Phase 4 for the corrections path: the heal kernel against its plain
+    version on the config 3 planes and masks, times, the bound and the
+    pipelines' device busy share. Returns the heal record."""
+    planes = bayer_to_planes(corrected.bayer)
+    fill, smooth = CFG3.hot_pixel_iterations, 2
+    got = K.heal_kernel(planes, masks, fill, smooth)
+    want = K.heal_plain(planes, masks, fill, smooth)
+    err = (got - want).abs().max().item()
+    log(f"heal kernel vs plain at 4x{planes.shape[1]}x{planes.shape[2]} with the "
+        f"detector's {int(masks.sum())} sites: bit-exact {torch.equal(got, want)}, "
+        f"max abs err {err:.3g}")
+    if not torch.equal(got, want):
+        raise AssertionError("heal kernel at 24 MP differs from plain")
+    del got, want
+
+    t = {
+        "heal": median_ms(lambda: K.heal_kernel(planes, masks, fill, smooth)),
+        "heal_plain": median_ms(lambda: K.heal_plain(planes, masks, fill, smooth)),
+        "config3": median_ms(lambda: develop_pipeline(frame, CFG3, flat=flat)),
+        "config3_plain": median_ms(lambda: corrections_plain(frame, flat), runs=3, warmup=1),
+        "config4": median_ms(lambda: develop_pipeline(burst, CFG4)),
+        "config4_plain": median_ms(lambda: corrections_plain(burst), runs=3, warmup=1),
+    }
+    mp = FULL_H * FULL_W / 1e6
+    log(f"corrections times by CUDA events, median of 10 (plain pipelines: median of "
+        f"3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log(f"config 3 {mp / (t['config3'] / 1e3):.2f} MP/s with the kernels, "
+        f"{mp / (t['config3_plain'] / 1e3):.2f} MP/s plain; config 4 "
+        f"{BRACKETS * mp / (t['config4'] / 1e3):.2f} input MP/s with the kernels, "
+        f"{BRACKETS * mp / (t['config4_plain'] / 1e3):.2f} plain")
+    # Where the pipelines' time goes, stage by stage (with the kernels).
+    frames = unstack_frames(burst)
+    need = float(np.ceil(np.float32(BRACKETS * CFG4.hot_pixel_shared_ratio)))
+    shared = sum(find_erroneous_pixels_median(f).to(torch.int32) for f in frames) >= need
+    healed = stack_frames([repair_bad_pixels(f, shared) for f in frames], device=DEVICE)
+    fused, _ = fuse_exposures_to_raw(healed)
+    cfg = CFG3.develop
+    stage_ms = {
+        "flat_field": median_ms(lambda: flat_frame_correction(frame, flat)),
+        "detect": median_ms(lambda: find_erroneous_pixels_median(corrected)),
+        "repair": median_ms(lambda: repair_bad_pixels(corrected, masks)),
+        "develop": median_ms(lambda: develop(corrected, cfg)),
+        "detect_x5": median_ms(lambda: [find_erroneous_pixels_median(f) for f in frames]),
+        "repair_x5": median_ms(lambda: [repair_bad_pixels(f, shared) for f in frames]),
+        "stack": median_ms(lambda: stack_frames(frames, device=DEVICE)),
+        "fuse": median_ms(lambda: fuse_exposures_to_raw(healed)),
+        "develop_hdr": median_ms(lambda: develop(fused, cfg)),
+    }
+    log("corrections stages one by one, median of 10 by CUDA events (config 3: flat_field "
+        ".. develop; config 4: detect_x5 .. develop_hdr): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+    del frames, healed, fused
+    for name, fn in (("config 3 pipeline", lambda: develop_pipeline(frame, CFG3, flat=flat)),
+                     ("config 4 pipeline", lambda: develop_pipeline(burst, CFG4))):
+        host_ms, device_ms, n = device_busy(fn)
+        log(f"{name} under torch.profiler, 3 runs: {host_ms:.3f} ms host clock per run, "
+            f"{device_ms:.3f} ms of device kernels ({n:.0f} kernels) per run, device "
+            f"idle {max(0.0, 1 - device_ms / host_ms):.1%} of the host time")
+
+    # Bound: the planes (4 B) and mask (1 B) read once, the result (4 B) written
+    # once, against the plain fill's float32 operations on these inputs.
+    nbytes = planes.numel() * (4 + 1 + 4)
+    ops = float_ops(lambda: K.heal_plain(planes, masks, fill, smooth))
+    b = bound(nbytes, ops)
+    log(f"heal bound (NVIDIA H100 SXM, 3.35 TB/s, 67 TFLOP/s float32): {nbytes / 1e6:.1f} "
+        f"MB, {ops / 1e9:.2f} G ops ({ops / planes.numel():.1f} per site) -> "
+        f"{b[0]:.4f} ms by {b[1]}; the kernel at {t['heal'] / b[0]:.2f}x its bound")
+    return {"name": "heal", "route": "cuda", "source": "pysp_tpu_torch/csrc/heal.cu",
+            "replaces": "pysp_tpu/ops/pallas_kernels.py:853", "counter": "heal",
+            "max_abs_err": err, "ms": t["heal"], "plain_ms": t["heal_plain"],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
 
 def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tensor,
@@ -692,13 +1013,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         develop_launches, frame = main_path(tmp)
         finishing_launches, lin, srgb, block = finishing_path(tmp)
+        corrections_launches, *corrections_state = corrections_path(tmp)
     records = kernels_at_main_shapes(frame, lin, srgb, block)
+    del frame, lin, srgb
+    records.append(corrections_at_main_shapes(*corrections_state))
     # Each path's counts were set to 0 just before it and read just after it;
     # "launches" is their sum, "launches_by_path" each path's own.
     for rec in records:
         counter = rec.pop("counter")
         by_path = {"develop": develop_launches[counter],
-                   "finishing": finishing_launches[counter]}
+                   "finishing": finishing_launches[counter],
+                   "corrections": corrections_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
 

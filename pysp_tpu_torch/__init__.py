@@ -13,16 +13,42 @@ Entry points run on the GPU unless the caller asks for another device
     srgb = develop(frame, DevelopConfig(quality=QualityDemosaic.Best))
     save_image("out.tif", srgb)
 
+With sensor corrections (flat field, hot-pixel heal, denoise) and the
+Bayer-domain HDR fuse of a bracketed burst, ``develop_pipeline``:
+
+    from pysp_tpu_torch import PipelineConfig, develop_pipeline, stack_frames
+    srgb = develop_pipeline(frame, PipelineConfig(flat_field=True, repair_hot_pixels=True),
+                            flat=load_raw("flat.dng"))
+    burst = stack_frames([load_raw(p) for p in paths])
+    srgb = develop_pipeline(burst, PipelineConfig(fuse_hdr=True))
+
 The command line: ``python -m pysp_tpu_torch develop shot.dng -o out.tif
---deconv 1.0:20 --unsharp 0.5:2 --warp``.
+--deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--flat``, ``--dark``,
+``--repair-hot-pixels``, ``--denoise`` and ``--hdr`` (several inputs) for
+the corrections.
 """
 
 from .const import BayerPattern, QualityDemosaic
-from .core.frame import DevelopedImage, RawFrame
+from .core.bayer import bayer_to_planes, bayer_to_rgbg, planes_to_bayer, rgbg_to_bayer
+from .core.frame import DevelopedImage, RawFrame, stack_frames
+from .correct.bad_pixels import (
+    find_erroneous_pixels_median,
+    find_erroneous_pixels_threshold,
+    find_shared_pixels,
+    repair_bad_pixels,
+)
+from .correct.denoise import denoise_bayer_wavelet
+from .correct.flat_field import (
+    bias_frame_subtraction,
+    dark_frame_subtraction,
+    flat_frame_correction,
+)
+from .correct.hdr import fuse_exposures_from_debayer, fuse_exposures_to_raw
 from .demosaic import demosaic
 from .io.image_out import save_image
 from .io.raw_loader import frame_from_parts, load_raw, load_raw_dng
 from .pipeline.develop import DevelopConfig, develop, develop_burst, develop_to_image
+from .pipeline.pipeline import PipelineConfig, develop_pipeline
 
 __all__ = [
     "BayerPattern",
@@ -30,6 +56,23 @@ __all__ = [
     "RawFrame",
     "DevelopedImage",
     "DevelopConfig",
+    "PipelineConfig",
+    "develop_pipeline",
+    "stack_frames",
+    "bayer_to_planes",
+    "bayer_to_rgbg",
+    "planes_to_bayer",
+    "rgbg_to_bayer",
+    "find_erroneous_pixels_threshold",
+    "find_erroneous_pixels_median",
+    "find_shared_pixels",
+    "repair_bad_pixels",
+    "flat_frame_correction",
+    "dark_frame_subtraction",
+    "bias_frame_subtraction",
+    "denoise_bayer_wavelet",
+    "fuse_exposures_to_raw",
+    "fuse_exposures_from_debayer",
     "demosaic",
     "develop",
     "develop_burst",

@@ -1,13 +1,25 @@
 """Command-line develop: ``python -m pysp_tpu_torch develop shot.dng -o out.tif``.
 
-Counterpart of ``pysp_tpu/cli.py`` for one input: load -> develop -> the
-linear-light filters (``--deconv``, ``--unsharp``, ``--blur``) -> clip and sRGB
-gamma -> the DNG OpcodeList3 warp (``--warp``) -> save, in the JAX CLI's order.
+Counterpart of ``pysp_tpu/cli.py``, in the JAX CLI's order and branches:
+
+- ``--hdr`` with several inputs: load -> stack -> ``develop_pipeline`` (per-frame
+  corrections, then the Bayer-domain fuse, then develop) -> the filters ->
+  save as ``<first input>_hdr.tif``; with ``--repair-hot-pixels`` the masks
+  are the burst's consensus (``hot_pixel_shared_ratio=0.5``);
+- ``--flat`` / ``--dark``: load -> ``develop_pipeline`` (dark, flat, heal,
+  denoise) -> the filters -> the warp -> save;
+- otherwise: load -> heal (``--repair-hot-pixels``) -> denoise (``--denoise``)
+  -> develop -> the linear-light filters (``--deconv``, ``--unsharp``,
+  ``--blur``) -> clip and sRGB gamma -> the DNG OpcodeList3 warp (``--warp``)
+  -> save.
+
 The image stays on the device from the load to the save.
 
 The JAX CLI takes its device from JAX's backend; this one takes ``--device``,
 ``cuda`` unless asked otherwise, and raises without a GPU. Every flag and
-subcommand that is not ported yet parses as in the JAX CLI and raises
+subcommand that is not ported yet (several inputs without ``--hdr``,
+``--temperature``, ``--ca``, ``--stats``, ``--save-params`` / ``--params``,
+``info``, ``harvest``, ``verify-decode``) parses as in the JAX CLI and raises
 ``NotImplementedError`` naming its ROADMAP.md item; so does an output format
 other than TIFF (through ``save_image``).
 """
@@ -26,7 +38,8 @@ def _build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     dev = sub.add_parser("develop", help="develop a raw file to an sRGB image")
-    dev.add_argument("inputs", nargs="+", help="raw file path (uncompressed DNG)")
+    dev.add_argument("inputs", nargs="+",
+                     help="raw file path (uncompressed DNG); several with --hdr")
     dev.add_argument("-o", "--output", help="output path (.tif) or directory")
     dev.add_argument("--device", default="cuda",
                      help="torch device to develop on (default: cuda)")
@@ -78,18 +91,11 @@ _SUBCOMMAND_ITEMS = {
 
 def _refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for a develop flag that is not ported."""
-    corrections = "queue A, item 10 (corrections and the pipeline)"
     unported = [
-        (len(args.inputs) > 1, "several inputs (the streamed develop)",
+        (len(args.inputs) > 1 and not args.hdr, "several inputs (the streamed develop)",
          "queue A, item 15 (pipeline/stream.py)"),
         (args.temperature is not None, "--temperature",
          "queue A, item 15 (the rest of the CLI)"),
-        (args.repair_hot_pixels, "--repair-hot-pixels",
-         "queue A, item 9 and queue B, item B3 (the heal kernel)"),
-        (args.denoise > 0.0, "--denoise", corrections),
-        (args.flat is not None, "--flat", corrections),
-        (args.dark is not None, "--dark", corrections),
-        (args.hdr, "--hdr", corrections),
         (args.ca is not None, "--ca", "queue A, item 13 (correct/ca)"),
         (args.stats, "--stats", "queue A, item A7 (develop_with_stats)"),
         (args.save_params is not None or args.params is not None,
@@ -146,8 +152,37 @@ def _apply_warp(out: torch.Tensor, src: str) -> torch.Tensor:
     return apply_opcode_3_warp(out, block)
 
 
+def _finish(args, out: torch.Tensor, filtering: bool, device, t0: float, dst: str,
+            label: str, warp_src=None) -> int:
+    """The filters, the warp of ``warp_src``'s OpcodeList3 (the HDR path has
+    none), save and report."""
+    from . import save_image
+
+    if filtering:
+        out = _apply_filters(args, out)
+    if warp_src is not None and args.warp:
+        out = _apply_warp(out, warp_src)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    save_image(dst, out)
+    mp = out.shape[0] * out.shape[1] / 1e6
+    print(f"{label} -> {dst}  ({mp:.1f} MP, {dt * 1e3:.0f} ms)")
+    return 0
+
+
 def _develop(args) -> int:
-    from . import DevelopConfig, QualityDemosaic, develop, load_raw, save_image
+    from . import (
+        DevelopConfig,
+        PipelineConfig,
+        QualityDemosaic,
+        develop,
+        develop_pipeline,
+        find_erroneous_pixels_median,
+        load_raw,
+        repair_bad_pixels,
+        stack_frames,
+    )
     from .core.device import resolve_device
 
     _refuse_unported(args)
@@ -166,21 +201,45 @@ def _develop(args) -> int:
         highlights=args.highlights,
     )
 
+    aux = {}
+    if args.flat or args.dark or args.hdr:
+        if args.flat:
+            aux["flat"] = load_raw(args.flat, device=device)
+        if args.dark:
+            aux["dark"] = load_raw(args.dark, device=device)
+        pcfg = PipelineConfig(
+            develop=cfg,
+            dark_frame=args.dark is not None,
+            flat_field=args.flat is not None,
+            repair_hot_pixels=args.repair_hot_pixels,
+            hot_pixel_shared_ratio=0.5 if (args.hdr and args.repair_hot_pixels) else None,
+            denoise_strength=args.denoise,
+            fuse_hdr=args.hdr,
+        )
+
+    if args.hdr:
+        t0 = time.time()
+        batch = stack_frames([load_raw(src, device=device) for src in args.inputs],
+                             device=device)
+        out = develop_pipeline(batch, pcfg, **aux)
+        dst = args.output or os.path.splitext(args.inputs[0])[0] + "_hdr.tif"
+        return _finish(args, out, filtering, device, t0, dst,
+                       f"{len(args.inputs)} frames (HDR)")
+
     src = args.inputs[0]
     t0 = time.time()
-    out = develop(load_raw(src, device=device), cfg)
-    if filtering:
-        out = _apply_filters(args, out)
-    if args.warp:
-        out = _apply_warp(out, src)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.time() - t0
-    dst = _dst_for(args, src)
-    save_image(dst, out)
-    mp = out.shape[0] * out.shape[1] / 1e6
-    print(f"{src} -> {dst}  ({mp:.1f} MP, {dt * 1e3:.0f} ms)")
-    return 0
+    frame = load_raw(src, device=device)
+    if args.flat or args.dark:
+        out = develop_pipeline(frame, pcfg, **aux)
+    else:
+        if args.repair_hot_pixels:
+            frame = repair_bad_pixels(frame, find_erroneous_pixels_median(frame))
+        if args.denoise > 0.0:
+            from .correct.denoise import denoise_bayer_wavelet
+
+            frame = denoise_bayer_wavelet(frame, args.denoise)
+        out = develop(frame, cfg)
+    return _finish(args, out, filtering, device, t0, _dst_for(args, src), src, warp_src=src)
 
 
 def main(argv=None) -> int:

@@ -37,6 +37,16 @@ def rgbg_to_bayer(r: Tensor, g1: Tensor, b: Tensor, g2: Tensor) -> Tensor:
     return torch.stack([even_rows, odd_rows], dim=-2).reshape(*lead, h2 * 2, w2 * 2)
 
 
+def bayer_to_planes(bayer: Tensor) -> Tensor:
+    """Mosaic (..., H, W) -> contiguous planes (..., 4, H/2, W/2) in (R, G1, B, G2) order."""
+    return torch.stack(bayer_to_rgbg(bayer), dim=-3)
+
+
+def planes_to_bayer(planes: Tensor) -> Tensor:
+    """Planes (..., 4, H/2, W/2) -> mosaic (..., H, W)."""
+    return rgbg_to_bayer(*planes.unbind(dim=-3))
+
+
 def reversible_transform_rggb(sensor: Tensor, pattern: BayerPattern | int) -> Tensor:
     """Rotate/flip a mosaic so its CFA reads RGGB; applying twice round-trips.
 

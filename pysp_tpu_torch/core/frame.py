@@ -130,6 +130,36 @@ class RawFrame:
         )
 
 
+_TENSOR_FIELDS = ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat")
+
+
+def stack_frames(frames, device=CARD) -> RawFrame:
+    """One burst frame from N frames: every tensor gains a leading frame axis,
+    the layout ``develop_burst`` and ``develop_pipeline`` take. The
+    counterpart of ``jax.tree_util.tree_map(jnp.stack, *frames)``.
+
+    The frames must agree in shape, source pattern and HDR flag. The burst
+    lands on ``device`` (the card unless the caller asks for another)."""
+    frames = list(frames)
+    if not frames:
+        raise ValueError("stack_frames needs at least one frame")
+    device = resolve_device(device)
+    kinds = {(tuple(f.bayer.shape), f.source_pattern, f.is_hdr) for f in frames}
+    if len(kinds) != 1:
+        raise ValueError(f"burst frames disagree in (shape, pattern, is_hdr): {kinds}")
+    return frames[0].replace(**{
+        k: torch.stack([getattr(f, k).to(device) for f in frames]) for k in _TENSOR_FIELDS
+    })
+
+
+def unstack_frames(burst: RawFrame) -> list:
+    """The N frames of a burst frame (leading frame axis on every tensor), as views."""
+    return [
+        burst.replace(**{k: getattr(burst, k)[i] for k in _TENSOR_FIELDS})
+        for i in range(burst.bayer.shape[0])
+    ]
+
+
 @dataclasses.dataclass(frozen=True)
 class DevelopedImage:
     """Post-demosaic RGB container.

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels for Hopper and their Python wrappers.
 
-Four kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``:
+Five kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``:
 
 - ``ahd.cu``: the whole AHD demosaic plus the optional develop colour tail,
   counterpart of ``pysp_tpu/ops/pallas_kernels.py::ahd_mega_pallas``;
@@ -9,7 +9,9 @@ Four kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``:
 - ``rl.cu``: one Richardson-Lucy iteration over every channel, counterpart of
   ``pysp_tpu/ops/pallas_kernels.py::rl_deconv_pallas``;
 - ``remap.cu``: the bilinear / Lanczos4 remap over every channel, counterpart
-  of ``pysp_tpu/ops/pallas_kernels.py::remap_bounded_pallas``.
+  of ``pysp_tpu/ops/pallas_kernels.py::remap_bounded_pallas``;
+- ``heal.cu``: every sweep of the hot-pixel heal on the four CFA planes,
+  counterpart of ``pysp_tpu/ops/pallas_kernels.py::masked_fill_pallas``.
 
 At the first CUDA call the sources are compiled with ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface under
@@ -21,7 +23,8 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version instead;
 given CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches in a module-level integer (``ahd_kernel_launches``,
 ``postprocess_kernel_launches``, ``rl_kernel_launches``,
-``remap_kernel_launches``), incremented only where the kernel launches.
+``remap_kernel_launches``, ``heal_kernel_launches``), incremented only where
+the kernel launches.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ Tensor = torch.Tensor
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu")
+_SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu")
 _HEADERS = ("median5.cuh",)
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
@@ -59,11 +62,14 @@ AHD_MAX_STAGES = 2
 # The RL kernel's largest PSF reach (taps // 2), as the JAX kernel's gate.
 RL_MAX_REACH = 32
 REMAP_KINDS = ("bilinear", "lanczos4")
+# The heal kernel's largest fill + smooth sweep count, the JAX kernel's gate.
+HEAL_MAX_SWEEPS = 8
 
 ahd_kernel_launches = 0
 postprocess_kernel_launches = 0
 rl_kernel_launches = 0
 remap_kernel_launches = 0
+heal_kernel_launches = 0
 
 # The loaded library and what its build printed; set by load_library().
 _lib = None
@@ -128,6 +134,8 @@ def load_library() -> ctypes.CDLL:
     lib.pysp_rl_iter.restype = i32
     lib.pysp_remap.argtypes = [ptr] * 4 + [i32] * 3 + [i64, i32, i64] + [i32] * 6 + [ptr]
     lib.pysp_remap.restype = i32
+    lib.pysp_heal.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.pysp_heal.restype = i32
     _lib = lib
     return lib
 
@@ -433,3 +441,64 @@ def remap_plain(
     else:
         out = one(planes, map_x, map_y)
     return out.movedim(0, -1).contiguous() if channels_last else out
+
+
+# --- hot-pixel heal ---------------------------------------------------------------
+
+
+def heal_kernel_admits(fill_iterations: int, smooth_iterations: int) -> bool:
+    """Whether the heal kernel takes these sweep counts: none negative and at
+    most ``HEAL_MAX_SWEEPS`` in all, the JAX kernel's iteration gate. Any
+    plane size goes. The caller runs the dense fill for the rest."""
+    fill, smooth = int(fill_iterations), int(smooth_iterations)
+    return fill >= 0 and smooth >= 0 and fill + smooth <= HEAL_MAX_SWEEPS
+
+
+def heal_kernel(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
+                smooth_iterations: int = 2) -> Tensor:
+    """Heal the masked sites of the four CFA planes (4, H/2, W/2) float32 by
+    the heal kernel, one launch for every sweep of every plane; ``masks`` is
+    bool of the same shape. Bit-identical to :func:`heal_plain`, which runs
+    instead on CPU tensors. Raises for sweep counts outside
+    :func:`heal_kernel_admits`."""
+    global heal_kernel_launches
+    if planes.device.type == "cpu":
+        return heal_plain(planes, masks, fill_iterations, smooth_iterations)
+    if not heal_kernel_admits(fill_iterations, smooth_iterations):
+        raise ValueError(
+            f"the heal kernel takes at most {HEAL_MAX_SWEEPS} sweeps in all, got "
+            f"{fill_iterations} fill and {smooth_iterations} smooth"
+        )
+    if planes.ndim != 3 or planes.shape[0] != 4:
+        raise ValueError(f"planes must be (4, H, W), got {tuple(planes.shape)}")
+    planes, masks = planes.contiguous(), masks.contiguous()
+    _check(planes, "planes")
+    if masks.dtype != torch.bool:
+        raise TypeError(f"masks must be bool, got {masks.dtype}")
+    if masks.device != planes.device or masks.shape != planes.shape:
+        raise ValueError(
+            f"masks must be {tuple(planes.shape)} on {planes.device}, got "
+            f"{tuple(masks.shape)} on {masks.device}"
+        )
+    _, h, w = planes.shape
+    # The seeds of unreached sites, taken as heal_plain takes them.
+    means = planes.mean(dim=(-2, -1)).contiguous()
+    out = torch.empty_like(planes)
+    lib = load_library()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = lib.pysp_heal(
+            planes.data_ptr(), masks.data_ptr(), means.data_ptr(), out.data_ptr(),
+            h, w, int(fill_iterations), int(smooth_iterations), stream,
+        )
+    _raise_on_error(err, "heal kernel")
+    heal_kernel_launches += 1
+    return out
+
+
+def heal_plain(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
+               smooth_iterations: int = 2) -> Tensor:
+    """The heal kernel's plain version: ``correct.bad_pixels.masked_fill_inpaint``."""
+    from ..correct.bad_pixels import masked_fill_inpaint
+
+    return masked_fill_inpaint(planes, masks, fill_iterations, smooth_iterations)

@@ -258,3 +258,28 @@ def median5(x: Tensor) -> Tensor:
     """cv2.medianBlur(src, 5) equivalent for float32 (replicate border)."""
     h, w = x.shape[-2], x.shape[-1]
     return median5_from_padded(pad_replicate(x, 2), h, w)
+
+
+def median2(x: Tensor) -> Tensor:
+    """The reference's 2x2 median: the mean of the two middle values of {self,
+    E, S, SE} with a reflect101 border. The middle pair comes from a 6-op
+    min/max network, bit-identical to sorting's."""
+    xp = pad_reflect101(x, 1)
+    h, w = x.shape[-2], x.shape[-1]
+    a = xp[..., 1 : 1 + h, 1 : 1 + w]
+    b = xp[..., 1 : 1 + h, 2 : 2 + w]
+    c = xp[..., 2 : 2 + h, 1 : 1 + w]
+    d = xp[..., 2 : 2 + h, 2 : 2 + w]
+    lo_ab, hi_ab = torch.minimum(a, b), torch.maximum(a, b)
+    lo_cd, hi_cd = torch.minimum(c, d), torch.maximum(c, d)
+    return (torch.maximum(lo_ab, lo_cd) + torch.minimum(hi_ab, hi_cd)) * 0.5
+
+
+def shift2d(x: Tensor, dy: int, dx: int, pad_fn=pad_reflect) -> Tensor:
+    """``x`` sampled at (y + dy, x + dx) with the given border handling."""
+    py, px = abs(dy), abs(dx)
+    if py == 0 and px == 0:
+        return x
+    xp = pad_fn(x, (py, py, px, px))
+    h, w = x.shape[-2], x.shape[-1]
+    return xp[..., py + dy : py + dy + h, px + dx : px + dx + w]

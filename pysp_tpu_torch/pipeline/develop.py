@@ -21,7 +21,7 @@ import torch
 from ..colorimetry.transforms import cam_to_lin_srgb_matrix
 from ..const import BayerPattern, QualityDemosaic
 from ..core.bayer import reversible_transform_rggb
-from ..core.frame import DevelopedImage, RawFrame
+from ..core.frame import DevelopedImage, RawFrame, unstack_frames
 from ..demosaic import demosaic
 
 Tensor = torch.Tensor
@@ -138,9 +138,4 @@ def develop_burst(frames: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Ten
 
     Frames develop one after another, as ``lax.map`` runs them in the JAX
     package; the result is (N, H, W, 3)."""
-    fields = ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat")
-    outs = [
-        develop(frames.replace(**{k: getattr(frames, k)[i] for k in fields}), cfg)
-        for i in range(frames.bayer.shape[0])
-    ]
-    return torch.stack(outs)
+    return torch.stack([develop(f, cfg) for f in unstack_frames(frames)])

@@ -1,7 +1,8 @@
 """Synthetic-scene and fidelity helpers (NumPy, host only).
 
 Copied from ``pysp_tpu/utils/testing.py`` (the functions the port's smoke run
-and tests use), so that they import without JAX.
+and tests use), so that they import without JAX, plus the heal kernel's test
+case, which the smoke run and the tests share.
 """
 from __future__ import annotations
 
@@ -36,3 +37,25 @@ def mosaic_rggb(rgb: np.ndarray) -> np.ndarray:
     bayer[1::2, 0::2] = rgb[1::2, 0::2, 1]
     bayer[1::2, 1::2] = rgb[1::2, 1::2, 2]
     return bayer
+
+
+def heal_case(h2: int, w2: int, density: float, seed: int):
+    """CFA planes (4, h2, w2) float32 of a structured scene and a bool mask for
+    the heal: random sites at ``density``, every plane corner and, where the
+    planes hold them, a 3x3 cluster, a 13x13 blob that four fill sweeps cannot
+    reach (it seeds from the plane mean) and blobs across tile corners."""
+    rng = np.random.default_rng(seed)
+    planes = make_scene(h2, w2, seed=seed)[..., [0, 1, 2, 1]].transpose(2, 0, 1).copy()
+    mask = rng.random((4, h2, w2)) < density
+    for y, x in ((0, 0), (0, w2 - 1), (h2 - 1, 0), (h2 - 1, w2 - 1)):
+        mask[:, y, x] = True
+    if h2 >= 40 and w2 >= 40:
+        mask[0, 10:13, 20:23] = True
+        mask[1, 20:33, 5:18] = True
+    # Blobs across a corner of the kernel's 32x32 tiles reaching R - 1 sites
+    # past it on every side, for R = 6 and 8 sweeps: a fill front enters them
+    # at the first sweep just outside a halo one site short of R.
+    for p, (ty, tx), r in ((2, (32, 64), 6), (3, (96, 192), 8)):
+        if h2 > ty + r and w2 > tx + r:
+            mask[p, ty - r + 1 : ty + r - 1, tx - r + 1 : tx + r - 1] = True
+    return planes, mask

@@ -1,8 +1,9 @@
 """The port's command line (``python -m pysp_tpu_torch develop``) on the CPU.
 
-The finishing path, ``develop --device cpu --deconv --unsharp --warp``, is held
-against the same chain composed from the JAX package's functions, run op by
-op (``jax.disable_jit()``), on the 16-bit TIFF it writes.
+The finishing path, ``develop --device cpu --deconv --unsharp --warp``, and the
+corrections (``--flat --repair-hot-pixels``, ``--dark --denoise``, ``--hdr``)
+are held against the same chains composed from the JAX package's functions,
+run op by op (``jax.disable_jit()``), on the 16-bit TIFF they write.
 """
 import subprocess
 import sys
@@ -18,6 +19,7 @@ from pysp_tpu.colorimetry.transforms import lin_srgb_to_srgb
 from pysp_tpu.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
 from pysp_tpu.io.raw_loader import load_raw_dng as jax_load_raw_dng
 from pysp_tpu.pipeline.develop import DevelopConfig, develop
+from pysp_tpu.pipeline.pipeline import PipelineConfig, develop_pipeline
 from pysp_tpu.warp.opcodes import apply_opcode_3_warp
 from pysp_tpu_torch.cli import main
 from pysp_tpu_torch.io import tiff as T
@@ -96,14 +98,81 @@ def test_the_cli_defaults_to_the_card(warped_dng, tmp_path):
         main(args)
 
 
+def _dng(path, rgb_scale=1.0, exposure=(1, 100), hot=(), seed=3, flat=False):
+    """A 160x192 RGGB DNG of the test scene (or of a vignetting flat field),
+    with photosites at full scale at ``hot``."""
+    if flat:
+        yy, xx = np.mgrid[0:160, 0:192].astype(np.float32)
+        mosaic = 1.0 - 0.4 * (((yy - 80) / 160) ** 2 + ((xx - 96) / 192) ** 2) * 2
+    else:
+        mosaic = np.clip(mosaic_rggb(make_scene(160, 192, seed=seed)) * rgb_scale, 0, 1)
+    u16 = (200 + mosaic * 3800).astype(np.uint16)
+    for y, x in hot:
+        u16[y, x] = 4095
+    path.write_bytes(T.write_synthetic_dng(u16, exposure_time=exposure))
+    return path
+
+
+HOT = [(31, 40), (90, 121), (120, 17), (52, 150), (53, 151)]
+
+
+@pytest.mark.parametrize("case", ["flat_heal", "dark_denoise", "hdr"])
+def test_corrections_match_the_jax_chain(case, tmp_path):
+    """``--flat --repair-hot-pixels``, ``--dark --denoise 1.0`` and ``--hdr`` on
+    three brackets (a stop apart, with hot photosites, healed by the burst's
+    consensus masks as the JAX CLI does with --repair-hot-pixels) against
+    ``develop_pipeline`` of the JAX package: >= 50 dB on the TIFF."""
+    out = tmp_path / "out.tif"
+    shot = _dng(tmp_path / "shot.dng", hot=HOT)
+    if case == "flat_heal":
+        aux = _dng(tmp_path / "flat.dng", flat=True)
+        args, kw = ["--flat", str(aux), "--repair-hot-pixels"], {"flat": aux}
+        pcfg = PipelineConfig(flat_field=True, repair_hot_pixels=True)
+        inputs = [shot]
+    elif case == "dark_denoise":
+        aux = tmp_path / "dark.dng"
+        aux.write_bytes(T.write_synthetic_dng(np.full((160, 192), 260, np.uint16)))
+        args, kw = ["--dark", str(aux), "--denoise", "1.0"], {"dark": aux}
+        pcfg = PipelineConfig(dark_frame=True, denoise_strength=1.0)
+        inputs = [shot]
+    else:
+        inputs = [_dng(tmp_path / f"b{k}.dng", rgb_scale=2.0 ** (k - 1), hot=HOT,
+                       exposure=(1, 200 // 2 ** k)) for k in range(3)]
+        args, kw = ["--hdr", "--repair-hot-pixels"], {}
+        pcfg = PipelineConfig(repair_hot_pixels=True, hot_pixel_shared_ratio=0.5,
+                              fuse_hdr=True)
+    assert main(["develop", *map(str, inputs), "-o", str(out), "--device", "cpu", *args]) == 0
+    got = _read_rgb16(out)
+
+    with jax.disable_jit():
+        frames = [jax_load_raw_dng(p.read_bytes()) for p in inputs]
+        frame = (jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *frames)
+                 if case == "hdr" else frames[0])
+        aux_frames = {k: jax_load_raw_dng(v.read_bytes()) for k, v in kw.items()}
+        img = np.asarray(develop_pipeline(frame, pcfg, **aux_frames))
+    want = to_uint16(img)
+    assert got.shape == want.shape == (160, 192, 3)
+    assert psnr(got.astype(np.float64) / 65535, want.astype(np.float64) / 65535) >= MIN_PSNR
+
+
+def test_hdr_output_is_named_after_the_first_input(tmp_path):
+    inputs = [_dng(tmp_path / f"b{k}.dng", rgb_scale=2.0 ** (k - 1),
+                   exposure=(1, 200 // 2 ** k)) for k in range(2)]
+    proc = subprocess.run(
+        [sys.executable, "-m", "pysp_tpu_torch", "develop", *map(str, inputs),
+         "--hdr", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert _read_rgb16(tmp_path / "b0_hdr.tif").shape == (160, 192, 3)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--ca"], "item 13"),
-    (["--repair-hot-pixels"], "B3"),
-    (["--denoise", "1.0"], "item 10"),
-    (["--hdr"], "item 10"),
     (["--stats"], "A7"),
     (["--temperature", "5000"], "item 15"),
     (["--params", "p.json"], "item 13"),
+    (["--hdr", "--params", "p.json"], "item 13"),
 ])
 def test_unported_flags_name_their_roadmap_item(warped_dng, flags, item):
     path, _ = warped_dng

@@ -16,7 +16,7 @@ from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, margin_for
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -269,3 +269,102 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.remap_kernel(img.double(), mx[0], my[0], "bilinear", channels_last=True)
     with pytest.raises(ValueError, match="kind"):
         K.remap_kernel(img, mx[0], my[0], "bicubic", channels_last=True)
+
+
+# --- the corrections path's kernel: heal ----------------------------------------------
+
+
+@pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
+@pytest.mark.parametrize("density", [1e-4, 3e-3, 0.6])
+@pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5)])
+def test_heal_kernel_bit_exact(cuda, shape, density, sweeps):
+    planes, mask = (torch.from_numpy(a).to(cuda) for a in heal_case(*shape, density, shape[1]))
+    before = K.heal_kernel_launches
+    got = K.heal_kernel(planes, mask, *sweeps)
+    assert K.heal_kernel_launches == before + 1
+    assert torch.equal(got, K.heal_plain(planes, mask, *sweeps))
+
+
+def test_repair_bad_pixels_and_its_gate_on_the_card(cuda):
+    """Inside the gate repair_bad_pixels launches the heal kernel, outside it
+    (7 + 2 sweeps) runs the dense fill; both equal the plain fill."""
+    from pysp_tpu_torch.core.bayer import bayer_to_planes
+    from pysp_tpu_torch.correct.bad_pixels import (
+        find_erroneous_pixels_median,
+        masked_fill_inpaint,
+        repair_bad_pixels,
+    )
+
+    bayer = mosaic_rggb(make_scene(256, 320, seed=8))
+    bayer[np.random.default_rng(8).random(bayer.shape) < 2e-3] = 1.0
+    frame = RawFrame.synthetic(bayer, device=cuda)
+    masks = find_erroneous_pixels_median(frame, quantile=0.99)
+    planes = bayer_to_planes(frame.bayer)
+    for iterations, launched in ((4, 1), (7, 0)):
+        before = K.heal_kernel_launches
+        got = bayer_to_planes(repair_bad_pixels(frame, masks, iterations).bayer)
+        assert K.heal_kernel_launches == before + launched
+        assert torch.equal(got, masked_fill_inpaint(planes, masks, iterations))
+    with pytest.raises(ValueError, match="sweeps"):
+        K.heal_kernel(planes, masks, 7, 2)
+    with pytest.raises(TypeError, match="bool"):
+        K.heal_kernel(planes, masks.float(), 4, 2)
+
+
+def _pipeline_plain(frames, cfg, flat=None):
+    """develop_pipeline composed from the plain versions: the same stages with
+    heal_plain for the heal and the plain develop."""
+    from pysp_tpu_torch.core.frame import stack_frames, unstack_frames
+    from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median
+    from pysp_tpu_torch.correct.flat_field import flat_frame_correction
+    from pysp_tpu_torch.correct.hdr import fuse_exposures_to_raw
+    from pysp_tpu_torch.core.bayer import bayer_to_planes, planes_to_bayer
+
+    def heal(f, masks):
+        healed = K.heal_plain(bayer_to_planes(f.bayer), masks, cfg.hot_pixel_iterations)
+        return f.replace(bayer=planes_to_bayer(healed))
+
+    plain = DevelopConfig(use_pallas=False)
+    if frames.bayer.ndim == 2:
+        if cfg.flat_field:
+            frames = flat_frame_correction(frames, flat)
+        return develop(heal(frames, find_erroneous_pixels_median(frames)), plain)
+    burst = unstack_frames(frames)
+    per_frame = [find_erroneous_pixels_median(f) for f in burst]
+    need = float(np.ceil(np.float32(len(burst) * cfg.hot_pixel_shared_ratio)))
+    shared = sum(m.to(torch.int32) for m in per_frame) >= need
+    fused, _ = fuse_exposures_to_raw(stack_frames([heal(f, shared) for f in burst],
+                                                  device=frames.bayer.device))
+    return develop(fused, plain)
+
+
+def test_corrections_pipeline_with_the_kernels_against_plain(cuda):
+    """Configs 3 and 4 at 256x320 through develop_pipeline on the card (heal and
+    AHD kernels) against the same stages from the plain versions."""
+    from pysp_tpu_torch import PipelineConfig, develop_pipeline, stack_frames
+
+    rng = np.random.default_rng(9)
+    scene = mosaic_rggb(make_scene(256, 320, seed=9))
+    hot = rng.random(scene.shape) < 5e-4
+    bayer = np.where(hot & (scene < 0.25), 1.0, scene).astype(np.float32)
+    yy, xx = np.mgrid[0:256, 0:320].astype(np.float32)
+    flat = 1.0 - 0.4 * (((yy - 128) / 256) ** 2 + ((xx - 160) / 320) ** 2) * 2
+    frame = RawFrame.synthetic(bayer, cam_mat=CAM, wb_neutral=WB, device=cuda)
+    flat = RawFrame.synthetic(flat.astype(np.float32), device=cuda)
+    cfg3 = PipelineConfig(flat_field=True, repair_hot_pixels=True)
+    before = (K.heal_kernel_launches, K.ahd_kernel_launches)
+    got = develop_pipeline(frame, cfg3, flat=flat)
+    assert (K.heal_kernel_launches, K.ahd_kernel_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
+    assert psnr(got.cpu().numpy(), _pipeline_plain(frame, cfg3, flat).cpu().numpy()) >= 50
+
+    frames = [RawFrame.synthetic(np.clip(bayer * 2.0 ** (k - 2), 0, 1).astype(np.float32),
+                                 cam_mat=CAM, wb_neutral=WB, ev=12.0 - k, device=cuda)
+              for k in range(5)]
+    burst = stack_frames(frames)
+    cfg4 = PipelineConfig(fuse_hdr=True, repair_hot_pixels=True, hot_pixel_shared_ratio=0.5)
+    before = (K.heal_kernel_launches, K.ahd_kernel_launches)
+    got = develop_pipeline(burst, cfg4)
+    assert (K.heal_kernel_launches, K.ahd_kernel_launches) == (before[0] + 5, before[1] + 1)
+    assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
+    assert psnr(got.cpu().numpy(), _pipeline_plain(burst, cfg4).cpu().numpy()) >= 50

@@ -22,6 +22,11 @@ MODULES = [
     "pysp_tpu_torch.warp.rectilinear",
     "pysp_tpu_torch.warp.opcodes",
     "pysp_tpu_torch.cli",
+    "pysp_tpu_torch.correct.bad_pixels",
+    "pysp_tpu_torch.correct.flat_field",
+    "pysp_tpu_torch.correct.hdr",
+    "pysp_tpu_torch.correct.denoise",
+    "pysp_tpu_torch.pipeline.pipeline",
 ]
 
 

@@ -8,7 +8,8 @@ sources with a small header that maps the CUDA names to that schedule (the
 launchers sit under ``#ifdef __CUDACC__`` and drop out), and the result is held
 against the plain PyTorch versions on CPU tensors with the card's tolerances.
 Shared memory starts filled with NaN, so a read of a cell no stage wrote shows
-up in the output.
+up in the output. With one thread, ``__syncthreads_or`` returns that thread's
+own predicate, which it took over the whole block.
 
 This checks indexing, halos, buffer reuse and the order of operations. The
 nvcc build, races between threads and launch limits are checked on the card
@@ -26,7 +27,7 @@ from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.core.frame import RawFrame
 from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
 
 torch.set_num_threads(1)
 
@@ -47,6 +48,7 @@ DRIVER = r"""
 struct Dim3 { unsigned x, y, z; };
 static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 static inline void __syncthreads() {}
+static inline int __syncthreads_or(int p) { return p; }
 namespace { float smem[1 << 17]; }
 #include KERNEL_SOURCE
 static void each_block(unsigned gx, unsigned gy, unsigned gz, void (*run)(void*),
@@ -115,6 +117,18 @@ void emulate(const float* img, const float* map_x, const float* map_y, float* ou
   a.plane = plane; a.pix = pix; a.map_plane = map_plane; a.kind = kind;
   a.bounded = bounded; a.lo_y = dy0; a.hi_y = dy1; a.lo_x = dx0; a.hi_x = dx1;
   each_block(cdiv(W, kTileX), cdiv(H, kTileY), 1, run_remap, &a);
+}
+#elif defined(EMULATE_HEAL)
+static void run_heal(void* p) {
+  Args* a = (Args*)p;
+  heal_kernel(a->a, (const unsigned char*)a->b, a->c, a->x, a->H, a->W, a->s, a->r);
+}
+void emulate(const float* chan, const void* mask, const float* means, float* out,
+             int H, int W, int fill, int smooth) {
+  Args a{};
+  a.a = chan; a.b = (const float*)mask; a.c = means; a.x = out; a.H = H; a.W = W;
+  a.s = fill; a.r = smooth;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), 4, run_heal, &a);
 }
 #else
 static void run_pp(void* p) {
@@ -294,3 +308,25 @@ def test_remap_source_against_plain(remap_lib, kind, bounds, channels, shape, ma
         assert torch.equal(out, want)
     else:
         assert (out - want).abs().max().item() <= 5e-6
+
+
+@pytest.fixture(scope="module")
+def heal_lib(tmp_path_factory):
+    return _build(tmp_path_factory, "heal.cu", "EMULATE_HEAL", n_ptrs=4, n_ints=4)
+
+
+
+@pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
+@pytest.mark.parametrize("density", [1e-4, 3e-3, 0.6])
+@pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5)])
+def test_heal_source_bit_exact(heal_lib, shape, density, sweeps):
+    """The heal's device code equals the dense masked fill bit for bit, at
+    whole and overhanging tiles and at planes smaller than the halo."""
+    planes, mask = map(torch.from_numpy, heal_case(*shape, density, seed=shape[1]))
+    fill, smooth = sweeps
+    assert K.heal_kernel_admits(fill, smooth)
+    means = planes.mean(dim=(-2, -1)).contiguous()
+    out = torch.full_like(planes, float("nan"))
+    heal_lib.emulate(_ptr(planes), _ptr(mask), _ptr(means), _ptr(out), shape[0], shape[1],
+                     fill, smooth)
+    assert torch.equal(out, K.heal_plain(planes, mask, fill, smooth))
