@@ -27,7 +27,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      3x3 cluster, a 13x13 blob that the fill cannot reach and blobs across
      tile corners that a halo one site short would get wrong, 4 + 2 and 6 + 2
      sweeps: bit-exact.
-3. Three main paths, each driven with every launch count set to 0 just before
+   - median5 kernel against ``ops.stencil.median5`` and homogeneity kernel
+     (both directions) against ``homogeneity_map_channels``: 512x768, 509x763
+     (tiles overhang) and 3x5, bit-exact.
+   - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
+     non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
+     ties that ``cbrtf`` flips), the fraction printed.
+3. Four main paths, each driven with every launch count set to 0 just before
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
@@ -59,20 +65,35 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      versions on the card, and that the CLI (``develop --flat
      --repair-hot-pixels``, ``develop b0..b4 --hdr --repair-hot-pixels``), run
      in subprocesses, writes the same TIFFs.
+   - tiers (the demosaic layer outside the AHD kernel's route): the 4000x6000
+     RGGB DNG through ``load_raw -> develop -> save_image`` three times: Best
+     with three chroma-median stages, which the AHD kernel does not take, so
+     the whole frame goes through the staged AHD route (the homogeneity kernel
+     twice, the postprocess kernel three times); Fast; Draft; and the
+     1500x2000 BGGR DNG at Fast. Then ``develop_to_image`` of the staged
+     route, ``median5_kernel`` on its R - G plane, and ``ahd_decision`` on the
+     frame's six candidate fields. Asserts those launches, that the staged
+     develop equals the plain one (``use_pallas=False``) on the card bit for
+     bit, that Fast and Draft are finite, (H, W, 3), within [0, 1] and within
+     1e-5 of the port's own develop of the same frame on the CPU, that the
+     median equals its plain version and the picks their plain chain except on
+     at most 0.05% of pixels, and that the CLI (``develop --quality fast``)
+     writes the same TIFF.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
    after 1) of the kernels, their plain versions, ``grid_sample`` (the one
    PyTorch call that computes the bilinear remap), the whole develop, the
-   whole finishing path and the two corrections pipelines, with the device
-   busy share of each path under ``torch.profiler``. Each kernel's bound is
+   whole finishing path, the two corrections pipelines and the three develops
+   of the tiers path (the plain staged develop: median of 3 after 1), with
+   the device busy share of each path under ``torch.profiler``. Each kernel's bound is
    the larger of its bytes (each input read once, each output written once)
    over 3.35 TB/s and its float32 operations, counted on its plain version at
    the same inputs, over 67 TFLOP/s.
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the three main paths
+kernel's ``launches`` there is the sum of its counts over the four main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
@@ -96,27 +117,40 @@ from pysp_tpu_torch import (
     QualityDemosaic,
     RawFrame,
     develop_pipeline,
+    develop_to_image,
     load_raw,
     save_image,
     stack_frames,
 )
-from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix, lin_srgb_to_srgb
+from pysp_tpu_torch.colorimetry.transforms import (
+    cam_to_lin_srgb_matrix,
+    lin_srgb_to_srgb,
+    rgb_to_lab_channels,
+)
 from pysp_tpu_torch.core.bayer import bayer_to_planes, planes_to_bayer
 from pysp_tpu_torch.core.frame import unstack_frames
 from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median, repair_bad_pixels
 from pysp_tpu_torch.correct.flat_field import flat_frame_correction
 from pysp_tpu_torch.correct.hdr import fuse_exposures_to_raw
-from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
+from pysp_tpu_torch.demosaic.ahd import (
+    ahd_candidates,
+    ahd_decision,
+    ahd_decision_plain,
+    demosaic_ahd_channels,
+    postprocess_color_channels,
+)
 from pysp_tpu_torch.demosaic.ahd_mega import (
     demosaic_ahd_mega,
     develop_channels_mega,
     margin_for,
 )
+from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
 from pysp_tpu_torch.io.metadata import get_opcode_3_block
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
+from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
 from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
 from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
@@ -133,6 +167,11 @@ TAIL_ATOL = 2e-6
 RL_ATOL = 2e-6                     # after 20 iterations on values in [0, 1]
 REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
 FINISH_ATOL = 1e-4                 # finished sRGB image, kernels against plain
+MAX_PICK_FLIPS = 5e-4              # H/V picks that cbrtf may flip at exact ties (0.05%)
+TIER_ATOL = 1e-5                   # Fast and Draft, the card against the CPU
+# The tiers path: a stage count that leaves the AHD kernel's route, so that the
+# whole frame takes the staged route.
+STAGED_STAGES = K.AHD_MAX_STAGES + 1
 # The finishing path: DNG lens warp (about 11 px at the corners at 24 MP) and
 # the filters of `develop --deconv 1.0:20 --unsharp 0.5:2 --warp`.
 WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
@@ -222,7 +261,8 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-COUNTERS = ("ahd", "postprocess", "rl", "remap", "heal")
+COUNTERS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity",
+            "decision")
 
 
 def zero_launch_counts() -> None:
@@ -344,6 +384,46 @@ def check_kernels_small() -> None:
                     f"bit-exact {same}")
                 if not same:
                     raise AssertionError("heal kernel differs from plain")
+
+
+def check_staged_kernels_small() -> None:
+    """Phase 2 for the staged AHD route's kernels: median5, homogeneity count
+    and direction pick against their plain versions."""
+    for h, w in ((512, 768), (509, 763), (3, 5)):
+        rgb = torch.from_numpy(make_scene(h, w, seed=30 + h % 7)).to(DEVICE)
+        x = (rgb[..., 0] - rgb[..., 1]).contiguous()
+        same = torch.equal(K.median5_kernel(x), median5(x))
+        log(f"median5 kernel vs plain {h}x{w}: bit-exact {same}")
+        if not same:
+            raise AssertionError("median5 kernel differs from plain")
+        lab = [p.contiguous() for p in rgb_to_lab_channels(*rgb.unbind(-1))]
+        for vertical in (False, True):
+            same = torch.equal(K.homogeneity_kernel(*lab, vertical),
+                               homogeneity_map_channels(*lab, vertical))
+            log(f"homogeneity kernel vs plain {h}x{w} vertical={vertical}: bit-exact {same}")
+            if not same:
+                raise AssertionError("homogeneity kernel differs from plain")
+
+    for h, w in ((512, 768), (510, 762)):
+        for is_hdr in (False, True):
+            frame = frame_on_card(h, w, seed=40 + int(is_hdr), is_hdr=is_hdr)
+            flips = pick_flips(frame)
+            log(f"decision kernel vs plain {h}x{w} hdr={is_hdr}: {flips:.6%} of picks differ")
+            if flips > MAX_PICK_FLIPS:
+                raise AssertionError("decision kernel outside the flip bound")
+
+
+def pick_flips(frame: RawFrame) -> float:
+    """Share of the decision kernel's picks on the frame's six candidate fields
+    that differ from the plain chain's."""
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    fields = [f.contiguous() for f in ahd_candidates(frame.bayer, wb)]
+    got = K.decision_kernel(*fields, mat, wb, frame.is_hdr)
+    want = ahd_decision_plain(*fields, mat, wb, frame.is_hdr)
+    if not bool(((got == 0) | (got == 1)).all()):
+        raise AssertionError("the decision kernel's picks are not 0 or 1")
+    return float((got != want).float().mean())
 
 
 
@@ -811,6 +891,204 @@ def corrections_at_main_shapes(frame, flat, burst, corrected, masks):
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
 
+# --- the tiers path: the demosaic layer outside the AHD kernel's route ----------------
+
+STAGED_CFG = DevelopConfig(quality=QualityDemosaic.Best, postprocess_stages=STAGED_STAGES)
+STAGED_PLAIN_CFG = DevelopConfig(quality=QualityDemosaic.Best,
+                                 postprocess_stages=STAGED_STAGES, use_pallas=False)
+FAST_CFG = DevelopConfig(quality=QualityDemosaic.Fast)
+DRAFT_CFG = DevelopConfig(quality=QualityDemosaic.Draft)
+
+
+def tiers_path(tmp: str):
+    """Phase 3, tiers: the develop path's two DNGs through ``load_raw ->
+    develop -> save_image`` at Best with three stages (the staged AHD route),
+    Fast and Draft, the median5 and decision kernels on the staged route's
+    demosaic and candidates, and Fast through the CLI. Returns the launch
+    counts and what phase 4 measures at these shapes."""
+    paths = {name: os.path.join(tmp, f"{name}.dng") for name in ("rggb", "bggr")}
+    tifs = {name: os.path.join(tmp, f"tiers_{name}.tif")
+            for name in ("staged", "fast", "draft", "bggr_fast")}
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    frame = load_raw(paths["rggb"])
+    outs = {}
+    for name, cfg in (("staged", STAGED_CFG), ("fast", FAST_CFG), ("draft", DRAFT_CFG)):
+        outs[name] = develop(frame, cfg)
+        save_image(tifs[name], outs[name])
+    bggr = load_raw(paths["bggr"])
+    outs["bggr_fast"] = develop(bggr, FAST_CFG)
+    save_image(tifs["bggr_fast"], outs["bggr_fast"])
+    # The two kernels that no develop calls (as in the JAX package), through
+    # their entry points at the staged route's own shapes.
+    demosaiced = develop_to_image(frame, STAGED_CFG).image
+    chroma = (demosaiced[..., 0] - demosaiced[..., 1]).contiguous()
+    chroma_median = K.median5_kernel(chroma)
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    fields = [f.contiguous() for f in ahd_candidates(frame.bayer, wb)]
+    picks = ahd_decision(*fields, mat, wb, frame.is_hdr)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"tiers path (load_raw -> develop Best {STAGED_STAGES} stages / Fast / Draft -> "
+        f"save_image, a BGGR DNG at Fast, develop_to_image -> median5 of R - G, "
+        f"ahd_candidates -> ahd_decision): {seconds:.3f} s host clock, kernel launches "
+        f"{launches}")
+    for name, least in (("homogeneity", 2), ("postprocess", STAGED_STAGES),
+                        ("median5", 1), ("decision", 1)):
+        if launches[name] < least:
+            raise AssertionError(f"the tiers path launched the {name} kernel "
+                                 f"{launches[name]} times, expected at least {least}")
+    if launches["ahd"] != 0:
+        raise AssertionError("a tiers develop went through the AHD kernel")
+
+    # (a) The staged route with the kernels is the plain route, bit for bit.
+    check_image("staged", outs["staged"], FULL_H, FULL_W)
+    same = torch.equal(outs["staged"], develop(frame, STAGED_PLAIN_CFG))
+    log(f"staged develop ({STAGED_STAGES} stages) {FULL_H}x{FULL_W}: kernels vs plain on "
+        f"the card bit-exact {same}")
+    if not same:
+        raise AssertionError("the staged develop with the kernels differs from plain")
+    # (b) Fast and Draft: plain PyTorch on the card against the same on the CPU.
+    for name, f, cfg in (("fast", frame, FAST_CFG), ("draft", frame, DRAFT_CFG),
+                         ("bggr_fast", bggr, FAST_CFG)):
+        out = outs[name]
+        check_image(name, out, f.height, f.width)
+        if os.path.getsize(tifs[name]) < f.height * f.width * 6:
+            raise AssertionError(f"{tifs[name]} is too short")
+        err = (out.cpu() - develop(f.to("cpu"), cfg)).abs().max().item()
+        log(f"{name} {f.height}x{f.width}: develop on the card vs on the CPU max abs "
+            f"{err:.3g}; range [{out.min().item():.4f}, {out.max().item():.4f}]")
+        if err > TIER_ATOL:
+            raise AssertionError(f"{name}: the card differs from the CPU by {err} > {TIER_ATOL}")
+    # (c) The median and the picks against their plain versions at 24 MP.
+    want = median5(chroma)
+    err = {"median5": (chroma_median - want).abs().max().item()}
+    same = torch.equal(chroma_median, want)
+    log(f"median5 kernel vs plain at {FULL_H}x{FULL_W} (R - G of the staged demosaic): "
+        f"bit-exact {same}")
+    if not same:
+        raise AssertionError("median5 kernel at 24 MP differs from plain")
+    want = ahd_decision_plain(*fields, mat, wb, frame.is_hdr)
+    err["decision"] = (picks - want).abs().max().item()   # 1.0 where a pick flipped
+    err["flipped_picks"] = float((picks != want).float().mean())
+    log(f"decision kernel vs plain at {FULL_H}x{FULL_W}: {err['flipped_picks']:.6%} of "
+        f"picks differ ({int((picks != want).sum())} pixels); "
+        f"{picks.mean().item():.4f} pick horizontal")
+    if err["flipped_picks"] > MAX_PICK_FLIPS:
+        raise AssertionError("decision kernel at 24 MP outside the flip bound")
+    del want, picks, chroma_median, outs
+    # (d) The CLI.
+    run_cli([paths["rggb"], "--quality", "fast"], tifs["fast"],
+            os.path.join(tmp, "tiers_fast_cli.tif"))
+    return launches, frame, chroma, fields, err
+
+
+def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dict):
+    """Phase 4 for the tiers path: the homogeneity kernel against its plain
+    version at 24 MP (``err`` holds the path's own comparison of the other
+    two), the three kernels' times and bounds, and the three develops with
+    their device busy share. Returns the kernels' records."""
+    h, w = frame.height, frame.width
+    px = h * w
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    hdr = frame.is_hdr
+    # The homogeneity kernel's main-path input: the horizontal candidate's
+    # CIELAB planes (what _build_homogeneity_map hands it).
+    r_h, g_h, b_h = fields[:3]
+    rr, gg, bb = r_h * wb[0], g_h * wb[1], b_h * wb[2]
+    lab = [p.contiguous() for p in rgb_to_lab_channels(
+        mat[0, 0] * rr + mat[0, 1] * gg + mat[0, 2] * bb,
+        mat[1, 0] * rr + mat[1, 1] * gg + mat[1, 2] * bb,
+        mat[2, 0] * rr + mat[2, 1] * gg + mat[2, 2] * bb)]
+    del rr, gg, bb
+    err = dict(err, homogeneity=0.0)
+    for vertical in (False, True):
+        got = K.homogeneity_kernel(*lab, vertical)
+        want = homogeneity_map_channels(*lab, vertical)
+        err["homogeneity"] = max(err["homogeneity"], (got - want).abs().max().item())
+        log(f"homogeneity kernel vs plain at {h}x{w} vertical={vertical}: bit-exact "
+            f"{torch.equal(got, want)}; counts {got.min().item():.0f}..{got.max().item():.0f}")
+        if not torch.equal(got, want):
+            raise AssertionError("homogeneity kernel at 24 MP differs from plain")
+    del got, want
+
+    t = {
+        "median5": median_ms(lambda: K.median5_kernel(chroma)),
+        "median5_plain": median_ms(lambda: median5(chroma)),
+        "homogeneity": median_ms(lambda: K.homogeneity_kernel(*lab, False)),
+        "homogeneity_plain": median_ms(lambda: homogeneity_map_channels(*lab, False)),
+        "decision": median_ms(lambda: K.decision_kernel(*fields, mat, wb, hdr)),
+        "decision_plain": median_ms(lambda: ahd_decision_plain(*fields, mat, wb, hdr)),
+        "staged": median_ms(lambda: develop(frame, STAGED_CFG)),
+        "staged_plain": median_ms(lambda: develop(frame, STAGED_PLAIN_CFG), runs=3, warmup=1),
+        "fast": median_ms(lambda: develop(frame, FAST_CFG)),
+        "draft": median_ms(lambda: develop(frame, DRAFT_CFG)),
+    }
+    mp = px / 1e6
+    log(f"tiers times at {h}x{w} by CUDA events, median of 10 (staged_plain: median of "
+        f"3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log(f"develop Best {STAGED_STAGES} stages (staged route) {mp / (t['staged'] / 1e3):.2f} "
+        f"MP/s with the kernels, {mp / (t['staged_plain'] / 1e3):.2f} MP/s plain; Fast "
+        f"{mp / (t['fast'] / 1e3):.2f} MP/s; Draft {mp / (t['draft'] / 1e3):.2f} MP/s")
+    # Where the staged develop's time goes, stage by stage (with the kernels).
+    planes = [p.contiguous() for p in demosaic_ahd_channels(frame, 0)]
+
+    def chroma_stages():
+        r, g, b = planes
+        for _ in range(STAGED_STAGES):
+            r, g, b = K.postprocess_color_kernel(r, g, b)
+        return r, g, b
+
+    stage_ms = {
+        "candidates": median_ms(lambda: ahd_candidates(frame.bayer, wb)),
+        "decision": median_ms(
+            lambda: ahd_decision_plain(*fields, mat, wb, hdr, use_pallas=True)),
+        f"postprocess_x{STAGED_STAGES}": median_ms(chroma_stages),
+        "tail": median_ms(lambda: torch.stack(
+            _color_tail_channels(*planes, mat, True, True), dim=-1)),
+    }
+    log("staged develop's stages one by one, median of 10 by CUDA events (decision: plain "
+        "CIELAB, the homogeneity kernel twice, plain box sums; the pick's blend is not "
+        "timed): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+    del planes
+    for name, cfg in (("staged develop", STAGED_CFG), ("Fast develop", FAST_CFG),
+                      ("Draft develop", DRAFT_CFG)):
+        host_ms, device_ms, n = device_busy(lambda: develop(frame, cfg))
+        log(f"{name} under torch.profiler, 3 runs: {host_ms:.3f} ms host clock per run, "
+            f"{device_ms:.3f} ms of device kernels ({n:.0f} kernels) per run, device "
+            f"idle {max(0.0, 1 - device_ms / host_ms):.1%} of the host time")
+
+    # Bounds: every input plane read once (4 B/px each), the result written once.
+    nbytes = {"median5": px * (4 + 4), "homogeneity": px * (12 + 4), "decision": px * (24 + 4)}
+    ops = {
+        "median5": float_ops(lambda: median5(chroma)),
+        "homogeneity": float_ops(lambda: homogeneity_map_channels(*lab, False)),
+        "decision": float_ops(lambda: ahd_decision_plain(*fields, mat, wb, hdr)),
+    }
+    b = {k: bound(nbytes[k], ops[k]) for k in ops}
+    log("bounds (NVIDIA H100 SXM, 3.35 TB/s, 67 TFLOP/s float32): " + ", ".join(
+        f"{k} {nbytes[k] / 1e6:.1f} MB, {ops[k] / 1e9:.2f} G ops ({ops[k] / px:.1f} per px) "
+        f"-> {b[k][0]:.4f} ms by {b[k][1]}; the kernel at {t[k] / b[k][0]:.2f}x its bound"
+        for k in ops))
+    records = [
+        {"name": name, "route": "cuda", "source": f"pysp_tpu_torch/csrc/{source}",
+         "replaces": f"pysp_tpu/ops/pallas_kernels.py:{line}", "counter": key,
+         "max_abs_err": err[key], "ms": t[key], "plain_ms": t[f"{key}_plain"],
+         "bound_ms": b[key][0], "bound_by": b[key][1], "library_ms": None}
+        for name, key, source, line in (
+            ("median5", "median5", "median5.cu", 90),
+            ("homogeneity_map", "homogeneity", "homogeneity.cu", 193),
+            ("ahd_decision", "decision", "decision.cu", 537),
+        )
+    ]
+    # The share of picks behind a max_abs_err of 1.0.
+    records[-1]["flipped_picks"] = err["flipped_picks"]
+    return records
+
+
 def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tensor,
                            block: bytes):
     """Phase 4: each wrapper against its plain version at the main paths'
@@ -1010,20 +1288,25 @@ def main() -> int:
         line for line in K.build_log.splitlines() if "ptxas" in line))
 
     check_kernels_small()
+    check_staged_kernels_small()
     with tempfile.TemporaryDirectory() as tmp:
         develop_launches, frame = main_path(tmp)
         finishing_launches, lin, srgb, block = finishing_path(tmp)
         corrections_launches, *corrections_state = corrections_path(tmp)
+        tiers_launches, *tiers_state = tiers_path(tmp)
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
+    del corrections_state
+    records.extend(tiers_at_main_shapes(*tiers_state))
     # Each path's counts were set to 0 just before it and read just after it;
     # "launches" is their sum, "launches_by_path" each path's own.
     for rec in records:
         counter = rec.pop("counter")
         by_path = {"develop": develop_launches[counter],
                    "finishing": finishing_launches[counter],
-                   "corrections": corrections_launches[counter]}
+                   "corrections": corrections_launches[counter],
+                   "tiers": tiers_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
 

@@ -36,28 +36,13 @@
 // version's, in its order, with FMA contraction off (-fmad=false): the
 // outputs differ only where cbrtf and powf round differently from torch's
 // (see PERF.md) and flip an H/V pick at an exact homogeneity tie.
+#include "ahd_lab.cuh"
 #include "median5.cuh"
 
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kThreads = 256;
-
-// Float constants go through double exactly as Python's float -> float32 does.
-#define F32(x) ((float)(x))
-
-// Layout of the parameter block built by ops/cuda_kernels.py::_ahd_params.
-enum {
-  P_MAT = 0,    // cam -> lin-sRGB, 3x3 row-major
-  P_WB = 9,     // reciprocal WB gains r, g, b
-  P_H = 12,     // blended 5-tap green filter
-  P_G3 = 17,    // 3x3 Gaussian, sigma 1
-  P_KR = 26,    // phase kernels of the R plane: TL, TR, BL, BR, 3x3 each
-  P_KB = 62,    // phase kernels of the B plane
-  P_LABM = 98,  // cv2 RGB -> XYZ matrix, 3x3 row-major
-  P_LABW = 107, // cv2 D65 white
-  P_COUNT = 110
-};
 
 // Output flags.
 enum { F_TAIL = 1, F_CLIP = 2, F_GAMMA = 4, F_INTERLEAVED = 8 };
@@ -116,84 +101,6 @@ __device__ __forceinline__ float upsample(const Field& m, const float* k,
   for (int t = 1; t < 9; ++t) {
     acc = acc + m.at(by + 2 * (t / 3), bx + 2 * (t % 3)) * kk[t];
   }
-  return acc;
-}
-
-__device__ __forceinline__ float srgb_decode(float x) {
-  x = fminf(fmaxf(x, 0.0f), 1.0f);
-  const float base = fmaxf((x + F32(0.055)) / F32(1.055), F32(1e-12));
-  const float p = powf(base, F32(2.4));
-  return x <= F32(0.04045) ? x / F32(12.92) : p;
-}
-
-__device__ __forceinline__ float lab_f(float t) {
-  return t > F32(0.008856) ? cbrtf(fmaxf(t, F32(1e-12)))
-                           : F32(7.787) * t + F32(16.0 / 116.0);
-}
-
-// Candidate (r, g, b) -> CIELAB for the homogeneity test: WB a second time,
-// cam -> lin-sRGB, then cv2's float RGB -> Lab (HDR: luma as L, tonemapped
-// chroma).
-__device__ __forceinline__ void to_lab(float r, float g, float b,
-                                       const float* prm, int is_hdr, float& L,
-                                       float& A, float& B) {
-  const float* m = prm + P_MAT;
-  const float rr = r * prm[P_WB], gg = g * prm[P_WB + 1], bb = b * prm[P_WB + 2];
-  float ir = m[0] * rr + m[1] * gg + m[2] * bb;
-  float ig = m[3] * rr + m[4] * gg + m[5] * bb;
-  float ib = m[6] * rr + m[7] * gg + m[8] * bb;
-  float luma = 0.0f;
-  if (is_hdr) {
-    luma = F32(0.2126) * ir + F32(0.7152) * ig + F32(0.0722) * ib;
-    ir = ir / (1.0f + ir);
-    ig = ig / (1.0f + ig);
-    ib = ib / (1.0f + ib);
-  }
-  const float dr = srgb_decode(ir), dg = srgb_decode(ig), db = srgb_decode(ib);
-  const float* lm = prm + P_LABM;
-  const float tx = (lm[0] * dr + lm[1] * dg + lm[2] * db) / prm[P_LABW];
-  const float ty = (lm[3] * dr + lm[4] * dg + lm[5] * db) / prm[P_LABW + 1];
-  const float tz = (lm[6] * dr + lm[7] * dg + lm[8] * db) / prm[P_LABW + 2];
-  const float fx = lab_f(tx), fy = lab_f(ty), fz = lab_f(tz);
-  L = ty > F32(0.008856) ? F32(116.0) * fy - F32(16.0) : F32(903.3) * ty;
-  if (is_hdr) L = luma;
-  A = F32(500.0) * (fx - fy);
-  B = F32(200.0) * (fy - fz);
-}
-
-// Homogeneity count of one direction at (ly, lx): the centre and the two
-// neighbours that set the adaptive bounds always pass (count starts at 3);
-// one-sided luminance test, two-sided chroma test.
-__device__ __forceinline__ float homogeneity(const Field& L, const Field& A,
-                                             const Field& B, int ly, int lx,
-                                             bool vertical) {
-  const float cl = L.at(ly, lx), ca = A.at(ly, lx), cb = B.at(ly, lx);
-  const int y1 = vertical ? ly - 1 : ly, x1 = vertical ? lx : lx - 1;
-  const int y2 = vertical ? ly + 1 : ly, x2 = vertical ? lx : lx + 1;
-  const float eps_l =
-      fmaxf(fabsf(cl - L.at(y1, x1)), fabsf(cl - L.at(y2, x2)));
-  const float a1 = ca - A.at(y1, x1), b1 = cb - B.at(y1, x1);
-  const float a2 = ca - A.at(y2, x2), b2 = cb - B.at(y2, x2);
-  const float eps_c2 = fmaxf(a1 * a1 + b1 * b1, a2 * a2 + b2 * b2);
-  float count = 3.0f;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int dy = k / 3 - 1, dx = k % 3 - 1;
-    if (dy == 0 && dx == 0) continue;
-    if (vertical ? dx == 0 : dy == 0) continue;
-    const float da = A.at(ly + dy, lx + dx) - ca;
-    const float db = B.at(ly + dy, lx + dx) - cb;
-    const bool ok = (L.at(ly + dy, lx + dx) - cl <= eps_l) &&
-                    (da * da + db * db <= eps_c2);
-    count = count + (ok ? 1.0f : 0.0f);
-  }
-  return count;
-}
-
-__device__ __forceinline__ float box_sum3(const Field& c, int ly, int lx) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) acc += c.at(ly + k / 3 - 1, lx + k % 3 - 1);
   return acc;
 }
 

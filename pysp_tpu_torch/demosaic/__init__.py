@@ -1,12 +1,14 @@
-"""Demosaic dispatch. Only the Best (AHD) tier is ported; Draft and Fast raise
-``NotImplementedError`` (ROADMAP.md queue A, item A1)."""
+"""Demosaic dispatch over the three quality tiers: Draft (quarter-res resolve
+and bilinear upsample), Fast (edge-assisted Gaussian) and Best (AHD)."""
 from __future__ import annotations
 
 from ..const import QualityDemosaic
 from ..core.frame import DevelopedImage, RawFrame
 from .ahd import demosaic_ahd
+from .draft import demosaic_draft
+from .eag import demosaic_eag
 
-__all__ = ["demosaic", "demosaic_ahd"]
+__all__ = ["demosaic", "demosaic_ahd", "demosaic_draft", "demosaic_eag"]
 
 
 def demosaic(
@@ -19,13 +21,12 @@ def demosaic(
 
     Un-canonicalization back to the source pattern happens in the develop
     pipeline."""
+    if quality == QualityDemosaic.Draft:
+        return demosaic_draft(frame)
+    if quality == QualityDemosaic.Fast:
+        return demosaic_eag(frame)
     if quality == QualityDemosaic.Best:
         return demosaic_ahd(
             frame, postprocess_stages=postprocess_steps, use_pallas=use_pallas
-        )
-    if quality in (QualityDemosaic.Fast, QualityDemosaic.Draft):
-        raise NotImplementedError(
-            f"Quality {quality!r} is not ported to pysp_tpu_torch yet "
-            "(ROADMAP.md queue A, item A1: Draft and Fast)"
         )
     raise NotImplementedError(f"Quality mode not implemented: {quality}")

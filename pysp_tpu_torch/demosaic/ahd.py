@@ -11,7 +11,12 @@ iterative chroma-median postprocessing.
 This is the port's CPU path, the source of the border strips that
 ``ahd_mega`` stitches over the CUDA kernel's output, and the plain version the
 kernel is held against (``ahd_channels`` plus ``pipeline.develop``'s colour
-tail).
+tail). With ``use_pallas`` on CUDA tensors it is the staged route: the
+homogeneity counts come from the homogeneity kernel and the chroma-median
+stages from the postprocess kernel, both bit-identical to their plain
+versions, so the route equals the plain one exactly. It develops the border
+strips, frames too small for them and stage counts the AHD kernel does not
+take.
 """
 from __future__ import annotations
 
@@ -39,12 +44,14 @@ _H = (_H / _H.sum()).astype(np.float32)
 
 def _build_homogeneity_map(
     r: Tensor, g: Tensor, b: Tensor, mat: Tensor, wb: Tensor, is_hdr: bool,
-    is_vertical: bool,
+    is_vertical: bool, use_pallas: bool = False,
 ) -> Tensor:
     """LAB homogeneity for one direction.
 
     WB is multiplied in a second time here (the candidate planes already carry
-    it from the interpolation stage), as the reference does."""
+    it from the interpolation stage), as the reference does. With
+    ``use_pallas`` the count of CUDA planes comes from the homogeneity kernel
+    (bit-identical to :func:`homogeneity_map_channels`)."""
     rr, gg, bb = r * wb[0], g * wb[1], b * wb[2]
     ir = mat[0, 0] * rr + mat[0, 1] * gg + mat[0, 2] * bb
     ig = mat[1, 0] * rr + mat[1, 1] * gg + mat[1, 2] * bb
@@ -61,7 +68,43 @@ def _build_homogeneity_map(
     else:
         lum, la, lb = rgb_to_lab_channels(ir, ig, ib)
 
+    if use_pallas and lum.device.type == "cuda":
+        from ..ops.cuda_kernels import homogeneity_kernel
+
+        return homogeneity_kernel(
+            lum.contiguous(), la.contiguous(), lb.contiguous(), is_vertical
+        )
     return homogeneity_map_channels(lum, la, lb, is_vertical)
+
+
+def ahd_decision_plain(
+    r_h: Tensor, g_h: Tensor, b_h: Tensor, r_v: Tensor, g_v: Tensor, b_v: Tensor,
+    mat: Tensor, wb: Tensor, is_hdr: bool, use_pallas: bool = False,
+) -> Tensor:
+    """The H/V pick from the six candidate fields: 1.0 where the horizontal
+    candidate's box-summed homogeneity is below the vertical one's. The plain
+    version of the decision kernel (``ops.cuda_kernels.decision_kernel``).
+
+    The counts are integers, so the unnormalized sums compare exactly. With
+    ``use_pallas`` the two counts of CUDA fields come from the homogeneity
+    kernel, which changes no value."""
+    map_h = box_sum3(_build_homogeneity_map(r_h, g_h, b_h, mat, wb, is_hdr, False, use_pallas))
+    map_v = box_sum3(_build_homogeneity_map(r_v, g_v, b_v, mat, wb, is_hdr, True, use_pallas))
+    return (map_h < map_v).to(torch.float32)
+
+
+def ahd_decision(
+    r_h: Tensor, g_h: Tensor, b_h: Tensor, r_v: Tensor, g_v: Tensor, b_v: Tensor,
+    mat: Tensor, wb: Tensor, is_hdr: bool,
+) -> Tensor:
+    """The H/V pick in one pass by the decision kernel on CUDA fields
+    (:func:`ahd_decision_plain` on CPU ones). Counterpart of
+    ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``; as there,
+    :func:`ahd_channels` does not call it: its ``cbrtf`` flips picks at exact
+    ties, and the border strips must equal the plain route bit for bit."""
+    from ..ops.cuda_kernels import decision_kernel
+
+    return decision_kernel(r_h, g_h, b_h, r_v, g_v, b_v, mat, wb, is_hdr)
 
 
 def postprocess_color_channels(r: Tensor, g: Tensor, b: Tensor):
@@ -73,16 +116,10 @@ def postprocess_color_channels(r: Tensor, g: Tensor, b: Tensor):
     return r, g, b
 
 
-def ahd_channels(
-    bayer: Tensor, mat: Tensor, wb: Tensor, is_hdr: bool,
-    postprocess_stages: int = 1, use_pallas: bool = False,
-):
-    """AHD of a canonical-RGGB mosaic (H, W) to separate (r, g, b) channels.
-
-    ``mat`` is the cam->lin-sRGB matrix and ``wb`` the reciprocal WB gains.
-    With ``use_pallas`` the chroma-median stages go through the postprocess
-    kernel wrapper, which launches the CUDA kernel on a CUDA tensor and runs
-    :func:`postprocess_color_channels` on a CPU one."""
+def ahd_candidates(bayer: Tensor, wb: Tensor):
+    """The six candidate fields ``(r_h, g_h, b_h, r_v, g_v, b_v)`` of a
+    canonical-RGGB mosaic (H, W): green interpolated along the rows (h) and
+    along the columns (v), and R and B rebuilt on each."""
     r0, g1_0, b0, g2_0 = bayer_to_rgbg(bayer)
 
     # Pad planes 1px (BORDER_REFLECT) and pre-apply WB
@@ -144,12 +181,22 @@ def ahd_channels(
     r_v = resample_channel(r_c, gv_r, delta_gv_hf, BayerPatternPosition.TOP_LEFT)
     b_h = resample_channel(b_c, gh_b, delta_gh_hf, BayerPatternPosition.BOTTOM_RIGHT)
     b_v = resample_channel(b_c, gv_b, delta_gv_hf, BayerPatternPosition.BOTTOM_RIGHT)
+    return r_h, g_h, b_h, r_v, g_v, b_v
 
-    # Direction decision on box-summed homogeneity: the counts are integers, so
-    # the unnormalized sums compare exactly.
-    map_h = box_sum3(_build_homogeneity_map(r_h, g_h, b_h, mat, wb, is_hdr, False))
-    map_v = box_sum3(_build_homogeneity_map(r_v, g_v, b_v, mat, wb, is_hdr, True))
-    pick = (map_h < map_v).to(torch.float32)
+
+def ahd_channels(
+    bayer: Tensor, mat: Tensor, wb: Tensor, is_hdr: bool,
+    postprocess_stages: int = 1, use_pallas: bool = False,
+):
+    """AHD of a canonical-RGGB mosaic (H, W) to separate (r, g, b) channels.
+
+    ``mat`` is the cam->lin-sRGB matrix and ``wb`` the reciprocal WB gains.
+    With ``use_pallas`` the homogeneity counts and the chroma-median stages go
+    through their kernel wrappers, which launch the CUDA kernels on CUDA
+    tensors and run the plain versions on CPU ones."""
+    r_h, g_h, b_h, r_v, g_v, b_v = ahd_candidates(bayer, wb)
+
+    pick = ahd_decision_plain(r_h, g_h, b_h, r_v, g_v, b_v, mat, wb, is_hdr, use_pallas)
     inv = 1.0 - pick
     out_r = r_h * pick + r_v * inv
     out_g = g_h * pick + g_v * inv

@@ -8,13 +8,16 @@ to intermediates (reflect-101 correlations, symmetric CIELAB windows, replicate
 medians), which a halo tile cannot reproduce, so that frame is recomputed by
 the plain version on four narrow crops and written over the kernel's output.
 
-The strips run ``demosaic_ahd_channels`` with the postprocess kernel, which is
-bit-identical to the plain chroma-median stage, so the stitched border equals
-the plain whole-frame result exactly; on the card one launch replaces the
-plain stage's some 350 elementwise launches per strip.
+The strips run ``demosaic_ahd_channels`` on the staged route's kernels: the
+homogeneity kernel for both counts and the postprocess kernel for each
+chroma-median stage. Both are bit-identical to their plain versions, so the
+stitched border equals the plain whole-frame result exactly; on the card each
+launch replaces some 70 (a count) or 350 (a stage) elementwise launches per
+strip.
 
-Frames too small for the strips, and stage counts the kernel does not take, go
-to ``demosaic_ahd_channels`` with the postprocess kernel, as in the JAX package.
+Frames too small for the strips, and stage counts the AHD kernel does not
+take, go whole to ``demosaic_ahd_channels`` on those two kernels, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -61,8 +64,9 @@ def _stitch_edges(c: Tensor, t, bo, le, ri, f: int, s: int, h: int, w: int) -> N
 
 
 def _strips(frame: RawFrame, s: int, postprocess_stages: int, mat=None, tail=None):
-    """AHD of the four border crops by the plain path (with the postprocess
-    kernel), then develop's tail with ``mat`` when ``tail`` is given."""
+    """AHD of the four border crops by the staged route (the homogeneity and
+    postprocess kernels), then develop's tail with ``mat`` when ``tail`` is
+    given."""
     from ..pipeline.develop import _color_tail_channels
 
     h, w = frame.bayer.shape

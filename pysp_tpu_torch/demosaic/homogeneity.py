@@ -16,7 +16,8 @@ def homogeneity_map_channels(
     lum: Tensor, a: Tensor, b: Tensor, is_vertical: bool, domain_k: int = 3
 ) -> Tensor:
     """Count of in-window neighbours within the adaptive (eps_L, eps_C^2) bounds
-    of each pixel, on separate L/a/b planes (BORDER_REFLECT)."""
+    of each pixel, on separate L/a/b planes (BORDER_REFLECT). The plain
+    version of the homogeneity kernel (``ops.cuda_kernels.homogeneity_kernel``)."""
     if domain_k % 2 != 1:
         raise ValueError("domain_k must be odd")
     k_pad = domain_k // 2
@@ -59,3 +60,10 @@ def homogeneity_map_channels(
             count = count + ok.to(torch.float32)
 
     return count
+
+
+def homogeneity_map(lab: Tensor, is_vertical: bool, domain_k: int = 3) -> Tensor:
+    """:func:`homogeneity_map_channels` of an unpadded (H, W, 3) CIELAB image."""
+    return homogeneity_map_channels(
+        lab[..., 0], lab[..., 1], lab[..., 2], is_vertical, domain_k
+    )

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels for Hopper and their Python wrappers.
 
-Five kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``:
+Eight kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``, one for every
+function of the JAX package that reaches ``pl.pallas_call``:
 
 - ``ahd.cu``: the whole AHD demosaic plus the optional develop colour tail,
   counterpart of ``pysp_tpu/ops/pallas_kernels.py::ahd_mega_pallas``;
@@ -11,7 +12,13 @@ Five kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``:
 - ``remap.cu``: the bilinear / Lanczos4 remap over every channel, counterpart
   of ``pysp_tpu/ops/pallas_kernels.py::remap_bounded_pallas``;
 - ``heal.cu``: every sweep of the hot-pixel heal on the four CFA planes,
-  counterpart of ``pysp_tpu/ops/pallas_kernels.py::masked_fill_pallas``.
+  counterpart of ``pysp_tpu/ops/pallas_kernels.py::masked_fill_pallas``;
+- ``median5.cu``: the 5x5 median of a plane, counterpart of
+  ``pysp_tpu/ops/pallas_kernels.py::median5_pallas``;
+- ``homogeneity.cu``: one direction's AHD homogeneity count, counterpart of
+  ``pysp_tpu/ops/pallas_kernels.py::homogeneity_map_pallas``;
+- ``decision.cu``: the fused AHD direction pick, counterpart of
+  ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``.
 
 At the first CUDA call the sources are compiled with ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface under
@@ -23,8 +30,9 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version instead;
 given CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches in a module-level integer (``ahd_kernel_launches``,
 ``postprocess_kernel_launches``, ``rl_kernel_launches``,
-``remap_kernel_launches``, ``heal_kernel_launches``), incremented only where
-the kernel launches.
+``remap_kernel_launches``, ``heal_kernel_launches``,
+``median5_kernel_launches``, ``homogeneity_kernel_launches``,
+``decision_kernel_launches``), incremented only where the kernel launches.
 """
 from __future__ import annotations
 
@@ -48,8 +56,9 @@ Tensor = torch.Tensor
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu")
-_HEADERS = ("median5.cuh",)
+_SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu", "median5.cu",
+            "homogeneity.cu", "decision.cu")
+_HEADERS = ("median5.cuh", "ahd_lab.cuh")
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
 NVCC_FLAGS = (
@@ -70,6 +79,9 @@ postprocess_kernel_launches = 0
 rl_kernel_launches = 0
 remap_kernel_launches = 0
 heal_kernel_launches = 0
+median5_kernel_launches = 0
+homogeneity_kernel_launches = 0
+decision_kernel_launches = 0
 
 # The loaded library and what its build printed; set by load_library().
 _lib = None
@@ -136,6 +148,12 @@ def load_library() -> ctypes.CDLL:
     lib.pysp_remap.restype = i32
     lib.pysp_heal.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.pysp_heal.restype = i32
+    lib.pysp_median5.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.pysp_median5.restype = i32
+    lib.pysp_homogeneity.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.pysp_homogeneity.restype = i32
+    lib.pysp_ahd_decision.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+    lib.pysp_ahd_decision.restype = i32
     _lib = lib
     return lib
 
@@ -502,3 +520,100 @@ def heal_plain(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
     from ..correct.bad_pixels import masked_fill_inpaint
 
     return masked_fill_inpaint(planes, masks, fill_iterations, smooth_iterations)
+
+
+# --- the staged AHD route: median, homogeneity count, direction pick ------------------
+
+
+def median5_kernel(x: Tensor) -> Tensor:
+    """5x5 median of an (H, W) float32 plane with a replicate border
+    (``cv2.medianBlur(src, 5)``) by the median kernel; bit-identical to
+    ``ops.stencil.median5``, which runs instead on a CPU tensor. Any H and W of
+    at least 1 go."""
+    global median5_kernel_launches
+    if x.device.type == "cpu":
+        from .stencil import median5
+
+        return median5(x)
+    if x.ndim != 2 or x.numel() == 0:
+        raise ValueError(f"x must be a non-empty (H, W) plane, got {tuple(x.shape)}")
+    _check(x, "x")
+    h, w = x.shape
+    out = torch.empty_like(x)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pysp_median5(x.data_ptr(), out.data_ptr(), h, w, stream)
+    _raise_on_error(err, "median5 kernel")
+    median5_kernel_launches += 1
+    return out
+
+
+def homogeneity_kernel(lum: Tensor, a: Tensor, b: Tensor, is_vertical: bool) -> Tensor:
+    """One direction's AHD homogeneity count (3x3 window, symmetric border,
+    values 3..9) on (H, W) float32 L, a, b planes by the homogeneity kernel;
+    bit-identical to ``demosaic.homogeneity.homogeneity_map_channels``, which
+    runs instead on CPU tensors."""
+    global homogeneity_kernel_launches
+    if lum.device.type == "cpu":
+        from ..demosaic.homogeneity import homogeneity_map_channels
+
+        return homogeneity_map_channels(lum, a, b, is_vertical)
+    if lum.ndim != 2 or lum.numel() == 0:
+        raise ValueError(f"planes must be non-empty (H, W), got {tuple(lum.shape)}")
+    _check(lum, "lum")
+    _check(a, "a", lum.shape, lum.device)
+    _check(b, "b", lum.shape, lum.device)
+    h, w = lum.shape
+    out = torch.empty_like(lum)
+    lib = load_library()
+    with torch.cuda.device(lum.device):
+        stream = torch.cuda.current_stream(lum.device).cuda_stream
+        err = lib.pysp_homogeneity(
+            lum.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), h, w,
+            int(bool(is_vertical)), stream,
+        )
+    _raise_on_error(err, "homogeneity kernel")
+    homogeneity_kernel_launches += 1
+    return out
+
+
+def decision_kernel(
+    r_h: Tensor, g_h: Tensor, b_h: Tensor, r_v: Tensor, g_v: Tensor, b_v: Tensor,
+    mat: Tensor, wb: Tensor, is_hdr: bool,
+) -> Tensor:
+    """The AHD direction pick from the six candidate fields (H, W) float32, by
+    the decision kernel: 1.0 where the box-summed homogeneity of the horizontal
+    candidate is below the vertical one's, else 0.0.
+
+    ``mat`` is the cam->lin-sRGB matrix (3, 3), ``wb`` the reciprocal WB gains
+    (3,). H and W must be at least 2 (the box sum's reflect-101 border). Equal
+    to ``demosaic.ahd.ahd_decision_plain``, which runs instead on CPU tensors,
+    except where the two sums tie and ``cbrtf`` rounds CIELAB differently from
+    the plain cube root."""
+    global decision_kernel_launches
+    fields = (r_h, g_h, b_h, r_v, g_v, b_v)
+    if r_h.device.type == "cpu":
+        from ..demosaic.ahd import ahd_decision_plain
+
+        return ahd_decision_plain(*fields, mat, wb, is_hdr)
+    if r_h.ndim != 2 or min(r_h.shape) < 2:
+        raise ValueError(f"fields must be (H, W) with H, W >= 2, got {tuple(r_h.shape)}")
+    mat, wb = mat.contiguous(), wb.contiguous()
+    for name, f in zip(("r_h", "g_h", "b_h", "r_v", "g_v", "b_v"), fields):
+        _check(f, name, r_h.shape, r_h.device)
+    _check(mat, "mat", (3, 3), r_h.device)
+    _check(wb, "wb", (3,), r_h.device)
+    h, w = r_h.shape
+    params = _ahd_params(mat, wb)
+    out = torch.empty_like(r_h)
+    lib = load_library()
+    with torch.cuda.device(r_h.device):
+        stream = torch.cuda.current_stream(r_h.device).cuda_stream
+        err = lib.pysp_ahd_decision(
+            *(f.data_ptr() for f in fields), params.data_ptr(), out.data_ptr(), h, w,
+            int(bool(is_hdr)), stream,
+        )
+    _raise_on_error(err, "decision kernel")
+    decision_kernel_launches += 1
+    return out

@@ -283,3 +283,28 @@ def shift2d(x: Tensor, dy: int, dx: int, pad_fn=pad_reflect) -> Tensor:
     xp = pad_fn(x, (py, py, px, px))
     h, w = x.shape[-2], x.shape[-1]
     return xp[..., py + dy : py + dy + h, px + dx : px + dx + w]
+
+
+def upsample2x_bilinear_cv2(x: Tensor) -> Tensor:
+    """cv2.resize(src, (2W, 2H), INTER_LINEAR) equivalent for an (H, W) plane
+    or an (..., H, W, C) image.
+
+    Half-pixel-centre bilinear 2x upsample reduces to a fixed 2-tap stencil per
+    output parity: even outputs = 0.75*p[i] + 0.25*p[i-1], odd = 0.75*p[i] +
+    0.25*p[i+1] (edges replicate). Used by the Draft demosaic."""
+
+    def up_axis(v: Tensor, axis: int) -> Tensor:
+        v = v.movedim(axis, -1)
+        n = v.shape[-1]
+        vp = torch.cat([v[..., :1], v, v[..., -1:]], dim=-1)
+        prev_ = vp[..., 0:n]
+        cur = vp[..., 1 : n + 1]
+        nxt = vp[..., 2 : n + 2]
+        even = 0.75 * cur + 0.25 * prev_
+        odd = 0.75 * cur + 0.25 * nxt
+        out = torch.stack([even, odd], dim=-1).reshape(*v.shape[:-1], 2 * n)
+        return out.movedim(-1, axis)
+
+    if x.ndim == 2:
+        return up_axis(up_axis(x, 0), 1)
+    return up_axis(up_axis(x, -3), -2)

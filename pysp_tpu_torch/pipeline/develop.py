@@ -2,15 +2,18 @@
 
 Counterpart of ``pysp_tpu/pipeline/develop.py``. PyTorch runs eagerly, so
 there is no jit and ``DevelopConfig`` is a plain frozen dataclass with the same
-fields and defaults. Only the Best (AHD) tier and the ``"clip"`` highlight mode
-are ported; Draft, Fast and ``highlights="reconstruct"`` raise
-``NotImplementedError`` (ROADMAP.md queue A, items A1 and A2).
+fields and defaults. The three quality tiers (Draft, Fast, Best) and the
+``"clip"`` highlight mode are ported; ``highlights="reconstruct"`` raises
+``NotImplementedError`` (ROADMAP.md queue A, item A2).
 
 ``use_pallas`` keeps its name and meaning: use the hand-written kernels. On a
-CUDA frame, Best then develops through the AHD kernel, with the postprocess
-kernel in its border strips (and alone where the frame is too small for the
-strips), and a kernel that cannot build or launch raises. On a CPU frame the plain PyTorch
-path runs, as the JAX package runs XLA off the TPU.
+CUDA frame, Best then develops through the AHD kernel, with the homogeneity
+and postprocess kernels in its border strips; frames too small for the strips
+and more chroma-median stages than the AHD kernel takes go through the staged
+AHD route on those two kernels. A kernel that cannot build or launch raises.
+On a CPU frame the plain PyTorch path runs, as the JAX package runs XLA off
+the TPU. Draft and Fast are plain PyTorch on every device, as they are plain
+XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,15 +50,15 @@ def _check_ported(cfg: DevelopConfig) -> None:
             'highlights="reconstruct" is not ported to pysp_tpu_torch yet '
             "(ROADMAP.md queue A, item A2: correct/highlights.py)"
         )
-    if cfg.quality != QualityDemosaic.Best:
-        raise NotImplementedError(
-            f"Quality {cfg.quality!r} is not ported to pysp_tpu_torch yet "
-            "(ROADMAP.md queue A, item A1: Draft and Fast)"
-        )
 
 
 def _use_kernel(frame: RawFrame, cfg: DevelopConfig) -> bool:
-    return cfg.use_pallas and frame.bayer.device.type == "cuda" and frame.bayer.ndim == 2
+    return (
+        cfg.quality == QualityDemosaic.Best
+        and cfg.use_pallas
+        and frame.bayer.device.type == "cuda"
+        and frame.bayer.ndim == 2
+    )
 
 
 def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
@@ -71,13 +74,21 @@ def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
 
 def _demosaic_channels(frame: RawFrame, cfg: DevelopConfig):
     from ..demosaic.ahd import demosaic_ahd_channels
+    from ..demosaic.draft import demosaic_draft_channels
+    from ..demosaic.eag import demosaic_eag_channels
 
-    if _use_kernel(frame, cfg):
-        from ..demosaic.ahd_mega import demosaic_ahd_mega
+    if cfg.quality == QualityDemosaic.Best:
+        if _use_kernel(frame, cfg):
+            from ..demosaic.ahd_mega import demosaic_ahd_mega
 
-        # The AHD kernel; falls back internally for frames it cannot stitch.
-        return demosaic_ahd_mega(frame, cfg.postprocess_stages)
-    return demosaic_ahd_channels(frame, cfg.postprocess_stages, cfg.use_pallas)
+            # The AHD kernel; falls back internally for frames it cannot stitch.
+            return demosaic_ahd_mega(frame, cfg.postprocess_stages)
+        return demosaic_ahd_channels(frame, cfg.postprocess_stages, cfg.use_pallas)
+    if cfg.quality == QualityDemosaic.Fast:
+        return demosaic_eag_channels(frame)
+    if cfg.quality == QualityDemosaic.Draft:
+        return demosaic_draft_channels(frame)
+    raise NotImplementedError(f"Quality mode not implemented: {cfg.quality}")
 
 
 def _color_tail_channels(
@@ -111,23 +122,35 @@ def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
     """Full develop: demosaic -> camera->lin-sRGB -> (optional) gamma encode,
     returning the (H, W, 3) float32 image in the source pattern's orientation.
 
-    With the kernel, the colour tail runs inside the AHD kernel and the image
-    leaves it in its final layout."""
+    With the kernel, Best's colour tail runs inside the AHD kernel and the
+    image leaves it in its final layout. A 2-D Draft or Fast frame takes the
+    fused polyphase develop (the tail on the phase planes, one full-res
+    assembly per channel), as in the JAX package."""
     _check_ported(cfg)
-    out = None
+    out = srgb = None
     if _use_kernel(frame, cfg):
         from ..demosaic.ahd_mega import develop_channels_mega
 
         out = develop_channels_mega(
             frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
         )
+    if out is None and frame.bayer.ndim == 2:
+        if cfg.quality == QualityDemosaic.Draft:
+            from ..demosaic.draft import develop_channels_draft
+
+            srgb = develop_channels_draft(frame, cfg.clip_highlights, cfg.gamma_encode)
+        elif cfg.quality == QualityDemosaic.Fast:
+            from ..demosaic.eag import develop_channels_eag
+
+            srgb = develop_channels_eag(frame, cfg.clip_highlights, cfg.gamma_encode)
     if out is None:
-        r, g, b = _demosaic_channels(frame, cfg)
-        mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-        ir, ig, ib = _color_tail_channels(
-            r, g, b, mat, cfg.clip_highlights, cfg.gamma_encode
-        )
-        out = torch.stack([ir, ig, ib], dim=-1).to(torch.float32)
+        if srgb is None:
+            r, g, b = _demosaic_channels(frame, cfg)
+            mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+            srgb = _color_tail_channels(
+                r, g, b, mat, cfg.clip_highlights, cfg.gamma_encode
+            )
+        out = torch.stack(srgb, dim=-1).to(torch.float32)
     if frame.source_pattern != BayerPattern.Rggb:
         out = reversible_transform_rggb(out, frame.source_pattern)
     return out

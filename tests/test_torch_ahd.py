@@ -20,12 +20,22 @@ import pytest
 import torch
 
 from pysp_tpu.core.frame import RawFrame as JaxFrame
+from pysp_tpu.demosaic import ahd as jax_ahd_module
+from pysp_tpu.demosaic import homogeneity as jax_homogeneity
 from pysp_tpu.demosaic.ahd import demosaic_ahd_channels as jax_ahd
 from pysp_tpu.demosaic.ahd import postprocess_color_channels as jax_postprocess
 from pysp_tpu.utils.testing import make_scene, mosaic_rggb, psnr
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.core.frame import RawFrame
-from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
+from pysp_tpu_torch.demosaic import homogeneity
+from pysp_tpu_torch.demosaic.ahd import (
+    ahd_candidates,
+    ahd_decision,
+    ahd_decision_plain,
+    demosaic_ahd_channels,
+    postprocess_color_channels,
+)
+from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.pipeline.develop import _color_tail_channels
 
@@ -96,20 +106,103 @@ def test_frames_outside_the_kernel_path_fall_back():
         assert torch.equal(g, w)
 
 
+def _launch_counts():
+    return tuple(getattr(K, f"{name}_kernel_launches")
+                 for name in ("ahd", "postprocess", "median5", "homogeneity", "decision"))
+
+
 def test_kernel_wrappers_take_the_plain_version_on_cpu_only():
     _, tf = _frames(64, 80, seed=9)
     mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
     wb = tf.wb_reciprocal()
-    before = (K.ahd_kernel_launches, K.postprocess_kernel_launches)
+    before = _launch_counts()
     planes = K.ahd_kernel(tf.bayer, mat, wb, False, 1)
     assert torch.equal(planes, torch.stack(demosaic_ahd_channels(tf, 1)))
     chans = [planes[k] for k in range(3)]
     for g, w in zip(K.postprocess_color_kernel(*chans), postprocess_color_channels(*chans)):
         assert torch.equal(g, w)
-    assert (K.ahd_kernel_launches, K.postprocess_kernel_launches) == before
+    assert torch.equal(K.median5_kernel(chans[0]), median5(chans[0]))
+    for vertical in (False, True):
+        assert torch.equal(K.homogeneity_kernel(*chans, vertical),
+                           homogeneity.homogeneity_map_channels(*chans, vertical))
+    fields = ahd_candidates(tf.bayer, wb)
+    want = ahd_decision_plain(*fields, mat, wb, False)
+    assert torch.equal(K.decision_kernel(*fields, mat, wb, False), want)
+    assert torch.equal(ahd_decision(*fields, mat, wb, False), want)
+    assert _launch_counts() == before
 
     meta = [t.to("meta") for t in (tf.bayer, mat, wb)]
     with pytest.raises(ValueError, match="CUDA"):
         K.ahd_kernel(*meta, False, 1)
     with pytest.raises(ValueError, match="CUDA"):
         K.postprocess_color_kernel(*(c.to("meta") for c in chans))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.median5_kernel(chans[0].to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.homogeneity_kernel(*(c.to("meta") for c in chans), False)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.decision_kernel(*(f.to("meta") for f in fields), meta[1], meta[2], False)
+
+
+@pytest.mark.parametrize("is_vertical", [False, True])
+@pytest.mark.parametrize("shape", [(96, 112), (5, 7), (1, 6)])
+def test_homogeneity_map_bit_exact(shape, is_vertical):
+    """``homogeneity_map`` and ``homogeneity_map_channels`` against the JAX
+    package, through which it reaches ``homogeneity_map_pallas`` off the TPU."""
+    rng = np.random.default_rng(shape[0])
+    lab = make_scene(*shape, seed=shape[1]) * np.float32(100.0)
+    lab = (lab + rng.normal(0, 2.0, lab.shape)).astype(np.float32)
+    want = np.asarray(jax_homogeneity.homogeneity_map(jnp.asarray(lab), is_vertical))
+    got = homogeneity.homogeneity_map(torch.from_numpy(lab), is_vertical)
+    np.testing.assert_array_equal(got.numpy(), want)
+    planes = [torch.from_numpy(lab[..., k].copy()) for k in range(3)]
+    got = homogeneity.homogeneity_map_channels(*planes, is_vertical)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 3.0 <= want.min() and want.max() <= 9.0
+    with pytest.raises(ValueError, match="odd"):
+        homogeneity.homogeneity_map_channels(*planes, is_vertical, domain_k=4)
+
+
+# Share of picks that may differ in HDR mode, where the port's cube root
+# (within 1 ulp of the exact root, as jnp.cbrt is within 2) flips exact ties.
+# Measured: 0 picks on seeds 0-2 and 1 of 20480 (0.005%) on seed 3, the scene
+# whose develop showed 0.005-0.06% of output pixels off; 0 on the non-HDR ones.
+MAX_HDR_PICK_FLIPS = 1e-3
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_ahd_decision_plain_matches_the_jax_chain(is_hdr, seed):
+    """The plain pick against the JAX package's chain (homogeneity maps of both
+    directions, box sums, compare), the plain reference through which the JAX
+    package reaches ``ahd_decision_pallas`` off the TPU, on the same six
+    candidate fields."""
+    jf, tf = _frames(128, 160, seed=seed, is_hdr=is_hdr)
+    mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
+    fields = ahd_candidates(tf.bayer, tf.wb_reciprocal())
+    got = ahd_decision_plain(*fields, mat, tf.wb_reciprocal(), is_hdr).numpy()
+
+    jfields = [jnp.asarray(f.numpy()) for f in fields]
+    map_h = jax_ahd_module.box_sum3(
+        jax_ahd_module._build_homogeneity_map(*jfields[:3], jf, False))
+    map_v = jax_ahd_module.box_sum3(
+        jax_ahd_module._build_homogeneity_map(*jfields[3:], jf, True))
+    want = np.asarray((map_h < map_v).astype(jnp.float32))
+    assert set(np.unique(got)) <= {0.0, 1.0}
+    if is_hdr:
+        assert np.mean(got != want) <= MAX_HDR_PICK_FLIPS
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stages", [1, 3])
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_staged_route_with_use_pallas_equals_plain_on_cpu(is_hdr, stages):
+    """On CPU tensors ``use_pallas`` changes nothing: every wrapper of the
+    staged route runs its plain version and no launch is counted."""
+    _, tf = _frames(64, 96, seed=5, is_hdr=is_hdr)
+    before = _launch_counts()
+    got = demosaic_ahd_channels(tf, stages, use_pallas=True)
+    for g, w in zip(got, demosaic_ahd_channels(tf, stages, use_pallas=False)):
+        assert torch.equal(g, w)
+    assert _launch_counts() == before

@@ -74,6 +74,29 @@ def test_finishing_path_matches_the_jax_chain(warped_dng, tmp_path):
     assert psnr(got.astype(np.float64) / 65535, want.astype(np.float64) / 65535) >= MIN_PSNR
 
 
+@pytest.mark.parametrize("quality", ["draft", "fast"])
+def test_draft_and_fast_match_the_jax_chain(warped_dng, tmp_path, quality):
+    """``develop --quality draft|fast`` against ``develop`` of the JAX package,
+    op by op: >= 50 dB on the TIFF, as the other CLI cases (neither tier has a
+    pick to flip: measured, no sample more than one 16-bit code off)."""
+    from pysp_tpu.const import QualityDemosaic
+
+    path, _ = warped_dng
+    out = tmp_path / f"{quality}.tif"
+    assert main(["develop", str(path), "-o", str(out), "--device", "cpu",
+                 "--quality", quality]) == 0
+    got = _read_rgb16(out)
+
+    cfg = DevelopConfig(quality={"draft": QualityDemosaic.Draft,
+                                 "fast": QualityDemosaic.Fast}[quality])
+    with jax.disable_jit():
+        img = np.asarray(develop(jax_load_raw_dng(path.read_bytes()), cfg))
+    want = to_uint16(img)
+    assert got.shape == want.shape == (160, 192, 3)
+    assert psnr(got.astype(np.float64) / 65535, want.astype(np.float64) / 65535) >= MIN_PSNR
+    assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 1
+
+
 def test_the_cli_runs_as_a_module(warped_dng, tmp_path):
     path, _ = warped_dng
     out = tmp_path / "plain.tif"
@@ -184,8 +207,9 @@ def test_unported_outputs_and_subcommands_raise(warped_dng, tmp_path):
     path, _ = warped_dng
     with pytest.raises(NotImplementedError, match="A3"):
         main(["develop", str(path), "--device", "cpu", "-o", str(tmp_path / "x.png")])
-    with pytest.raises(NotImplementedError, match="A1"):
-        main(["develop", str(path), "--device", "cpu", "--quality", "fast"])
+    with pytest.raises(NotImplementedError, match="A2"):
+        main(["develop", str(path), "--device", "cpu", "--quality", "fast",
+              "--highlights", "reconstruct"])
     with pytest.raises(NotImplementedError, match="item 15"):
         main(["develop", str(path), str(path), "--device", "cpu"])
     for sub in ("info", "harvest", "verify-decode"):

@@ -368,3 +368,107 @@ def test_corrections_pipeline_with_the_kernels_against_plain(cuda):
     assert (K.heal_kernel_launches, K.ahd_kernel_launches) == (before[0] + 5, before[1] + 1)
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert psnr(got.cpu().numpy(), _pipeline_plain(burst, cfg4).cpu().numpy()) >= 50
+
+
+# --- the staged AHD route's kernels: median5, homogeneity count, direction pick --------
+
+STAGED_SHAPES = [(512, 768), (203, 330), (33, 70), (3, 5)]
+MAX_PICK_FLIPS = 5e-4   # picks that flip at exact ties through cbrtf (0.05%)
+
+
+@pytest.mark.parametrize("shape", STAGED_SHAPES + [(1, 1)])
+def test_median5_kernel_bit_exact(cuda, shape):
+    from pysp_tpu_torch.ops.stencil import median5
+
+    rgb = torch.from_numpy(make_scene(*shape, seed=shape[0])).to(cuda)
+    x = (rgb[..., 0] - rgb[..., 1]).contiguous()
+    before = K.median5_kernel_launches
+    got = K.median5_kernel(x)
+    assert K.median5_kernel_launches == before + 1
+    if min(shape) >= 2:     # the plain version's replicate pad needs 2 px
+        assert torch.equal(got, median5(x))
+    else:
+        assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("is_vertical", [False, True])
+@pytest.mark.parametrize("shape", STAGED_SHAPES)
+def test_homogeneity_kernel_bit_exact(cuda, shape, is_vertical):
+    from pysp_tpu_torch.colorimetry.transforms import rgb_to_lab_channels
+    from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
+
+    rgb = torch.from_numpy(make_scene(*shape, seed=shape[1])).to(cuda)
+    lum, a, b = (p.contiguous() for p in rgb_to_lab_channels(*rgb.unbind(-1)))
+    before = K.homogeneity_kernel_launches
+    got = K.homogeneity_kernel(lum, a, b, is_vertical)
+    assert K.homogeneity_kernel_launches == before + 1
+    assert torch.equal(got, homogeneity_map_channels(lum, a, b, is_vertical))
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("shape", [(512, 768), (202, 330), (34, 70), (4, 6)])
+def test_decision_kernel_against_plain(cuda, shape, is_hdr):
+    from pysp_tpu_torch.demosaic.ahd import ahd_candidates, ahd_decision, ahd_decision_plain
+
+    frame = _frame(*shape, seed=2, is_hdr=is_hdr, device=cuda)
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    fields = [f.contiguous() for f in ahd_candidates(frame.bayer, wb)]
+    before = K.decision_kernel_launches
+    got = ahd_decision(*fields, mat, wb, is_hdr)
+    assert K.decision_kernel_launches == before + 1
+    want = ahd_decision_plain(*fields, mat, wb, is_hdr)
+    assert float((got != want).float().mean()) <= MAX_PICK_FLIPS
+    assert bool(((got == 0) | (got == 1)).all())
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_staged_route_with_the_kernels_equals_plain(cuda, is_hdr):
+    """Three stages leave the AHD kernel's route: the whole frame takes the
+    staged route, two homogeneity launches and one postprocess launch per
+    stage, bit-identical to the plain route."""
+    frame = _frame(256, 320, seed=6, is_hdr=is_hdr, device=cuda)
+    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+              K.postprocess_kernel_launches)
+    got = develop(frame, DevelopConfig(postprocess_stages=3))
+    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+            K.postprocess_kernel_launches) == (before[0], before[1] + 2, before[2] + 3)
+    assert torch.equal(got, develop(frame, DevelopConfig(postprocess_stages=3,
+                                                         use_pallas=False)))
+
+
+def test_best_develop_runs_the_homogeneity_kernel_in_its_strips(cuda):
+    frame = _frame(256, 320, seed=3, is_hdr=False, device=cuda)
+    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+              K.postprocess_kernel_launches)
+    develop(frame)
+    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+            K.postprocess_kernel_launches) == (before[0] + 1, before[1] + 8, before[2] + 4)
+
+
+@pytest.mark.parametrize("quality", ["Draft", "Fast"])
+@pytest.mark.parametrize("pattern", [BayerPattern.Rggb, BayerPattern.Grbg])
+def test_draft_and_fast_on_the_card_match_the_cpu(cuda, quality, pattern):
+    from pysp_tpu_torch import QualityDemosaic
+
+    cfg = DevelopConfig(quality=getattr(QualityDemosaic, quality))
+    on_cpu = _frame(256, 320, seed=4, is_hdr=False, device="cpu").replace(
+        source_pattern=pattern)
+    on_card = _frame(256, 320, seed=4, is_hdr=False, device=cuda).replace(
+        source_pattern=pattern)
+    got = develop(on_card, cfg)
+    assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
+    assert (got.cpu() - develop(on_cpu, cfg)).abs().max().item() <= 1e-5
+
+
+def test_staged_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(8, 8, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        K.median5_kernel(x.double())
+    with pytest.raises(ValueError, match="shape"):
+        K.homogeneity_kernel(x, x, x[:4], False)
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        K.decision_kernel(*([x[:1]] * 6), torch.eye(3, device=cuda),
+                          torch.ones(3, device=cuda), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.median5_kernel(x.t()[:, :4])

@@ -87,9 +87,8 @@ def test_develop_burst_is_a_loop_of_develops():
 
 
 @pytest.mark.parametrize("cfg", [
-    DevelopConfig(quality=QualityDemosaic.Draft),
-    DevelopConfig(quality=QualityDemosaic.Fast),
     DevelopConfig(highlights="reconstruct"),
+    DevelopConfig(quality=QualityDemosaic.Fast, highlights="reconstruct"),
 ])
 def test_unported_options_raise(cfg):
     _, tf = _frames(h=32, w=32)

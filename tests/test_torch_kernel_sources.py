@@ -65,7 +65,7 @@ static void each_block(unsigned gx, unsigned gy, unsigned gz, void (*run)(void*)
 }
 static unsigned cdiv(int n, int d) { return (unsigned)((n + d - 1) / d); }
 struct Args {
-  const float *a, *b, *c, *d; float *x, *y, *z;
+  const float *a, *b, *c, *d, *e, *f, *g; float *x, *y, *z;
   int H, W, s, hdr, flags, C, plane, pix, map_plane, kind, bounded, lo_y, hi_y, lo_x, hi_x;
   const void* taps; int r;
 };
@@ -129,6 +129,40 @@ void emulate(const float* chan, const void* mask, const float* means, float* out
   a.a = chan; a.b = (const float*)mask; a.c = means; a.x = out; a.H = H; a.W = W;
   a.s = fill; a.r = smooth;
   each_block(cdiv(W, kTile), cdiv(H, kTile), 4, run_heal, &a);
+}
+#elif defined(EMULATE_MEDIAN5)
+static void run_median5(void* p) {
+  Args* a = (Args*)p;
+  median5_kernel(a->a, a->x, a->H, a->W);
+}
+void emulate(const float* x, float* out, int H, int W) {
+  Args a{};
+  a.a = x; a.x = out; a.H = H; a.W = W;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_median5, &a);
+}
+#elif defined(EMULATE_HOMOGENEITY)
+static void run_homogeneity(void* p) {
+  Args* a = (Args*)p;
+  homogeneity_kernel(a->a, a->b, a->c, a->x, a->H, a->W, a->s);
+}
+void emulate(const float* lum, const float* la, const float* lb, float* out, int H,
+             int W, int vertical) {
+  Args a{};
+  a.a = lum; a.b = la; a.c = lb; a.x = out; a.H = H; a.W = W; a.s = vertical;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_homogeneity, &a);
+}
+#elif defined(EMULATE_DECISION)
+static void run_decision(void* p) {
+  Args* a = (Args*)p;
+  decision_kernel(a->a, a->b, a->c, a->d, a->e, a->f, a->g, a->x, a->H, a->W, a->hdr);
+}
+void emulate(const float* r_h, const float* g_h, const float* b_h, const float* r_v,
+             const float* g_v, const float* b_v, const float* params, float* out,
+             int H, int W, int is_hdr) {
+  Args a{};
+  a.a = r_h; a.b = g_h; a.c = b_h; a.d = r_v; a.e = g_v; a.f = b_v; a.g = params;
+  a.x = out; a.H = H; a.W = W; a.hdr = is_hdr;
+  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_decision, &a);
 }
 #else
 static void run_pp(void* p) {
@@ -330,3 +364,126 @@ def test_heal_source_bit_exact(heal_lib, shape, density, sweeps):
     heal_lib.emulate(_ptr(planes), _ptr(mask), _ptr(means), _ptr(out), shape[0], shape[1],
                      fill, smooth)
     assert torch.equal(out, K.heal_plain(planes, mask, fill, smooth))
+
+
+# --- the staged AHD route's kernels: median5, homogeneity count, direction pick --------
+
+# Whole tiles, tiles that overhang the plane on both axes, and planes smaller
+# than the windows.
+SMALL_SHAPES = [(64, 96), (37, 50), (33, 70), (3, 5), (2, 2)]
+
+
+@pytest.fixture(scope="module")
+def median5_lib(tmp_path_factory):
+    return _build(tmp_path_factory, "median5.cu", "EMULATE_MEDIAN5", n_ptrs=2, n_ints=2)
+
+
+@pytest.fixture(scope="module")
+def homogeneity_lib(tmp_path_factory):
+    return _build(tmp_path_factory, "homogeneity.cu", "EMULATE_HOMOGENEITY", n_ptrs=4,
+                  n_ints=3)
+
+
+@pytest.fixture(scope="module")
+def decision_lib(tmp_path_factory):
+    return _build(tmp_path_factory, "decision.cu", "EMULATE_DECISION", n_ptrs=8, n_ints=3)
+
+
+def _set_corners(plane: torch.Tensor, values) -> torch.Tensor:
+    """Outliers at the four corners: they enter a border pixel's window as often
+    as the border rule repeats them, so another rule gives another result."""
+    h, w = plane.shape
+    for (y, x), v in zip(((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)), values):
+        plane[y, x] = v
+    return plane
+
+
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+def test_median5_source_bit_exact(median5_lib, shape):
+    from pysp_tpu_torch.ops.stencil import median5
+
+    h, w = shape
+    rgb = torch.from_numpy(make_scene(h, w, seed=h + w))
+    x = _set_corners((rgb[..., 0] - rgb[..., 1]).contiguous(), (1.5, -1.5, -1.0, 1.0))
+    out = torch.full_like(x, float("nan"))
+    median5_lib.emulate(_ptr(x), _ptr(out), h, w)
+    assert torch.equal(out, median5(x))
+
+
+def _lab_planes(h, w, seed):
+    from pysp_tpu_torch.colorimetry.transforms import rgb_to_lab_channels
+
+    rgb = torch.from_numpy(make_scene(h, w, seed=seed))
+    lum, a, b = (p.contiguous() for p in rgb_to_lab_channels(*rgb.unbind(-1)))
+    _set_corners(lum, (90.0, 5.0, 60.0, 20.0))
+    _set_corners(a, (40.0, -40.0, 25.0, -25.0))
+    return lum, a, b
+
+
+@pytest.mark.parametrize("is_vertical", [False, True])
+@pytest.mark.parametrize("shape", SMALL_SHAPES + [(1, 7)])
+def test_homogeneity_source_bit_exact(homogeneity_lib, shape, is_vertical):
+    from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
+
+    h, w = shape
+    lum, a, b = _lab_planes(h, w, seed=h)
+    out = torch.full_like(lum, float("nan"))
+    homogeneity_lib.emulate(_ptr(lum), _ptr(a), _ptr(b), _ptr(out), h, w, int(is_vertical))
+    want = homogeneity_map_channels(lum, a, b, is_vertical)
+    assert torch.equal(out, want)
+    assert 3.0 <= float(out.min()) and float(out.max()) <= 9.0
+
+
+# Picks may differ from the plain version's where the box sums tie and cbrtf
+# rounds CIELAB differently from the port's cube root: at most this share.
+MAX_PICK_FLIPS = 5e-4
+
+
+def _decision_case(h, w, seed, is_hdr):
+    """Candidate fields of a noisy scene (so that the counts vary from row to
+    row), the colour parameters and the plain pick."""
+    from pysp_tpu_torch.demosaic.ahd import ahd_candidates, ahd_decision_plain
+
+    rng = np.random.default_rng(seed)
+    mosaic = mosaic_rggb(make_scene(h, w, seed=seed))
+    mosaic = np.clip(mosaic + rng.normal(0, 0.03, mosaic.shape), 0.02, 0.98).astype(np.float32)
+    frame = RawFrame.synthetic(mosaic, cam_mat=CAM, wb_neutral=WB, is_hdr=is_hdr, device="cpu")
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    fields = [f.contiguous() for f in ahd_candidates(frame.bayer, wb)]
+    return fields, mat, wb, ahd_decision_plain(*fields, mat, wb, is_hdr)
+
+
+def _ring(t: torch.Tensor) -> torch.Tensor:
+    return torch.cat([t[0], t[-1], t[:, 0], t[:, -1]])
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("shape", [(64, 96), (38, 50), (34, 70), (4, 6)])
+def test_decision_source_against_plain(decision_lib, shape, is_hdr):
+    """The pick's device code against ``ahd_decision_plain``. On the frame's
+    outermost ring the box sum reads counts across the border, mirrored without
+    the edge (reflect-101); a box sum with the symmetric border of the counts'
+    own window would pick differently there, which the case first shows."""
+    from pysp_tpu_torch.demosaic.ahd import _build_homogeneity_map
+    from pysp_tpu_torch.ops.stencil import box_sum3, pad_reflect
+
+    h, w = shape
+    fields, mat, wb, want = _decision_case(h, w, seed=h + int(is_hdr), is_hdr=is_hdr)
+    out = torch.full_like(want, float("nan"))
+    params = K._ahd_params(mat, wb)
+    decision_lib.emulate(*(_ptr(f) for f in fields), _ptr(params), _ptr(out), h, w,
+                         int(is_hdr))
+    assert not bool(torch.isnan(out).any())
+    assert float((out != want).float().mean()) <= MAX_PICK_FLIPS
+    if h < 8:
+        return
+
+    def wrong_sum(count):  # the box sum over a symmetric border
+        return box_sum3(pad_reflect(count, 1))[1:-1, 1:-1]
+
+    c_h = _build_homogeneity_map(*fields[:3], mat, wb, is_hdr, False)
+    c_v = _build_homogeneity_map(*fields[3:], mat, wb, is_hdr, True)
+    wrong = (wrong_sum(c_h) < wrong_sum(c_v)).float()
+    assert int((_ring(wrong) != _ring(want)).sum()) >= 8
+    assert int((_ring(out) != _ring(want)).sum()) <= 1
