@@ -11,14 +11,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. Each kernel against its plain PyTorch version on the card, on structured
    512x768 scenes:
    - AHD kernel (through ``demosaic_ahd_mega``, non-HDR and HDR, 0-2
-     chroma-median stages) against ``demosaic_ahd_channels``: stitched border
-     bit-exact, interior >= 50 dB PSNR with < 5% of pixels off by > 1e-4 (H/V
-     picks that flip at exact homogeneity ties); the fused colour tail within
-     2e-6 of the external tail.
+     chroma-median stages, 512x768 and 510x762, whose tiles overhang on both
+     axes) against ``demosaic_ahd_channels`` over the whole frame, border
+     included: without stages at most 0.01% of the pixels differ (H/V picks
+     that flip at exact homogeneity ties) and every other pixel is bit-equal;
+     with S stages every pixel outside the 4 S px dilation of that set is
+     bit-equal; >= 50 dB PSNR; the fused colour tail within 2e-6 of the
+     external tail.
    - postprocess kernel against ``postprocess_color_channels``: bit-exact.
-   - RL kernel against ``rl_plain``: sigma 1 and 2, 3 and 20 iterations, 1
-     and 3 channels, and a 509x763 frame that is not a whole number of
-     tiles: within 2e-6 (bit-exact expected).
+   - RL kernel against ``rl_plain``: sigma 1, 2 and 10.5 (reach 3, 6 and 31),
+     3 and 20 iterations, 1 and 3 channels, 512x768 and a 509x763 frame that
+     is not a whole number of tiles: ``torch.equal``.
    - remap kernel against ``remap_plain``: bilinear and Lanczos4, maps shared
      and per channel, with and without displacement bounds, 1 and 3
      channels: bilinear within 1e-6, Lanczos4 within 5e-6.
@@ -37,16 +40,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
-     BGGR DNG the same way. Asserts that the AHD and postprocess kernels
-     launched, that the images are finite, of the right shape and within
-     [0, 1], and that each is >= 50 dB PSNR against the same develop through
-     the plain version on the card.
+     BGGR DNG the same way. Asserts that each develop was one launch of the
+     AHD kernel and none of the homogeneity or postprocess kernels, that the
+     images are finite, of the right shape and within [0, 1], and that each,
+     border included, is within the flip bound of the same develop through
+     the plain version on the card (under 0.01% of pixels off by more than
+     1e-4, over the whole frame and over its 13 px border frame; >= 100 dB
+     PSNR at 24 MP).
    - finishing: a 4000x6000 RGGB DNG carrying an OpcodeList3 WarpRectilinear
      block through ``load_raw -> develop(gamma off) ->
      gaussian_rt_deconvolution_yuv(1.0, 20) -> unsharp_mask_lab(2.0, 0.5) ->
      lin_srgb_to_srgb(clip) -> apply_opcode_3_warp(lanczos4) -> save_image``,
      what ``python -m pysp_tpu_torch develop --deconv 1.0:20 --unsharp 0.5:2
-     --warp`` runs. Asserts that all four kernels launched, that the image is
+     --warp`` runs. Asserts the launches (AHD 1, RL 20, remap 1, homogeneity
+     and postprocess 0), that the image is
      finite, (H, W, 3) and within [0, 1], that the TIFF is full length, that
      the finishing stages are within 1e-4 of the same stages through the plain
      versions on the card from the same developed image, and that the CLI,
@@ -57,8 +64,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      heal) -> save_image``; then five 4000x6000 brackets of the scene a stop
      apart (exposure 1/400 to 1/25 s, the same hot photosites) through
      ``load_raw -> stack_frames -> develop_pipeline(consensus heal, HDR fuse)
-     -> save_image``. Asserts that the heal and AHD kernels launched (1 + 5
-     heals), that every planted site was flagged and healed into the range of
+     -> save_image``. Asserts the launches (1 + 5 heals, 2 AHD, homogeneity
+     and postprocess 0), that every planted site was flagged and healed into the range of
      its plane's 4-neighbours, that the images are finite (H, W, 3) within
      [0, 1], that the fused frame is HDR with ``lim_sat > 1``, that each image
      is >= 50 dB PSNR against the same pipeline composed from the plain
@@ -86,7 +93,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    PyTorch call that computes the bilinear remap), the whole develop, the
    whole finishing path, the two corrections pipelines and the three develops
    of the tiers path (the plain staged develop: median of 3 after 1), with
-   the device busy share of each path under ``torch.profiler``. Each kernel's bound is
+   the device busy share of each path under ``torch.profiler``. The Best
+   develop is timed five separate times with the kernels and five times
+   plain, and each of the five must beat its plain one. Each kernel's bound is
    the larger of its bytes (each input read once, each output written once)
    over 3.35 TB/s and its float32 operations, counted on its plain version at
    the same inputs, over 67 TFLOP/s.
@@ -139,11 +148,7 @@ from pysp_tpu_torch.demosaic.ahd import (
     demosaic_ahd_channels,
     postprocess_color_channels,
 )
-from pysp_tpu_torch.demosaic.ahd_mega import (
-    demosaic_ahd_mega,
-    develop_channels_mega,
-    margin_for,
-)
+from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, develop_channels_mega
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
@@ -162,9 +167,10 @@ FULL_H, FULL_W = 4000, 6000
 BGGR_H, BGGR_W = 1500, 2000
 FLIP_TOL = 1e-4      # a pixel differing by more is counted as a flipped pick
 MIN_PSNR = 50.0
-MAX_FLIP_FRAC = 0.05
+MIN_PSNR_FULL = 100.0              # the develop at 24 MP, kernels against plain
+MAX_FLIP_FRAC = 1e-4               # pixels that an H/V pick flipped at an exact tie: 0.01%
+AHD_BORDER = 4 * K.AHD_MAX_STAGES + 5   # the AHD stage chain's reach: the border frame
 TAIL_ATOL = 2e-6
-RL_ATOL = 2e-6                     # after 20 iterations on values in [0, 1]
 REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
 FINISH_ATOL = 1e-4                 # finished sRGB image, kernels against plain
 MAX_PICK_FLIPS = 5e-4              # H/V picks that cbrtf may flip at exact ties (0.05%)
@@ -265,6 +271,16 @@ COUNTERS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity
             "decision")
 
 
+def expect_launches(path: str, launches: dict, **expected) -> None:
+    """Raises unless ``path`` launched each kernel exactly ``expected`` times
+    (a kernel not named: 0 times)."""
+    for name in COUNTERS:
+        want = expected.get(name, 0)
+        if launches[name] != want:
+            raise AssertionError(f"the {path} path launched the {name} kernel "
+                                 f"{launches[name]} times, expected {want}")
+
+
 def zero_launch_counts() -> None:
     for name in COUNTERS:
         setattr(K, f"{name}_kernel_launches", 0)
@@ -301,39 +317,73 @@ def interior_stats(got: torch.Tensor, want: torch.Tensor):
     return psnr(g, w), float(np.mean(d > FLIP_TOL)), float(d.max())
 
 
-def frame_on_card(h: int, w: int, seed: int, is_hdr: bool) -> RawFrame:
+def border_frame(t: torch.Tensor, width: int) -> torch.Tensor:
+    """The values of an (H, W, ...) tensor within ``width`` pixels of its border."""
+    return torch.cat([t[:width].flatten(), t[-width:].flatten(),
+                      t[width:-width, :width].flatten(), t[width:-width, -width:].flatten()])
+
+
+def develop_stats(name: str, got: torch.Tensor, want: torch.Tensor, min_psnr: float) -> float:
+    """A developed (H, W, 3) image with the kernels against the plain one, the
+    whole frame and its border frame apart: logs and returns the PSNR and
+    raises beyond ``min_psnr`` or the flip bound."""
+    p, flips, err = interior_stats(got, want)
+    off = ((got - want).abs() > FLIP_TOL).any(dim=-1)
+    ring = border_frame(off, AHD_BORDER)
+    ring_flips = float(ring.float().mean())
+    log(f"{name}: kernels vs plain on the card, whole frame PSNR {p:.2f} dB, "
+        f"{float(off.float().mean()):.6%} of pixels off by > {FLIP_TOL:g} (max abs {err:.3g}); "
+        f"in the {AHD_BORDER} px border frame {ring_flips:.6%} ({int(ring.sum())} of "
+        f"{ring.numel()} pixels)")
+    if p < min_psnr or float(off.float().mean()) >= MAX_FLIP_FRAC or ring_flips >= MAX_FLIP_FRAC:
+        raise AssertionError(f"{name}: the develop with the kernels is outside the flip bound")
+    return p
+
+
+def frame_on_card(h: int, w: int, seed: int, is_hdr: bool, noise: float = 0.0) -> RawFrame:
+    """A structured scene's mosaic on the card; with ``noise`` its greens,
+    counts and chroma differ from row to row up to the frame's edge, so that
+    each border rule gives its own values there."""
     bayer = mosaic_rggb(make_scene(h, w, seed=seed))
-    return RawFrame.synthetic(bayer, cam_mat=CAM, wb_neutral=WB, is_hdr=is_hdr,
-                              device=DEVICE)
+    if noise:
+        rng = np.random.default_rng(seed)
+        bayer = np.clip(bayer + rng.normal(0, noise, bayer.shape), 0.02, 0.98)
+    return RawFrame.synthetic(bayer.astype(np.float32), cam_mat=CAM, wb_neutral=WB,
+                              is_hdr=is_hdr, device=DEVICE)
 
 
 def check_kernels_small() -> None:
     """Phase 2: each kernel against its plain version at 512x768 (the heal on
     planes of 256x384, 253x381 and 3x5)."""
-    for is_hdr in (False, True):
-        for stages in (0, 1, 2):
-            frame = frame_on_card(512, 768, seed=1 + stages, is_hdr=is_hdr)
-            want = demosaic_ahd_channels(frame, stages)
-            got = demosaic_ahd_mega(frame, stages)
-            f = 2 * margin_for(stages)
-            for name, g, w in zip("rgb", got, want):
-                for part in (np.s_[:f, :], np.s_[-f:, :], np.s_[:, :f], np.s_[:, -f:]):
-                    if not torch.equal(g[part], w[part]):
-                        raise AssertionError(f"AHD {name}: stitched border differs from plain")
-            p, flips, err = interior_stats(
-                torch.stack(got)[:, f:-f, f:-f], torch.stack(want)[:, f:-f, f:-f]
-            )
+    for h, w in ((512, 768), (510, 762)):
+        for is_hdr in (False, True):
+            frame = frame_on_card(h, w, seed=1 + int(is_hdr), is_hdr=is_hdr, noise=0.03)
             mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-            external = torch.stack(_color_tail_channels(*got, mat, True, True), dim=-1)
-            fused = develop_channels_mega(frame, stages, True, True)
-            tail_err = (fused - external).abs().max().item()
-            log(f"AHD kernel vs plain 512x768 hdr={is_hdr} stages={stages}: border "
-                f"bit-exact, interior PSNR {p:.2f} dB, flipped {flips:.6f} of pixels "
-                f"(max abs {err:.3g}), fused tail max abs err {tail_err:.3g}")
-            if p < MIN_PSNR or flips >= MAX_FLIP_FRAC:
-                raise AssertionError("AHD kernel interior outside tolerance")
-            if tail_err > TAIL_ATOL:
-                raise AssertionError("fused colour tail outside tolerance")
+            flipped = None
+            for stages in (0, 1, 2):
+                want = torch.stack(demosaic_ahd_channels(frame, stages))
+                planes = demosaic_ahd_mega(frame, stages)
+                got = torch.stack(planes)
+                differs = (got != want).any(dim=0)
+                if stages == 0:
+                    flipped = differs
+                k = 8 * stages + 1
+                near = F.max_pool2d(flipped[None, None].float(), k, 1, k // 2)[0, 0] > 0
+                stray = int((differs & ~near).sum())
+                ring = int(border_frame(differs, AHD_BORDER).sum())
+                p, _, err = interior_stats(got, want)
+                external = torch.stack(_color_tail_channels(*planes, mat, True, True), dim=-1)
+                fused = develop_channels_mega(frame, stages, True, True)
+                tail_err = (fused - external).abs().max().item()
+                log(f"AHD kernel vs plain {h}x{w} hdr={is_hdr} stages={stages}, whole frame: "
+                    f"{float(differs.float().mean()):.6%} of pixels differ ({ring} of them in "
+                    f"the {AHD_BORDER} px border frame), {stray} outside the {4 * stages} px "
+                    f"dilation of the stage-0 set, PSNR {p:.2f} dB (max abs {err:.3g}), "
+                    f"fused tail max abs err {tail_err:.3g}")
+                if float(flipped.float().mean()) > MAX_FLIP_FRAC or stray or p < MIN_PSNR:
+                    raise AssertionError("AHD kernel differs from plain beyond tie flips")
+                if tail_err > TAIL_ATOL:
+                    raise AssertionError("fused colour tail outside tolerance")
 
     rgb = torch.from_numpy(make_scene(512, 768, seed=5)).to(DEVICE)
     chans = [rgb[..., k].contiguous() for k in range(3)]
@@ -346,15 +396,15 @@ def check_kernels_small() -> None:
     for h, w in ((512, 768), (509, 763)):
         for channels in (1, 3):
             img = scene_on_card(h, w, channels, seed=h + channels)
-            for sigma in (1.0, 2.0):
+            for sigma in (1.0, 2.0, 10.5):
                 taps = get_1d_gaussian_filter(sigma)
                 for iters in (3, 20):
-                    err = (K.rl_kernel(img, taps, iters) - K.rl_plain(img, taps, iters))
-                    err = err.abs().max().item()
-                    log(f"RL kernel vs plain {h}x{w}x{channels} sigma {sigma} "
-                        f"{iters} iterations: max abs err {err:.3g}")
-                    if err > RL_ATOL:
-                        raise AssertionError("RL kernel outside tolerance")
+                    same = torch.equal(K.rl_kernel(img, taps, iters),
+                                       K.rl_plain(img, taps, iters))
+                    log(f"RL kernel vs plain {h}x{w}x{channels} sigma {sigma} (reach "
+                        f"{len(taps) // 2}) {iters} iterations: bit-exact {same}")
+                    if not same:
+                        raise AssertionError("RL kernel differs from plain")
 
     h, w = 512, 768
     for channels, maps in ((1, "shared"), (3, "shared"), (3, "per_channel")):
@@ -486,9 +536,7 @@ def main_path(tmp: str):
         f"{seconds:.3f} s host clock, kernel launches {launches}")
     if results["rggb"][0].bayer.device.type != DEVICE:
         raise AssertionError("load_raw did not put the frame on the card")
-    for name in ("ahd", "postprocess"):
-        if launches[name] == 0:
-            raise AssertionError(f"the develop path never launched the {name} kernel")
+    expect_launches("develop", launches, ahd=2)
 
     plain_cfg = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
     for name, (frame, out) in results.items():
@@ -503,12 +551,9 @@ def main_path(tmp: str):
         tif = os.path.join(tmp, f"{name}.tif")
         if os.path.getsize(tif) < h * w * 6:
             raise AssertionError(f"{name}: {tif} is too short")
-        p, flips, err = interior_stats(out, develop(frame, plain_cfg))
-        log(f"{name} {h}x{w}: develop(kernel) vs develop(plain) on the card PSNR "
-            f"{p:.2f} dB, {flips:.6f} of pixels off by > {FLIP_TOL:g}, max abs {err:.3g}; "
-            f"range [{lo:.4f}, {hi:.4f}]")
-        if p < MIN_PSNR:
-            raise AssertionError(f"{name}: develop PSNR {p:.2f} dB < {MIN_PSNR}")
+        log(f"{name} {h}x{w}: range [{lo:.4f}, {hi:.4f}]")
+        develop_stats(f"{name} {h}x{w} develop", out, develop(frame, plain_cfg),
+                      MIN_PSNR_FULL if h == FULL_H else MIN_PSNR)
     return launches, results["rggb"][0]
 
 
@@ -580,9 +625,7 @@ def finishing_path(tmp: str):
     log(f"finishing path (load_raw -> develop, gamma off -> deconv {DECONV} -> unsharp "
         f"{UNSHARP} -> gamma -> lens warp -> save_image): {seconds:.3f} s host clock, "
         f"kernel launches {launches}")
-    for name in ("ahd", "postprocess", "rl", "remap"):
-        if launches[name] == 0:
-            raise AssertionError(f"the finishing path never launched the {name} kernel")
+    expect_launches("finishing", launches, ahd=1, rl=DECONV[1], remap=1)
 
     if tuple(out.shape) != (FULL_H, FULL_W, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"finished image {tuple(out.shape)} is not finite (H, W, 3)")
@@ -760,10 +803,7 @@ def corrections_path(tmp: str):
         f"kernel launches {launches}")
     if frame.bayer.device.type != DEVICE or burst.bayer.device.type != DEVICE:
         raise AssertionError("load_raw / stack_frames did not put the frames on the card")
-    if launches["heal"] != 1 + BRACKETS:
-        raise AssertionError(f"expected {1 + BRACKETS} heal launches, got {launches['heal']}")
-    if launches["ahd"] != 2:
-        raise AssertionError(f"expected 2 AHD launches (configs 3 and 4), got {launches['ahd']}")
+    expect_launches("corrections", launches, heal=1 + BRACKETS, ahd=2)
     evs = [round(v, 4) for v in burst.ev.tolist()]
     log(f"bracket EVs {evs}")
 
@@ -794,20 +834,15 @@ def corrections_path(tmp: str):
     check_image("config 3", out3, FULL_H, FULL_W)
     check_image("config 4", out4, FULL_H, FULL_W)
     want3, _ = corrections_plain(frame, flat)
-    p3, flips3, err3 = interior_stats(out3, want3)
+    develop_stats(f"config 3 {FULL_H}x{FULL_W}", out3, want3, MIN_PSNR)
     del want3
     want4, fused = corrections_plain(burst)
-    p4, flips4, err4 = interior_stats(out4, want4)
+    develop_stats(f"config 4 {BRACKETS}x{FULL_H}x{FULL_W}", out4, want4, MIN_PSNR)
     del want4
-    log(f"config 3 {FULL_H}x{FULL_W}: kernels vs plain on the card PSNR {p3:.2f} dB, "
-        f"{flips3:.6f} of pixels off by > {FLIP_TOL:g}, max abs {err3:.3g}")
-    log(f"config 4 {BRACKETS}x{FULL_H}x{FULL_W}: fused frame is_hdr {fused.is_hdr}, "
-        f"lim_sat {fused.lim_sat.item():.4f}, ev {fused.ev.item():.4f}; kernels vs plain "
-        f"PSNR {p4:.2f} dB, {flips4:.6f} of pixels off by > {FLIP_TOL:g}, max abs {err4:.3g}")
+    log(f"config 4: fused frame is_hdr {fused.is_hdr}, lim_sat {fused.lim_sat.item():.4f}, "
+        f"ev {fused.ev.item():.4f}")
     if not fused.is_hdr or fused.lim_sat.item() <= 1.0:
         raise AssertionError("the fused frame is not an HDR frame with lim_sat > 1")
-    if p3 < MIN_PSNR or p4 < MIN_PSNR:
-        raise AssertionError(f"corrections PSNR {p3:.2f} / {p4:.2f} dB < {MIN_PSNR}")
     del out3, out4, fused
 
     run_cli([paths["shot"], "--flat", paths["flat"], "--repair-hot-pixels"],
@@ -935,13 +970,10 @@ def tiers_path(tmp: str):
         f"save_image, a BGGR DNG at Fast, develop_to_image -> median5 of R - G, "
         f"ahd_candidates -> ahd_decision): {seconds:.3f} s host clock, kernel launches "
         f"{launches}")
-    for name, least in (("homogeneity", 2), ("postprocess", STAGED_STAGES),
-                        ("median5", 1), ("decision", 1)):
-        if launches[name] < least:
-            raise AssertionError(f"the tiers path launched the {name} kernel "
-                                 f"{launches[name]} times, expected at least {least}")
-    if launches["ahd"] != 0:
-        raise AssertionError("a tiers develop went through the AHD kernel")
+    # Two staged demosaics (develop and develop_to_image), each two counts and
+    # STAGED_STAGES chroma stages; no launch of the AHD kernel.
+    expect_launches("tiers", launches, homogeneity=4, postprocess=2 * STAGED_STAGES,
+                    median5=1, decision=1)
 
     # (a) The staged route with the kernels is the plain route, bit for bit.
     check_image("staged", outs["staged"], FULL_H, FULL_W)
@@ -1094,37 +1126,25 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     """Phase 4: each wrapper against its plain version at the main paths'
     shapes, the times and the bounds. Returns the per-kernel records."""
     stages = 1
-    f = 2 * margin_for(stages)
-    s = 2 * f + 8
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
     wb = frame.wb_reciprocal()
     tail = (True, True)
     got = K.ahd_kernel(frame.bayer, mat, wb, frame.is_hdr, stages, tail)
     want = K.ahd_plain(frame.bayer, mat, wb, frame.is_hdr, stages, tail)
-    p, flips, ahd_err = interior_stats(got[f:-f, f:-f], want[f:-f, f:-f])
-    log(f"AHD kernel vs plain at {FULL_H}x{FULL_W} (tail fused, border excluded): "
-        f"PSNR {p:.2f} dB, {flips:.6f} of pixels off by > {FLIP_TOL:g}, "
-        f"max abs {ahd_err:.3g}")
-    if p < MIN_PSNR or flips >= MAX_FLIP_FRAC:
-        raise AssertionError("AHD kernel at 24 MP outside tolerance")
+    ahd_err = (got - want).abs().max().item()
+    develop_stats(f"AHD kernel at {FULL_H}x{FULL_W} (tail fused)", got, want, MIN_PSNR_FULL)
     del got, want
 
-    # The postprocess kernel's main-path shapes: the four border strips.
+    # The postprocess kernel's main-path shape: a whole frame of the staged route.
     h, w = frame.height, frame.width
     rgb = torch.from_numpy(make_scene(h, w, seed=9)).to(DEVICE)
-    strips = [rgb[:s], rgb[h - s:], rgb[:, :s], rgb[:, w - s:]]
-    strips = [[t[..., k].contiguous() for k in range(3)] for t in strips]
     full = [rgb[..., k].contiguous() for k in range(3)]
     pp_err = 0.0
-    for chans in strips + [full]:
-        got = K.postprocess_color_kernel(*chans)
-        want = postprocess_color_channels(*chans)
-        for g, w_ in zip(got, want):
-            pp_err = max(pp_err, (g - w_).abs().max().item())
-            if not torch.equal(g, w_):
-                raise AssertionError(f"postprocess kernel differs from plain at {tuple(g.shape)}")
-    log(f"postprocess kernel vs plain at the strips {s}x{w}, {h}x{s} and at "
-        f"{h}x{w}: bit-exact")
+    for g, w_ in zip(K.postprocess_color_kernel(*full), postprocess_color_channels(*full)):
+        pp_err = max(pp_err, (g - w_).abs().max().item())
+        if not torch.equal(g, w_):
+            raise AssertionError(f"postprocess kernel differs from plain at {tuple(g.shape)}")
+    log(f"postprocess kernel vs plain at {h}x{w}: bit-exact")
 
     # The RL kernel's main-path input: the developed image's linear luma.
     luma = 0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]
@@ -1132,12 +1152,11 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     iters = DECONV[1]
     got, want = K.rl_kernel(luma, taps, iters), K.rl_plain(luma, taps, iters)
     rl_err = (got - want).abs().max().item()
-    rl_scale = max(1.0, want.abs().max().item())
     log(f"RL kernel vs plain at {h}x{w}, {iters} iterations: max abs err {rl_err:.3g} "
         f"(bit-exact: {torch.equal(got, want)}; luma in [{luma.min().item():.4f}, "
         f"{luma.max().item():.4f}])")
-    if rl_err > RL_ATOL * rl_scale:
-        raise AssertionError("RL kernel at 24 MP outside tolerance")
+    if not torch.equal(got, want):
+        raise AssertionError("RL kernel at 24 MP differs from plain")
 
     # The remap kernel's main-path input: the filtered (H, W, 3) image and the
     # lens warp's shared, clipped maps with their bounds.
@@ -1171,8 +1190,6 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     t = {
         "ahd": median_ms(lambda: K.ahd_kernel(frame.bayer, mat, wb, frame.is_hdr, stages, tail)),
         "ahd_plain": median_ms(lambda: K.ahd_plain(frame.bayer, mat, wb, frame.is_hdr, stages, tail)),
-        "pp_strips": median_ms(lambda: [K.postprocess_color_kernel(*c) for c in strips]),
-        "pp_strips_plain": median_ms(lambda: [postprocess_color_channels(*c) for c in strips]),
         "pp_full": median_ms(lambda: K.postprocess_color_kernel(*full)),
         "pp_full_plain": median_ms(lambda: postprocess_color_channels(*full)),
         "rl": median_ms(lambda: K.rl_kernel(luma, taps, iters)),
@@ -1186,11 +1203,20 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
         "remap_bilinear_plain": median_ms(
             lambda: K.remap_plain(srgb, mx, my, "bilinear", bounds, channels_last=True)),
         "grid_sample": median_ms(grid_sample),
-        "develop": median_ms(lambda: develop(frame, cfg)),
-        "develop_plain": median_ms(lambda: develop(frame, plain_cfg)),
         "finish": median_ms(lambda: finish_stages(lin, block)),
         "finish_plain": median_ms(lambda: finish_stages_plain(lin), runs=3, warmup=1),
     }
+    # The Best develop, five separate timings with the kernels and five plain,
+    # in turns: each one with the kernels must beat its plain one.
+    develops = [(median_ms(lambda: develop(frame, cfg)),
+                 median_ms(lambda: develop(frame, plain_cfg), runs=3, warmup=1))
+                for _ in range(5)]
+    t["develop"] = statistics.median(d[0] for d in develops)
+    t["develop_plain"] = statistics.median(d[1] for d in develops)
+    log("develop Best at 24 MP, five timings (CUDA events; with the kernels median of 10, "
+        "plain median of 3): " + ", ".join(f"{a:.3f} / {b:.3f} ms" for a, b in develops))
+    if any(a >= b for a, b in develops):
+        raise AssertionError("a Best develop with the kernels was not faster than the plain one")
     # Where the finishing stages' time goes, stage by stage.
     deconv = gaussian_rt_deconvolution_yuv(lin, DECONV[0], DECONV[1])
     sharp = unsharp_mask_lab(deconv, UNSHARP[0], UNSHARP[1])
@@ -1220,10 +1246,10 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
 
     # Bounds: bytes (inputs read once, outputs written once) and the plain
     # versions' float32 operations on the same inputs.
-    px, strip_px = h * w, sum(c[0].numel() for c in strips)
+    px = h * w
     ops = {
         "ahd": float_ops(lambda: K.ahd_plain(frame.bayer, mat, wb, frame.is_hdr, stages, tail)),
-        "postprocess": float_ops(lambda: [postprocess_color_channels(*c) for c in strips]),
+        "postprocess": float_ops(lambda: postprocess_color_channels(*full)),
         "rl": float_ops(lambda: K.rl_plain(luma, taps, iters)),
         "lanczos4": float_ops(
             lambda: K.remap_plain(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
@@ -1232,7 +1258,7 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     }
     nbytes = {
         "ahd": px * (4 + 12),                 # mosaic in, (H, W, 3) out
-        "postprocess": strip_px * (12 + 12),  # three planes in, three out
+        "postprocess": px * (12 + 12),        # three planes in, three out
         "rl": px * 12 * iters,                # est and image in, est out, per iteration
         "lanczos4": px * (8 + 12 + 12),       # two maps, (H, W, 3) in and out
         "bilinear": px * (8 + 12 + 12),
@@ -1240,7 +1266,7 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     b = {k: bound(nbytes[k], ops[k]) for k in ops}
     log("bounds (NVIDIA H100 SXM, 3.35 TB/s, 67 TFLOP/s float32): " + ", ".join(
         f"{k} {nbytes[k] / 1e6:.1f} MB, {ops[k] / 1e9:.2f} G ops "
-        f"({ops[k] / (strip_px if k == 'postprocess' else px):.1f} per px) -> "
+        f"({ops[k] / px:.1f} per px) -> "
         f"{b[k][0]:.4f} ms by {b[k][1]}" for k in ops))
     # The record keeps RL's per-launch bound (each of the 20 launches reads est
     # and the image and writes est); the 20-iteration function as a whole
@@ -1261,7 +1287,7 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
         record("ahd", "ahd", "ahd.cu", 672, ahd_err, t["ahd"], t["ahd_plain"],
                b["ahd"], None),
         record("postprocess_color", "postprocess", "postprocess.cu", 337, pp_err,
-               t["pp_strips"], t["pp_strips_plain"], b["postprocess"], None),
+               t["pp_full"], t["pp_full_plain"], b["postprocess"], None),
         record("rl_deconv", "rl", "rl.cu", 1544, rl_err, t["rl"], t["rl_plain"],
                b["rl"], None),
         dict(record("remap_lanczos4", "remap", "remap.cu", 1325, remap_err["lanczos4"],
@@ -1285,7 +1311,7 @@ def main() -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {K.build_seconds:.2f} s)")
     log("ptxas report:\n" + "\n".join(
-        line for line in K.build_log.splitlines() if "ptxas" in line))
+        line for line in K.build_log.splitlines() if "ptxas" in line or "spill" in line))
 
     check_kernels_small()
     check_staged_kernels_small()

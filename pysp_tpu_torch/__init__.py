@@ -28,8 +28,21 @@ The command line: ``python -m pysp_tpu_torch develop shot.dng -o out.tif
 the corrections.
 """
 
-from .const import BayerPattern, QualityDemosaic
-from .core.bayer import bayer_to_planes, bayer_to_rgbg, planes_to_bayer, rgbg_to_bayer
+from .colorimetry.transforms import (
+    cam_to_lin_srgb,
+    lin_srgb_to_oklab,
+    lin_srgb_to_srgb,
+    oklab_to_lin_srgb,
+)
+from .colorimetry.wb import CameraWhiteBalanceController, controller_from_tags
+from .const import BayerPattern, PatternDemosaic, QualityDemosaic
+from .core.bayer import (
+    bayer_to_planes,
+    bayer_to_rgbg,
+    planes_to_bayer,
+    reversible_transform_rggb,
+    rgbg_to_bayer,
+)
 from .core.frame import DevelopedImage, RawFrame, stack_frames
 from .correct.bad_pixels import (
     find_erroneous_pixels_median,
@@ -44,14 +57,39 @@ from .correct.flat_field import (
     flat_frame_correction,
 )
 from .correct.hdr import fuse_exposures_from_debayer, fuse_exposures_to_raw
-from .demosaic import demosaic
+from .demosaic import demosaic, demosaic_ahd, demosaic_draft, demosaic_eag
+from .filters.blur import blur_gaussian
+from .filters.sharpen import (
+    gaussian_rt_deconvolution,
+    gaussian_rt_deconvolution_lab,
+    gaussian_rt_deconvolution_yuv,
+    unsharp_mask_lab,
+    unsharp_mask_per_channel,
+)
 from .io.image_out import save_image
+from .io.metadata import (
+    compute_ev,
+    compute_ev_from_tiff,
+    get_image_area_from_tiff,
+    get_opcode_3_block,
+    get_opcode_block,
+)
 from .io.raw_loader import frame_from_parts, load_raw, load_raw_dng
+from .ops.resample import bilinear_sample, remap_bilinear, remap_lanczos4
 from .pipeline.develop import DevelopConfig, develop, develop_burst, develop_to_image
 from .pipeline.pipeline import PipelineConfig, develop_pipeline
+from .warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear, stack_warp_prior
+from .warp.rectilinear import (
+    compute_offset_remapping_table,
+    compute_remapping_table,
+    warp_channel_rectilinear,
+)
+
+__version__ = "0.1.0"
 
 __all__ = [
     "BayerPattern",
+    "PatternDemosaic",
     "QualityDemosaic",
     "RawFrame",
     "DevelopedImage",
@@ -62,7 +100,19 @@ __all__ = [
     "bayer_to_planes",
     "bayer_to_rgbg",
     "planes_to_bayer",
+    "reversible_transform_rggb",
     "rgbg_to_bayer",
+    "cam_to_lin_srgb",
+    "lin_srgb_to_srgb",
+    "lin_srgb_to_oklab",
+    "oklab_to_lin_srgb",
+    "CameraWhiteBalanceController",
+    "controller_from_tags",
+    "compute_ev",
+    "compute_ev_from_tiff",
+    "get_image_area_from_tiff",
+    "get_opcode_3_block",
+    "get_opcode_block",
     "find_erroneous_pixels_threshold",
     "find_erroneous_pixels_median",
     "find_shared_pixels",
@@ -74,6 +124,9 @@ __all__ = [
     "fuse_exposures_to_raw",
     "fuse_exposures_from_debayer",
     "demosaic",
+    "demosaic_ahd",
+    "demosaic_draft",
+    "demosaic_eag",
     "develop",
     "develop_burst",
     "develop_to_image",
@@ -81,4 +134,19 @@ __all__ = [
     "load_raw",
     "load_raw_dng",
     "save_image",
+    "apply_opcode_3_warp",
+    "encode_warp_rectilinear",
+    "stack_warp_prior",
+    "compute_remapping_table",
+    "compute_offset_remapping_table",
+    "warp_channel_rectilinear",
+    "remap_bilinear",
+    "remap_lanczos4",
+    "bilinear_sample",
+    "blur_gaussian",
+    "unsharp_mask_per_channel",
+    "unsharp_mask_lab",
+    "gaussian_rt_deconvolution",
+    "gaussian_rt_deconvolution_lab",
+    "gaussian_rt_deconvolution_yuv",
 ]

@@ -8,15 +8,14 @@ re-injection, CIELAB homogeneity maps for both directions (HDR: luma L and
 tonemapped chroma), 3x3 box-summed maps with a binary direction pick, and
 iterative chroma-median postprocessing.
 
-This is the port's CPU path, the source of the border strips that
-``ahd_mega`` stitches over the CUDA kernel's output, and the plain version the
-kernel is held against (``ahd_channels`` plus ``pipeline.develop``'s colour
-tail). With ``use_pallas`` on CUDA tensors it is the staged route: the
+This is the port's CPU path and the plain version the AHD kernel is held
+against over the whole frame (``ahd_channels`` plus ``pipeline.develop``'s
+colour tail). With ``use_pallas`` on CUDA tensors it is the staged route: the
 homogeneity counts come from the homogeneity kernel and the chroma-median
 stages from the postprocess kernel, both bit-identical to their plain
-versions, so the route equals the plain one exactly. It develops the border
-strips, frames too small for them and stage counts the AHD kernel does not
-take.
+versions, so the route equals the plain one exactly. It develops what the AHD
+kernel does not take: more than two chroma-median stages and frames under the
+kernel's smallest side.
 """
 from __future__ import annotations
 
@@ -101,7 +100,7 @@ def ahd_decision(
     (:func:`ahd_decision_plain` on CPU ones). Counterpart of
     ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``; as there,
     :func:`ahd_channels` does not call it: its ``cbrtf`` flips picks at exact
-    ties, and the border strips must equal the plain route bit for bit."""
+    ties, and the staged route equals the plain one bit for bit."""
     from ..ops.cuda_kernels import decision_kernel
 
     return decision_kernel(r_h, g_h, b_h, r_v, g_v, b_v, mat, wb, is_hdr)

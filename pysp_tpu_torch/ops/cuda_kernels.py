@@ -37,6 +37,7 @@ launches in a module-level integer (``ahd_kernel_launches``,
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -58,7 +59,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu", "median5.cu",
             "homogeneity.cu", "decision.cu")
-_HEADERS = ("median5.cuh", "ahd_lab.cuh")
+_HEADERS = ("median5.cuh", "median5_columns.cuh", "ahd_lab.cuh", "tile_loops.cuh")
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
 NVCC_FLAGS = (
@@ -67,6 +68,9 @@ NVCC_FLAGS = (
 )
 # Chroma-median stages the AHD kernel takes (a template parameter in ahd.cu).
 AHD_MAX_STAGES = 2
+# The AHD kernel's smallest frame side: the largest reach of one stage's border
+# rule (3 px, the B plane's reflect-101 upsample) plus one.
+AHD_MIN_SIDE = 4
 
 # The RL kernel's largest PSF reach (taps // 2), as the JAX kernel's gate.
 RL_MAX_REACH = 32
@@ -192,9 +196,25 @@ def _ahd_constants() -> np.ndarray:
     return np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
 
 
+@functools.lru_cache(maxsize=None)
+def _ahd_constants_on(device: torch.device) -> Tensor:
+    """The host constants on ``device``: copied there once, not at every launch."""
+    return torch.from_numpy(_ahd_constants()).to(device)
+
+
 def _ahd_params(mat: Tensor, wb: Tensor) -> Tensor:
-    consts = torch.from_numpy(_ahd_constants()).to(mat.device)
-    return torch.cat([mat.reshape(9), wb.reshape(3), consts]).contiguous()
+    return torch.cat([mat.reshape(9), wb.reshape(3), _ahd_constants_on(mat.device)]).contiguous()
+
+
+def ahd_kernel_admits(shape, postprocess_stages: int) -> bool:
+    """Whether the AHD kernel takes a mosaic of ``shape`` with this many
+    chroma-median stages: (H, W) with H and W even and at least
+    ``AHD_MIN_SIDE`` (4), and at most ``AHD_MAX_STAGES`` stages. The caller
+    develops the rest by the staged route."""
+    return (
+        len(shape) == 2 and int(postprocess_stages) <= AHD_MAX_STAGES
+        and all(n % 2 == 0 and n >= AHD_MIN_SIDE for n in shape)
+    )
 
 
 def ahd_kernel(
@@ -202,24 +222,29 @@ def ahd_kernel(
     postprocess_stages: int = 1, tail: tuple | None = None,
 ) -> Tensor:
     """AHD of a canonical-RGGB mosaic (H, W) with ``postprocess_stages``
-    chroma-median stages, by the AHD kernel.
+    chroma-median stages, by the AHD kernel, one launch for the whole frame.
 
     ``mat`` is the cam->lin-sRGB matrix (3, 3), ``wb`` the reciprocal WB gains
     (3,). Without ``tail`` the result is the three demosaiced planes (3, H, W);
     with ``tail = (clip_highlights, gamma_encode)`` it is the developed image
-    (H, W, 3) after develop's colour tail. Pixels within
-    ``4 * postprocess_stages + 5`` of the border are computed from a replicate
-    border of each CFA phase plane and are the caller's to overwrite (see
-    ``demosaic.ahd_mega``). On CPU tensors the plain version runs instead over
-    the whole frame."""
+    (H, W, 3) after develop's colour tail. Every pixel, the border's included,
+    is the plain version's: the kernel applies each stage's border rule to
+    that stage's own field. It differs from :func:`ahd_plain` only where
+    ``cbrtf`` rounds CIELAB differently from the plain cube root and flips an
+    H/V pick at an exact tie of the homogeneity sums. On CPU tensors the plain
+    version runs instead. Raises for a mosaic outside
+    :func:`ahd_kernel_admits`."""
     global ahd_kernel_launches
     stages = max(int(postprocess_stages), 0)
     if bayer.device.type == "cpu":
         return ahd_plain(bayer, mat, wb, is_hdr, stages, tail)
     if stages > AHD_MAX_STAGES:
         raise ValueError(f"the AHD kernel takes 0..{AHD_MAX_STAGES} stages, got {stages}")
-    if bayer.ndim != 2 or bayer.shape[0] % 2 or bayer.shape[1] % 2:
-        raise ValueError(f"bayer must be (H, W) with H and W even, got {tuple(bayer.shape)}")
+    if not ahd_kernel_admits(tuple(bayer.shape), stages):
+        raise ValueError(
+            f"bayer must be (H, W) with H and W even and at least {AHD_MIN_SIDE}, "
+            f"got {tuple(bayer.shape)}"
+        )
     mat, wb = mat.contiguous(), wb.contiguous()
     _check(bayer, "bayer")
     _check(mat, "mat", (3, 3), bayer.device)

@@ -7,10 +7,11 @@ fields and defaults. The three quality tiers (Draft, Fast, Best) and the
 ``NotImplementedError`` (ROADMAP.md queue A, item A2).
 
 ``use_pallas`` keeps its name and meaning: use the hand-written kernels. On a
-CUDA frame, Best then develops through the AHD kernel, with the homogeneity
-and postprocess kernels in its border strips; frames too small for the strips
-and more chroma-median stages than the AHD kernel takes go through the staged
-AHD route on those two kernels. A kernel that cannot build or launch raises.
+CUDA frame, Best then develops in one launch of the AHD kernel, which computes
+the whole frame, border included; more chroma-median stages than that kernel
+takes, and frames under its smallest side, go through the staged AHD route on
+the homogeneity and postprocess kernels. A kernel that cannot build or launch
+raises.
 On a CPU frame the plain PyTorch path runs, as the JAX package runs XLA off
 the TPU. Draft and Fast are plain PyTorch on every device, as they are plain
 XLA in the JAX package.
@@ -81,7 +82,7 @@ def _demosaic_channels(frame: RawFrame, cfg: DevelopConfig):
         if _use_kernel(frame, cfg):
             from ..demosaic.ahd_mega import demosaic_ahd_mega
 
-            # The AHD kernel; falls back internally for frames it cannot stitch.
+            # The AHD kernel; the staged route for frames it does not take.
             return demosaic_ahd_mega(frame, cfg.postprocess_stages)
         return demosaic_ahd_channels(frame, cfg.postprocess_stages, cfg.use_pallas)
     if cfg.quality == QualityDemosaic.Fast:

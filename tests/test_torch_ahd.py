@@ -77,33 +77,41 @@ def test_postprocess_color_channels_bit_exact():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("shape", [(160, 192), (96, 160), (8, 12)])
 @pytest.mark.parametrize("stages", [0, 1, 2])
 @pytest.mark.parametrize("is_hdr", [False, True])
-def test_stitch_on_cpu_equals_plain_whole_frame(is_hdr, stages):
-    """On CPU the kernel wrapper runs the plain version, so the stitched result
-    must equal the plain whole-frame result exactly: the strips are wide
-    enough that their pasted border is free of the crop edges."""
-    _, tf = _frames(160, 192, seed=7, is_hdr=is_hdr)
+def test_stitch_on_cpu_equals_plain_whole_frame(is_hdr, stages, shape):
+    """On CPU the kernel wrapper runs the plain version and nothing is
+    stitched over it: the dispatch returns ``ahd_plain`` exactly, for the
+    planes and for the developed image, down to frames of a few pixels."""
+    _, tf = _frames(*shape, seed=7, is_hdr=is_hdr)
+    mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
+    wb = tf.wb_reciprocal()
     want = demosaic_ahd_channels(tf, stages)
     got = mega.demosaic_ahd_mega(tf, stages)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert torch.equal(torch.stack(got), K.ahd_plain(tf.bayer, mat, wb, is_hdr, stages))
 
-    mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
     for tail in ((True, True), (False, False), (True, False)):
         want_img = torch.stack(_color_tail_channels(*want, mat, *tail), dim=-1)
-        assert torch.equal(mega.develop_channels_mega(tf, stages, *tail), want_img)
+        got_img = mega.develop_channels_mega(tf, stages, *tail)
+        assert torch.equal(got_img, want_img)
+        assert torch.equal(got_img, K.ahd_plain(tf.bayer, mat, wb, is_hdr, stages, tail))
 
 
 def test_frames_outside_the_kernel_path_fall_back():
-    _, small = _frames(96, 160, seed=8)  # under 4 * 32 rows at one stage
-    assert mega.develop_channels_mega(small, 1, True, True) is None
-    for g, w in zip(mega.demosaic_ahd_mega(small, 1), demosaic_ahd_channels(small, 1)):
-        assert torch.equal(g, w)
+    """More stages than the kernel takes go whole to the staged route; so do
+    frames with a side under ``AHD_MIN_SIDE``, which the gate refuses."""
     _, big = _frames(256, 256, seed=8)
     assert mega.develop_channels_mega(big, K.AHD_MAX_STAGES + 1, True, True) is None
     for g, w in zip(mega.demosaic_ahd_mega(big, 3), demosaic_ahd_channels(big, 3)):
         assert torch.equal(g, w)
+    assert K.AHD_MIN_SIDE == 4
+    assert K.ahd_kernel_admits((4, 6), 2) and K.ahd_kernel_admits((4000, 6000), 0)
+    assert not K.ahd_kernel_admits((2, 64), 1) and not K.ahd_kernel_admits((64, 2), 1)
+    assert not K.ahd_kernel_admits((64, 64), K.AHD_MAX_STAGES + 1)
+    assert not K.ahd_kernel_admits((5, 64, 64), 1) and not K.ahd_kernel_admits((63, 64), 1)
 
 
 def _launch_counts():

@@ -14,7 +14,7 @@ import torch
 from pysp_tpu_torch import BayerPattern, DevelopConfig, RawFrame, develop
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
-from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, margin_for
+from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
 
@@ -32,9 +32,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _frame(h, w, seed, is_hdr, device):
-    return RawFrame.synthetic(mosaic_rggb(make_scene(h, w, seed=seed)), cam_mat=CAM,
-                              wb_neutral=WB, is_hdr=is_hdr, device=device)
+def _frame(h, w, seed, is_hdr, device, noise=0.0):
+    mosaic = mosaic_rggb(make_scene(h, w, seed=seed))
+    if noise:  # so that every border rule gives its own values at the frame's edge
+        rng = np.random.default_rng(seed)
+        mosaic = np.clip(mosaic + rng.normal(0, noise, mosaic.shape), 0.02, 0.98)
+    return RawFrame.synthetic(mosaic.astype(np.float32), cam_mat=CAM, wb_neutral=WB,
+                              is_hdr=is_hdr, device=device)
 
 
 @pytest.mark.parametrize("shape", [(37, 50), (64, 64), (200, 333)])
@@ -48,23 +52,30 @@ def test_postprocess_kernel_bit_exact(cuda, shape):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("shape", [(256, 320), (250, 334)])
+MAX_AHD_FLIPS = 1e-4   # pixels whose H/V pick cbrtf flips at an exact tie: 0.01%
+
+
+@pytest.mark.parametrize("shape", [(256, 320), (250, 334), (20, 200), (4, 6)])
 @pytest.mark.parametrize("stages", [0, 1, 2])
 @pytest.mark.parametrize("is_hdr", [False, True])
 def test_ahd_kernel_against_plain(cuda, is_hdr, stages, shape):
-    frame = _frame(*shape, seed=stages, is_hdr=is_hdr, device=cuda)
-    before = K.ahd_kernel_launches
+    """One launch computes the whole frame, border included: without stages
+    every pixel but the flipped ones equals the plain version's bit for bit;
+    with S stages every pixel outside the 4 S px dilation of that set."""
+    frame = _frame(*shape, seed=shape[0], is_hdr=is_hdr, device=cuda, noise=0.03)
+    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+              K.postprocess_kernel_launches)
+    got0 = torch.stack(demosaic_ahd_mega(frame, 0))
     got = torch.stack(demosaic_ahd_mega(frame, stages))
-    assert K.ahd_kernel_launches == before + 1
+    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+            K.postprocess_kernel_launches) == (before[0] + 2, before[1], before[2])
+    flipped = (got0 != torch.stack(demosaic_ahd_channels(frame, 0))).any(dim=0)
+    assert float(flipped.float().mean()) <= MAX_AHD_FLIPS
     want = torch.stack(demosaic_ahd_channels(frame, stages))
-    f = 2 * margin_for(stages)
-    inner = np.s_[:, f:-f, f:-f]
-    border = torch.ones_like(want, dtype=torch.bool)
-    border[inner] = False
-    assert torch.equal(got[border], want[border])
-    g, w = got[inner].cpu().numpy(), want[inner].cpu().numpy()
-    assert psnr(g, w) >= 50
-    assert np.mean(np.abs(g - w) > 1e-4) < 0.05
+    k = 8 * stages + 1
+    near = torch.nn.functional.max_pool2d(flipped[None, None].float(), k, 1, k // 2)[0, 0] > 0
+    assert not bool(((got != want).any(dim=0) & ~near).any())
+    assert psnr(got.cpu().numpy(), want.cpu().numpy()) >= 50
 
 
 @pytest.mark.parametrize("stages,clip,gamma,pattern", [
@@ -82,14 +93,18 @@ def test_develop_with_kernels_against_plain(cuda, stages, clip, gamma, pattern):
     assert psnr(got.cpu().numpy(), want.cpu().numpy()) >= 50
 
 
-def test_small_frames_take_the_postprocess_kernel_alone(cuda):
-    """Frames under four strip widths develop by the plain AHD with the
-    postprocess kernel, which is bit-exact, so the image equals plain."""
-    frame = _frame(96, 160, seed=5, is_hdr=False, device=cuda)
+@pytest.mark.parametrize("shape", [(96, 160), (8, 12)])
+def test_small_frames_take_the_ahd_kernel_whole(cuda, shape):
+    """Frames of a few tiles, or of less than one, develop in one launch of
+    the AHD kernel like any other, and the image is the plain one's but for
+    tie flips."""
+    frame = _frame(*shape, seed=5, is_hdr=False, device=cuda)
     before = (K.ahd_kernel_launches, K.postprocess_kernel_launches)
     got = develop(frame)
-    assert (K.ahd_kernel_launches, K.postprocess_kernel_launches) == (before[0], before[1] + 1)
-    assert torch.equal(got, develop(frame, DevelopConfig(use_pallas=False)))
+    assert (K.ahd_kernel_launches, K.postprocess_kernel_launches) == (before[0] + 1, before[1])
+    want = develop(frame, DevelopConfig(use_pallas=False))
+    assert float(((got - want).abs() > 1e-4).any(dim=-1).float().mean()) <= 0.01
+    assert psnr(got.cpu().numpy(), want.cpu().numpy()) >= 50
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -98,6 +113,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     wb = frame.wb_reciprocal()
     with pytest.raises(ValueError, match="even"):
         K.ahd_kernel(frame.bayer[:63], mat, wb, False, 1)
+    with pytest.raises(ValueError, match="at least 4"):
+        K.ahd_kernel(frame.bayer[:2].contiguous(), mat, wb, False, 1)
     with pytest.raises(TypeError, match="float32"):
         K.ahd_kernel(frame.bayer.double(), mat, wb, False, 1)
     with pytest.raises(ValueError, match="stages"):
@@ -108,7 +125,6 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 # --- the finishing path's kernels: RL and remap -------------------------------------
 
-RL_ATOL = 2e-6       # after 20 iterations on values in [0, 1]
 REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
 
 
@@ -118,11 +134,13 @@ def _rl_image(h, w, channels, device):
     return torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(device)
 
 
-@pytest.mark.parametrize("sigma,iters", [(1.0, 3), (1.0, 20), (2.0, 20)])
+@pytest.mark.parametrize("sigma,iters", [(1.0, 3), (1.0, 20), (2.0, 20), (0.5, 3), (0.7, 3),
+                                         (1.4, 3), (1.6, 3), (2.5, 3), (10.5, 2)])
 @pytest.mark.parametrize("channels", [1, 3])
 def test_rl_kernel_against_plain(cuda, sigma, iters, channels):
-    """One launch per iteration over every channel, on a frame that is not a
-    whole number of 32x32 tiles."""
+    """One launch per iteration over every channel, bit for bit the plain
+    loop, at every reach with a kernel of its own (1 to 6) and on the generic
+    kernel (7, 31), on a frame that is not a whole number of tiles."""
     from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 
     img = _rl_image(203, 330, channels, cuda)
@@ -130,8 +148,7 @@ def test_rl_kernel_against_plain(cuda, sigma, iters, channels):
     before = K.rl_kernel_launches
     got = K.rl_kernel(img, taps, iters)
     assert K.rl_kernel_launches == before + iters
-    want = K.rl_plain(img, taps, iters)
-    assert (got - want).abs().max().item() <= RL_ATOL
+    assert torch.equal(got, K.rl_plain(img, taps, iters))
 
 
 def test_rl_gate_on_the_card(cuda):
@@ -437,13 +454,15 @@ def test_staged_route_with_the_kernels_equals_plain(cuda, is_hdr):
                                                          use_pallas=False)))
 
 
-def test_best_develop_runs_the_homogeneity_kernel_in_its_strips(cuda):
+def test_best_develop_is_one_launch(cuda):
+    """A Best develop launches the AHD kernel once and neither the homogeneity
+    nor the postprocess kernel."""
     frame = _frame(256, 320, seed=3, is_hdr=False, device=cuda)
     before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
               K.postprocess_kernel_launches)
     develop(frame)
     assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-            K.postprocess_kernel_launches) == (before[0] + 1, before[1] + 8, before[2] + 4)
+            K.postprocess_kernel_launches) == (before[0] + 1, before[1], before[2])
 
 
 @pytest.mark.parametrize("quality", ["Draft", "Fast"])

@@ -1,4 +1,7 @@
-"""pysp_tpu_torch imports neither JAX, flax nor the JAX package."""
+"""pysp_tpu_torch imports neither JAX, flax nor the JAX package, and exports
+what the JAX package exports from the modules the port has."""
+import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -48,3 +51,57 @@ def test_import_leaves_jax_out(module):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"{module} imported {out.stdout.strip()}"
+
+
+# --- the package's exported names against the JAX package's ---------------------------
+
+# Names that pysp_tpu exports from a module the port has, where the port's
+# module does not define them yet (ROADMAP.md queue A).
+NOT_PORTED_YET = {"cam_to_clean_xyz", "srgb_to_lin_srgb", "load_burst", "develop_with_stats"}
+
+
+def _jax_package_exports():
+    """{name: defining module} of ``pysp_tpu/__init__.py``'s ``__all__``, read
+    as text: the JAX package is not imported."""
+    tree = ast.parse((REPO / "pysp_tpu" / "__init__.py").read_text())
+    origin, exported = {}, []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            origin.update({a.asname or a.name: node.module for a in node.names})
+        elif isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            exported = [elt.value for elt in node.value.elts]
+    return {name: origin[name] for name in exported}
+
+
+def _port_has_module(module: str) -> bool:
+    path = REPO / "pysp_tpu_torch" / module.replace(".", "/")
+    return path.with_suffix(".py").exists() or (path / "__init__.py").exists()
+
+
+PORTED_EXPORTS = sorted(
+    (name, module) for name, module in _jax_package_exports().items()
+    if _port_has_module(module) and name not in NOT_PORTED_YET
+)
+
+
+@pytest.mark.parametrize("name,module", PORTED_EXPORTS)
+def test_package_exports_what_the_jax_package_exports(name, module):
+    import pysp_tpu_torch
+
+    assert name in pysp_tpu_torch.__all__
+    defined = getattr(importlib.import_module(f"pysp_tpu_torch.{module}"), name)
+    assert getattr(pysp_tpu_torch, name) is defined
+
+
+def test_export_list_is_complete():
+    """At least the 59 names of today, the version, and every name of
+    ``__all__`` is an attribute; the names left out are really not defined."""
+    import pysp_tpu_torch
+
+    assert len(PORTED_EXPORTS) >= 59
+    assert pysp_tpu_torch.__version__ == "0.1.0"
+    assert all(hasattr(pysp_tpu_torch, name) for name in pysp_tpu_torch.__all__)
+    exports = _jax_package_exports()
+    for name in NOT_PORTED_YET:
+        module = importlib.import_module(f"pysp_tpu_torch.{exports[name]}")
+        assert not hasattr(module, name), f"{name} is ported: export it"

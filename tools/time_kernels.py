@@ -1,0 +1,200 @@
+#!/usr/bin/env python3
+"""Times and checks the AHD and RL kernels of pysp_tpu_torch on one NVIDIA GPU,
+for one or more builds of the kernel sources inside one process, so that two
+versions are compared on the same card within one call.
+
+    python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
+
+Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
+are added to nvcc's (``-DAHD_TILE_W=64``), and CSRC_DIR is a directory that
+holds another version of the sources (default: the package's own ``csrc``).
+Without ``--variant`` the package's own build is the only one. The variants
+are visited in the order given and then once more in reverse (a, b, b, a).
+
+For every variant it prints the ptxas lines of the AHD and RL kernels, holds
+the AHD kernel against the plain version over the whole frame at 512x768 and
+510x762 (0 to 2 stages: the share of pixels that differ, and whether every
+pixel outside the 4 S px dilation of the stage-0 differing set is bit-equal)
+and the RL kernel against ``rl_plain`` (``torch.equal``), and prints one JSON
+line with the times at 4000x6000 (CUDA events, median of 10 after 2 warm-ups):
+the AHD kernel with 0, 1 and 2 stages and the fused tail, the Best develop, one
+RL iteration at sigma 1 and sigma 2 and 20 iterations at sigma 1, with a
+SHA-256 of each output, so that two variants can be compared bit for bit.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from pysp_tpu_torch import DevelopConfig, RawFrame, develop  # noqa: E402
+from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix  # noqa: E402
+from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
+from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
+from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr  # noqa: E402
+
+CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
+WB = np.array([0.45, 1.0, 0.62], np.float32)
+FULL = (4000, 6000)
+BASE_FLAGS = K.NVCC_FLAGS
+BASE_CSRC = K.CSRC
+
+
+def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def frame(h, w, seed, is_hdr=False, noise=0.0) -> RawFrame:
+    mosaic = mosaic_rggb(make_scene(h, w, seed=seed))
+    if noise:
+        rng = np.random.default_rng(seed)
+        mosaic = np.clip(mosaic + rng.normal(0, noise, mosaic.shape), 0.02, 0.98)
+    return RawFrame.synthetic(mosaic.astype(np.float32), cam_mat=CAM, wb_neutral=WB,
+                              is_hdr=is_hdr, device="cuda")
+
+
+def load_variant(flags, csrc) -> None:
+    K.NVCC_FLAGS = BASE_FLAGS + tuple(flags)
+    K.CSRC = Path(csrc) if csrc else BASE_CSRC
+    K._lib = None
+    K.load_library()
+
+
+def check_ahd(name: str) -> bool:
+    ok = True
+    for h, w in ((512, 768), (510, 762)):
+        for is_hdr in (False, True):
+            f = frame(h, w, seed=h + int(is_hdr), is_hdr=is_hdr, noise=0.03)
+            mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+            wb = f.wb_reciprocal()
+            flipped = None
+            for stages in (0, 1, 2):
+                got = K.ahd_kernel(f.bayer, mat, wb, is_hdr, stages)
+                want = K.ahd_plain(f.bayer, mat, wb, is_hdr, stages)
+                differs = (got != want).any(dim=0)
+                if stages == 0:
+                    flipped = differs
+                k = 8 * stages + 1
+                near = torch.nn.functional.max_pool2d(
+                    flipped[None, None].float(), k, 1, k // 2)[0, 0] > 0
+                stray = int((differs & ~near).sum())
+                p = psnr(got.cpu().numpy(), want.cpu().numpy())
+                print(f"{name}: AHD {h}x{w} hdr={is_hdr} stages={stages}: "
+                      f"{float(differs.float().mean()):.6%} of pixels differ, {stray} of them "
+                      f"outside the {4 * stages} px dilation of the stage-0 set, PSNR {p:.2f} dB",
+                      flush=True)
+                ok &= stray == 0 and float(flipped.float().mean()) <= 1e-4
+    return ok
+
+
+def check_rl(name: str) -> bool:
+    ok = True
+    for shape in ((512, 768), (509, 763), (509, 763, 3)):
+        img = make_scene(shape[0], shape[1], seed=3) * 0.9 + 0.05
+        img = img if len(shape) == 3 else img[..., 1]
+        img = torch.from_numpy(np.ascontiguousarray(img, np.float32)).cuda()
+        for sigma in (0.5, 0.7, 1.0, 1.4, 1.6, 2.0, 2.5, 10.5):
+            taps = get_1d_gaussian_filter(sigma)
+            same = torch.equal(K.rl_kernel(img, taps, 3), K.rl_plain(img, taps, 3))
+            print(f"{name}: RL {shape} sigma {sigma} ({len(taps)} taps), 3 iterations: "
+                  f"bit-exact {same}", flush=True)
+            ok &= same
+    return ok
+
+
+def times(name: str, state: dict) -> dict:
+    f = state["frame"]
+    mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+    wb = f.wb_reciprocal()
+    tail = (True, True)
+    out = {"variant": name}
+    for stages in (0, 1, 2):
+        run = lambda: K.ahd_kernel(f.bayer, mat, wb, f.is_hdr, stages, tail)  # noqa: E731
+        out[f"ahd_s{stages}_ms"] = median_ms(run)
+        out[f"ahd_s{stages}_sha"] = digest(run())
+    cfg = DevelopConfig()
+    out["develop_ms"] = [median_ms(lambda: develop(f, cfg), runs=5, warmup=1) for _ in range(3)]
+    luma = state["luma"]
+    for sigma in (1.0, 2.0):
+        taps = get_1d_gaussian_filter(sigma)
+        out[f"rl_sigma{sigma:g}_iter_ms"] = median_ms(lambda: K.rl_kernel(luma, taps, 1))
+        out[f"rl_sigma{sigma:g}_sha"] = digest(K.rl_kernel(luma, taps, 2))
+    taps = get_1d_gaussian_filter(1.0)
+    out["rl_sigma1_20_ms"] = median_ms(lambda: K.rl_kernel(luma, taps, 20))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--no-check", action="store_true",
+                    help="skip the comparisons with the plain versions")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    variants = []
+    for spec in args.variant or ["package"]:
+        spec, _, csrc = spec.partition("@")
+        name, _, flags = spec.partition(":")
+        variants.append((name, [x for x in flags.split(",") if x], csrc))
+    f = frame(*FULL, seed=7)
+    lin = develop(f, DevelopConfig(gamma_encode=False, use_pallas=False))
+    state = {"frame": f,
+             "luma": (0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]).contiguous()}
+    del lin
+    ok = True
+    order = variants + variants[::-1] if len(variants) > 1 else variants
+    seen = set()
+    for name, flags, csrc in order:
+        load_variant(flags, csrc)
+        if name not in seen:
+            seen.add(name)
+            print(f"{name}: nvcc {K.build_seconds:.1f} s; ptxas:", flush=True)
+            lines = K.build_log.splitlines()
+            for i, line in enumerate(lines):
+                if "Compiling entry" in line and ("ahd_kernel" in line or "rl_" in line):
+                    print("  " + line.split("for 'sm_90a'")[0].strip(), flush=True)
+                    for extra in lines[i + 1:i + 4]:
+                        if "registers" in extra or "spill" in extra:
+                            print("    " + extra.strip(), flush=True)
+            if not args.no_check:
+                ok &= check_ahd(name)
+                ok &= check_rl(name)
+        print(json.dumps(times(name, state)), flush=True)
+    print(card)
+    print(json.dumps({"ok": bool(ok)}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
