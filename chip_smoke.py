@@ -18,13 +18,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      with S stages every pixel outside the 4 S px dilation of that set is
      bit-equal; >= 50 dB PSNR; the fused colour tail within 2e-6 of the
      external tail.
-   - postprocess kernel against ``postprocess_color_channels``: bit-exact.
+   - postprocess kernel against ``postprocess_color_channels`` on noisy planes
+     with outlier corners of 512x768, 510x762 (rows off the 16-byte
+     alignment), 37x50, 3x5 and 1x7: ``torch.equal``.
    - RL kernel against ``rl_plain``: sigma 1, 2 and 10.5 (reach 3, 6 and 31),
      3 and 20 iterations, 1 and 3 channels, 512x768 and a 509x763 frame that
      is not a whole number of tiles: ``torch.equal``.
    - remap kernel against ``remap_plain``: bilinear and Lanczos4, maps shared
      and per channel, with and without displacement bounds, 1 and 3
-     channels: bilinear within 1e-6, Lanczos4 within 5e-6.
+     channels: bilinear ``torch.equal``; Lanczos4 (whose weights come from one
+     ``sinf`` and one ``sincosf`` an axis, not the plain version's sixteen
+     sines) within 5e-6 of ``remap_plain`` and no further from the same remap
+     computed in float64 on the card than ``remap_plain`` is plus 1e-6.
    - heal kernel against ``heal_plain``: planes 256x384, 253x381 and 3x5,
      masks at densities 1e-4, 3e-3 and 0.6 with every plane corner set, a
      3x3 cluster, a 13x13 blob that the fill cannot reach and blobs across
@@ -90,7 +95,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
    after 1) of the kernels, their plain versions, ``grid_sample`` (the one
-   PyTorch call that computes the bilinear remap), the whole develop, the
+   PyTorch call that computes the bilinear remap; the Lanczos4 remap also
+   with a map for each channel), the whole develop, the
    whole finishing path, the two corrections pipelines and the three develops
    of the tiers path (the plain staged develop: median of 3 after 1), with
    the device busy share of each path under ``torch.profiler``. The Best
@@ -157,7 +163,7 @@ from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
-from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import chroma_case, heal_case, make_scene, mosaic_rggb, psnr
 from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
 from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
 
@@ -171,7 +177,12 @@ MIN_PSNR_FULL = 100.0              # the develop at 24 MP, kernels against plain
 MAX_FLIP_FRAC = 1e-4               # pixels that an H/V pick flipped at an exact tie: 0.01%
 AHD_BORDER = 4 * K.AHD_MAX_STAGES + 5   # the AHD stage chain's reach: the border frame
 TAIL_ATOL = 2e-6
-REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
+# Bilinear is held bit for bit. Lanczos4's weights are not the plain version's
+# operation sequence (one sinf and one sincosf an axis): within this of
+# remap_plain, and no further from the float64 remap than remap_plain is plus
+# the slack.
+REMAP_ATOL = {"bilinear": 0.0, "lanczos4": 5e-6}
+LANCZOS4_F64_SLACK = 1e-6
 FINISH_ATOL = 1e-4                 # finished sRGB image, kernels against plain
 MAX_PICK_FLIPS = 5e-4              # H/V picks that cbrtf may flip at exact ties (0.05%)
 TIER_ATOL = 1e-5                   # Fast and Draft, the card against the CPU
@@ -352,6 +363,32 @@ def frame_on_card(h: int, w: int, seed: int, is_hdr: bool, noise: float = 0.0) -
                               is_hdr=is_hdr, device=DEVICE)
 
 
+def check_remap(label: str, img, mx, my, kind: str, bounds, channels_last: bool) -> float:
+    """The remap kernel against its plain version; returns the max abs error.
+    Bilinear: ``torch.equal``. Lanczos4: within REMAP_ATOL of ``remap_plain``
+    and as close to the float64 remap as ``remap_plain`` plus the slack."""
+    got = K.remap_kernel(img, mx, my, kind, bounds, channels_last)
+    want = K.remap_plain(img, mx, my, kind, bounds, channels_last)
+    err = (got - want).abs().max().item()
+    if kind == "bilinear":
+        same = torch.equal(got, want)
+        log(f"remap kernel vs plain {label} bilinear, bounds {bounds}: bit-exact {same}")
+        if not same:
+            raise AssertionError(f"bilinear remap kernel differs from plain ({label})")
+        return err
+    exact = K.remap_plain(img.double(), mx.double(), my.double(), kind, bounds, channels_last)
+    err64 = (got.double() - exact).abs().max().item()
+    plain64 = (want.double() - exact).abs().max().item()
+    log(f"remap kernel vs plain {label} lanczos4, bounds {bounds}: max abs err {err:.3g} "
+        f"(tolerance {REMAP_ATOL[kind]:g}); against the float64 remap {err64:.3g}, "
+        f"remap_plain itself {plain64:.3g}")
+    if err > REMAP_ATOL[kind]:
+        raise AssertionError(f"Lanczos4 remap kernel outside tolerance ({label})")
+    if err64 > plain64 + LANCZOS4_F64_SLACK:
+        raise AssertionError(f"Lanczos4 remap kernel further from float64 than plain ({label})")
+    return err
+
+
 def check_kernels_small() -> None:
     """Phase 2: each kernel against its plain version at 512x768 (the heal on
     planes of 256x384, 253x381 and 3x5)."""
@@ -385,13 +422,14 @@ def check_kernels_small() -> None:
                 if tail_err > TAIL_ATOL:
                     raise AssertionError("fused colour tail outside tolerance")
 
-    rgb = torch.from_numpy(make_scene(512, 768, seed=5)).to(DEVICE)
-    chans = [rgb[..., k].contiguous() for k in range(3)]
-    got = K.postprocess_color_kernel(*chans)
-    want = postprocess_color_channels(*chans)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("postprocess kernel differs from plain")
-    log("postprocess kernel vs plain 512x768: bit-exact")
+    for h, w in ((512, 768), (510, 762), (37, 50), (3, 5), (1, 7)):
+        chans = list(torch.from_numpy(chroma_case(h, w, seed=5 + h)).to(DEVICE))
+        got = K.postprocess_color_kernel(*chans)
+        want = postprocess_color_channels(*chans)
+        same = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+        log(f"postprocess kernel vs plain {h}x{w}: bit-exact {same}")
+        if not same:
+            raise AssertionError(f"postprocess kernel differs from plain at {h}x{w}")
 
     for h, w in ((512, 768), (509, 763)):
         for channels in (1, 3):
@@ -414,13 +452,8 @@ def check_kernels_small() -> None:
             mx, my = mx[0], my[0]
         for bounds in (None, ((-3, 1), (-2, 3))):
             for kind in ("bilinear", "lanczos4"):
-                got = K.remap_kernel(img, mx, my, kind, bounds, channels_last=channels > 1)
-                want = K.remap_plain(img, mx, my, kind, bounds, channels_last=channels > 1)
-                err = (got - want).abs().max().item()
-                log(f"remap kernel vs plain {h}x{w}x{channels} {kind} {maps} maps, "
-                    f"bounds {bounds}: max abs err {err:.3g}")
-                if err > REMAP_ATOL[kind]:
-                    raise AssertionError("remap kernel outside tolerance")
+                check_remap(f"{h}x{w}x{channels}, {maps} maps,", img, mx, my, kind, bounds,
+                            channels_last=channels > 1)
 
     for shape in ((256, 384), (253, 381), (3, 5)):
         for density in (1e-4, 3e-3, 0.6):
@@ -1157,22 +1190,24 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
         f"{luma.max().item():.4f}])")
     if not torch.equal(got, want):
         raise AssertionError("RL kernel at 24 MP differs from plain")
+    del got, want
 
     # The remap kernel's main-path input: the filtered (H, W, 3) image and the
     # lens warp's shared, clipped maps with their bounds.
     mx, my = compute_remapping_table(WARP_COEFFS, w, h, WARP_CENTER, device=DEVICE)
     mx, my = mx.clamp(0, w - 1).contiguous(), my.clamp(0, h - 1).contiguous()
     bounds = displacement_bounds(WARP_COEFFS, w, h, WARP_CENTER)
-    remap_err = {}
-    for kind in ("lanczos4", "bilinear"):
-        got = K.remap_kernel(srgb, mx, my, kind, bounds, channels_last=True)
-        want = K.remap_plain(srgb, mx, my, kind, bounds, channels_last=True)
-        remap_err[kind] = (got - want).abs().max().item()
-        log(f"remap kernel vs plain at {h}x{w}x3, {kind}, shared maps, bounds {bounds}: "
-            f"max abs err {remap_err[kind]:.3g} (bit-exact: {torch.equal(got, want)})")
-        if remap_err[kind] > REMAP_ATOL[kind]:
-            raise AssertionError(f"remap kernel ({kind}) at 24 MP outside tolerance")
-    bilinear = got
+    remap_err = {kind: check_remap(f"at {h}x{w}x3, shared maps,", srgb, mx, my, kind, bounds,
+                                   channels_last=True)
+                 for kind in ("lanczos4", "bilinear")}
+    # A map for each channel (what lateral chromatic aberration needs): the lens
+    # warp's maps a little apart.
+    mx3 = torch.stack([mx - 0.6, mx, mx + 0.7]).clamp(0, w - 1)
+    my3 = torch.stack([my + 0.4, my, my - 0.3]).clamp(0, h - 1)
+    bounds3 = tuple((lo - 1, hi + 1) for lo, hi in bounds)
+    check_remap(f"at {h}x{w}x3, a map for each channel,", srgb, mx3, my3, "lanczos4", bounds3,
+                channels_last=True)
+    bilinear = K.remap_kernel(srgb, mx, my, "bilinear", bounds, channels_last=True)
     planes = srgb.permute(2, 0, 1)[None].contiguous()
     grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], dim=-1)[None]
 
@@ -1183,7 +1218,7 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     gs_diff = (grid_sample()[0].permute(1, 2, 0) - bilinear).abs().max().item()
     log(f"grid_sample(bilinear, border, align_corners) vs the remap kernel at {h}x{w}x3: "
         f"max abs diff {gs_diff:.3g} (it takes normalised coordinates)")
-    del got, want, bilinear
+    del bilinear
 
     cfg = DevelopConfig(quality=QualityDemosaic.Best)
     plain_cfg = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
@@ -1196,6 +1231,8 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
         "rl_plain": median_ms(lambda: K.rl_plain(luma, taps, iters)),
         "remap_lanczos4": median_ms(
             lambda: K.remap_kernel(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
+        "remap_lanczos4_per_channel": median_ms(
+            lambda: K.remap_kernel(srgb, mx3, my3, "lanczos4", bounds3, channels_last=True)),
         "remap_lanczos4_plain": median_ms(
             lambda: K.remap_plain(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
         "remap_bilinear": median_ms(
@@ -1292,6 +1329,7 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
                b["rl"], None),
         dict(record("remap_lanczos4", "remap", "remap.cu", 1325, remap_err["lanczos4"],
                     t["remap_lanczos4"], t["remap_lanczos4_plain"], b["lanczos4"], None),
+             per_channel_maps_ms=t["remap_lanczos4_per_channel"],
              bilinear={"max_abs_err": remap_err["bilinear"], "ms": t["remap_bilinear"],
                        "plain_ms": t["remap_bilinear_plain"], "bound_ms": b["bilinear"][0],
                        "bound_by": b["bilinear"][1], "library_ms": t["grid_sample"],

@@ -97,10 +97,6 @@ __host__ __device__ constexpr int smem_floats() {
          2 * cells(4 * S + 1);
 }
 
-struct alignas(16) Vec4 {
-  float v[4];
-};
-
 // A field over the tile plus a halo of e pixels, indexed in tile coordinates
 // (ly, lx) in [-e, kTH + e) x [-e, kTW + e).
 struct Field {
@@ -217,7 +213,7 @@ __device__ __forceinline__ float upsample(const Field& m, const Frame& fr,
 template <bool EDGE>
 __device__ __forceinline__ void median_strip(const Field& d, const Frame& fr,
                                              int ly, int lx, float* med) {
-  float col[8][5], pair[6][10];  // the window's columns; sorted merges of two
+  float col[8][5];  // the window's columns
   if (EDGE) {
     const View<true, B_REPLICATE> v{d, fr};
 #pragma unroll
@@ -234,16 +230,7 @@ __device__ __forceinline__ void median_strip(const Field& d, const Frame& fr,
       }
     }
   }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) sort5(col[c]);
-#pragma unroll
-  for (int c = 0; c < 6; ++c) merge5x5(col[c], col[c + 1], pair[c]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float q[6];
-    merge10x10_mid(pair[j], pair[j + 2], q);
-    med[j] = median_of_20_and_5(q, col[j + 4]);
-  }
+  median5_strip4(col, med);
 }
 
 // Calls f(ly, lx) for the first pixel of every strip of four of the tile plus

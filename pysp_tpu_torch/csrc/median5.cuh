@@ -1,4 +1,5 @@
-// 5x5 median device code shared by ahd.cu and postprocess.cu.
+// 5x5 median of one window, device code for median5.cu (ahd.cu and
+// postprocess.cu take strips of four windows, median5_columns.cuh).
 //
 // Replaces the median networks inside the TPU kernels' shared
 // pysp_tpu/ops/pallas_kernels.py::_median5_field. The body of median25 is the

@@ -1,5 +1,8 @@
-// The shared-column form of the 5x5 median for a strip of neighbouring windows,
-// device code for ahd.cu.
+// The shared-column form of the 5x5 median for a strip of neighbouring windows:
+// device code shared by ahd.cu (the chroma-median stages inside the AHD kernel)
+// and postprocess.cu (one such stage on planes), which both call
+// median5_strip4 on a 5x8 window they hold in registers. median5.cu keeps the
+// single-window network of median5.cuh.
 //
 // The networks of pysp_tpu_torch/ops/stencil.py::median5_from_padded, which the
 // plain version runs on whole planes: every column of five is sorted once
@@ -10,8 +13,9 @@
 // of 25 (merge10x10_mid), and the fifth column enters by the selection
 // identity rank_k(A u B) = max_i min(A[i], B[k - i]) (median_of_20_and_5). For
 // a strip of four windows that is 484 min/max, 121 a median, where the
-// network of median5.cuh takes 202. A median is a selection, so the result
-// is bit-identical to every other correct network's.
+// network of median5.cuh takes 202. That count is what bounds both callers on
+// an H100: min and max run at half the rate of an add there. A median is a
+// selection, so the result is bit-identical to every other correct network's.
 #pragma once
 
 #define MED5_CMP(i, j)                 \
@@ -117,6 +121,24 @@ __device__ __forceinline__ float median_of_20_and_5(const float* q, const float*
 #pragma unroll
   for (int k = 0; k < 5; ++k) t = fmaxf(t, fminf(q[1 + k], side[4 - k]));
   return t;
+}
+
+// med[j], j = 0..3: the median of the 5x5 window whose columns are
+// col[j .. j + 4] of the 5x8 window col[column][row]. The four windows share
+// the eight sorted columns and the six sorted column pairs. Sorts the columns
+// in place.
+__device__ __forceinline__ void median5_strip4(float (*col)[5], float* med) {
+  float pair[6][10];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) sort5(col[c]);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) merge5x5(col[c], col[c + 1], pair[c]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float q[6];
+    merge10x10_mid(pair[j], pair[j + 2], q);
+    med[j] = median_of_20_and_5(q, col[j + 4]);
+  }
 }
 
 #undef MED5_CMP

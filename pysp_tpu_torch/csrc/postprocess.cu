@@ -10,101 +10,272 @@
 // (body _postprocess_kernel). Plain version beside it:
 // pysp_tpu_torch/demosaic/ahd.py::postprocess_color_channels.
 //
-// What bounds it on an H100: the four median networks, about 800 min/max per
-// pixel against 24 bytes read and 12 written, so the ALUs, not device memory.
-// The design keeps every intermediate in shared memory or registers: a block
-// reads r, g, b once for a 32x32 tile plus a 4 px halo (replicate-clamped
-// addresses at the image edge), computes r' and b' over the tile plus 2 px into
-// shared memory, and reads the outer medians' inputs g - r', g - b' at clamped
-// coordinates, which is the replicate border the plain version gives them. The
-// arithmetic is the plain version's adds and one multiply by 0.5 in the same
-// order, so the result is bit-identical to it.
-#include "median5.cuh"
+// What bounds it on an H100: the rate of min and max, not device memory.
+// A pixel moves 24 bytes (12 read, 12 written) and takes four exact medians of
+// 25; min and max run at half the rate of an add on this card, so even the
+// cheapest network here (121 min/max a median, median5_columns.cuh) costs
+// about four times what the bytes do. The design spends as few min/max and as
+// little else as it can:
+//
+// - A block computes a kTH x kTW tile. It reads r, g, b once for the tile plus
+//   4 px and keeps g and the two difference fields r - g, b - g in shared
+//   memory, each written once, so a median loads one value a cell.
+// - A thread takes the medians of a strip of four neighbouring pixels from one
+//   5x8 window in registers (ten 16-byte shared loads; the strips are laid so
+//   that every window starts on a 16-byte boundary) and shares the window's
+//   sorted columns and column pairs between the four (median5_strip4, the
+//   routine of the AHD kernel's stages). The halo makes a pixel pay
+//   (2 (kTH + 4)(kTW + 4) + 2 kTH kTW) / (kTH kTW) medians: 4.39 at 32 x 64.
+// - The first strips (tile plus 2 px) leave r', b' and the second pair's
+//   inputs g - r', g - b' in shared memory; the second strips (the tile) write
+//   the three outputs from registers, 16 bytes a store.
+// - Cells are dealt to threads by for_cells (no division a cell), with several
+//   16-byte global loads in flight a thread.
+// - The border is a template parameter. A block whose region (tile plus 4 px)
+//   lies inside the frame, in a frame whose rows are 16-byte aligned, runs
+//   without a clamp or a guard. Any other block (FAST = false) applies the
+//   replicate rule to each median's input field: r - g and b - g come from
+//   clamped addresses; r', b' are computed at in-frame cells only, and an
+//   out-of-frame cell of g - r', g - b' is then copied from the in-frame cell
+//   that the clamp names, which lies in the block's own region. Any H, W >= 1
+//   goes.
+//
+// The arithmetic is the plain version's subtractions, adds and one multiply by
+// 0.5 in the same order, and a median is a selection, so the result is
+// bit-identical to the plain version at every shape.
+#include "median5_columns.cuh"
+#include "tile_loops.cuh"
+
+// The tile, the block and the blocks an SM that the register cap is set for;
+// tools/time_kernels.py builds other shapes beside these through the macros,
+// to compare them on one card in one call.
+#ifndef PP_TILE_H
+#define PP_TILE_H 32
+#endif
+#ifndef PP_TILE_W
+#define PP_TILE_W 64
+#endif
+#ifndef PP_THREADS
+#define PP_THREADS 256
+#endif
+#ifndef PP_MIN_BLOCKS
+#define PP_MIN_BLOCKS 3
+#endif
 
 namespace {
 
-constexpr int kTile = 32;          // output tile edge
-constexpr int kThreads = 256;
-constexpr int kIn = kTile + 8;     // r, g, b with a 4 px halo
-constexpr int kMid = kTile + 4;    // r', b' with a 2 px halo
+constexpr int kTH = PP_TILE_H, kTW = PP_TILE_W;  // output tile: rows, columns
+constexpr int kThreads = PP_THREADS;
+constexpr int kIn = 4, kMid = 2;  // halo of the inputs; of r', b', g - r', g - b'
+static_assert(kTH % 4 == 0 && kTW % 4 == 0, "the medians run in strips of 4 pixels");
+
+// Floats of a field over the tile plus a halo of e pixels, rounded up so that
+// the next field starts on a 16-byte boundary.
+__host__ __device__ constexpr int cells(int e) {
+  return ((kTH + 2 * e) * (kTW + 2 * e) + 3) / 4 * 4;
+}
+
+// g, r - g, b - g over the tile plus 4 px; r', b', g - r', g - b' over 2 px.
+constexpr int kSmemFloats = 3 * cells(kIn) + 4 * cells(kMid);
+
+// A field over the tile plus a halo of e pixels, indexed in tile coordinates
+// (ly, lx) in [-e, kTH + e) x [-e, kTW + e).
+struct Field {
+  float* p;
+  int e;
+  __device__ __forceinline__ float& at(int ly, int lx) const {
+    return p[(ly + e) * (kTW + 2 * e) + lx + e];
+  }
+};
+
+struct Rgb {
+  float r, g, b;
+};
+
+struct Rgb4 {
+  Vec4 r, g, b;
+};
 
 __device__ __forceinline__ int clamp_index(int v, int n) {
   return v < 0 ? 0 : (v >= n ? n - 1 : v);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Whether rows of W floats behind these plane pointers start on 16-byte
+// boundaries, so that a tile's rows load and store as Vec4.
+inline bool rows_aligned(int W, const void* const* planes, int n) {
+  unsigned long long bits = (unsigned long long)W % 4;
+  for (int k = 0; k < n; ++k) bits |= (unsigned long long)planes[k] % 16;
+  return bits == 0;
+}
+
+// The 5x5 medians of the four pixels (ly, lx .. lx + 3) of `d`, whose halo is
+// two pixels deeper than the strips' region, so that the strip's 5x8 window
+// starts on a 16-byte boundary.
+__device__ __forceinline__ void median_strip(const Field& d, int ly, int lx, float* med) {
+  float col[8][5];
+#pragma unroll
+  for (int dy = 0; dy < 5; ++dy) {
+    const float* row = &d.at(ly + dy - 2, lx - 2);
+    const Vec4 a = *(const Vec4*)row, b = *(const Vec4*)(row + 4);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      col[k][dy] = a.v[k];
+      col[4 + k][dy] = b.v[k];
+    }
+  }
+  median5_strip4(col, med);
+}
+
+// Calls f(ly, lx) for the first pixel of every strip of four of the tile plus
+// a halo of e pixels (e is even, so a row is a whole number of strips).
+template <class F>
+__device__ __forceinline__ void for_strips(int e, F f) {
+  for_cells(kTH + 2 * e, (kTW + 2 * e) / 4, [&](int r, int q) { f(r - e, 4 * q - e); });
+}
+
+template <bool FAST>
+__device__ __forceinline__ void postprocess_block(
+    const float* __restrict__ r, const float* __restrict__ g,
+    const float* __restrict__ b, float* __restrict__ r_out,
+    float* __restrict__ g_out, float* __restrict__ b_out, float* smem, int H,
+    int W) {
+  const Field G{smem, kIn}, RG{G.p + cells(kIn), kIn}, BG{RG.p + cells(kIn), kIn};
+  const Field RP{BG.p + cells(kIn), kMid}, BP{RP.p + cells(kMid), kMid};
+  const Field GR{BP.p + cells(kMid), kMid}, GB{GR.p + cells(kMid), kMid};
+  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
+  const auto holds = [&](int ly, int lx) {
+    return y0 + ly >= 0 && y0 + ly < H && x0 + lx >= 0 && x0 + lx < W;
+  };
+
+  // g and the first pair's inputs over the tile plus 4 px. Clamped addresses
+  // are the replicate border of r - g and b - g.
+  if (FAST) {
+    for_cells_loading<2>(
+        kTH + 2 * kIn, (kTW + 2 * kIn) / 4,
+        [&](int row, int q) {
+          const size_t o = (size_t)(y0 + row - kIn) * W + (x0 + 4 * q - kIn);
+          return Rgb4{*(const Vec4*)(r + o), *(const Vec4*)(g + o), *(const Vec4*)(b + o)};
+        },
+        [&](int row, int q, const Rgb4& v) {
+          Vec4 rg, bg;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            rg.v[k] = v.r.v[k] - v.g.v[k];
+            bg.v[k] = v.b.v[k] - v.g.v[k];
+          }
+          const int ly = row - kIn, lx = 4 * q - kIn;
+          *(Vec4*)&G.at(ly, lx) = v.g;
+          *(Vec4*)&RG.at(ly, lx) = rg;
+          *(Vec4*)&BG.at(ly, lx) = bg;
+        });
+  } else {
+    for_cells_loading<4>(
+        kTH + 2 * kIn, kTW + 2 * kIn,
+        [&](int row, int c) {
+          const size_t o = (size_t)clamp_index(y0 + row - kIn, H) * W +
+                           clamp_index(x0 + c - kIn, W);
+          return Rgb{r[o], g[o], b[o]};
+        },
+        [&](int row, int c, const Rgb& v) {
+          G.at(row - kIn, c - kIn) = v.g;
+          RG.at(row - kIn, c - kIn) = v.r - v.g;
+          BG.at(row - kIn, c - kIn) = v.b - v.g;
+        });
+  }
+  __syncthreads();
+
+  // r', b' and the second pair's inputs over the tile plus 2 px.
+  for_strips(kMid, [&](int ly, int lx) {
+    // a strip with no pixel in the frame has nothing to compute
+    if (!FAST && !(y0 + ly >= 0 && y0 + ly < H && x0 + lx + 3 >= 0 && x0 + lx < W)) return;
+    float mr[4], mb[4];
+    median_strip(RG, ly, lx, mr);
+    median_strip(BG, ly, lx, mb);
+    Vec4 rp, bp, gr, gb;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float gg = G.at(ly, lx + j);
+      rp.v[j] = mr[j] + gg;
+      bp.v[j] = mb[j] + gg;
+      gr.v[j] = gg - rp.v[j];
+      gb.v[j] = gg - bp.v[j];
+    }
+    if (FAST) {
+      *(Vec4*)&RP.at(ly, lx) = rp;
+      *(Vec4*)&BP.at(ly, lx) = bp;
+      *(Vec4*)&GR.at(ly, lx) = gr;
+      *(Vec4*)&GB.at(ly, lx) = gb;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!holds(ly, lx + j)) continue;
+        RP.at(ly, lx + j) = rp.v[j];
+        BP.at(ly, lx + j) = bp.v[j];
+        GR.at(ly, lx + j) = gr.v[j];
+        GB.at(ly, lx + j) = gb.v[j];
+      }
+    }
+  });
+  __syncthreads();
+
+  if (!FAST) {
+    // The replicate border of g - r' and g - b': an out-of-frame cell takes
+    // the in-frame cell the clamp names (within 2 px, so inside the region).
+    for_cells(kTH + 2 * kMid, kTW + 2 * kMid, [&](int row, int c) {
+      const int ly = row - kMid, lx = c - kMid;
+      if (holds(ly, lx)) return;
+      const int cy = clamp_index(y0 + ly, H) - y0, cx = clamp_index(x0 + lx, W) - x0;
+      GR.at(ly, lx) = GR.at(cy, cx);
+      GB.at(ly, lx) = GB.at(cy, cx);
+    });
+    __syncthreads();
+  }
+
+  // g' over the tile, and the three outputs.
+  for_strips(0, [&](int ly, int lx) {
+    if (!FAST && !holds(ly, lx)) return;
+    float mr[4], mb[4];
+    median_strip(GR, ly, lx, mr);
+    median_strip(GB, ly, lx, mb);
+    Vec4 rp, gp, bp;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      rp.v[j] = RP.at(ly, lx + j);
+      bp.v[j] = BP.at(ly, lx + j);
+      gp.v[j] = (mr[j] + mb[j] + rp.v[j] + bp.v[j]) * 0.5f;
+    }
+    const size_t o = (size_t)(y0 + ly) * W + (x0 + lx);
+    if (FAST) {
+      *(Vec4*)(r_out + o) = rp;
+      *(Vec4*)(g_out + o) = gp;
+      *(Vec4*)(b_out + o) = bp;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!holds(ly, lx + j)) continue;
+        r_out[o + j] = rp.v[j];
+        g_out[o + j] = gp.v[j];
+        b_out[o + j] = bp.v[j];
+      }
+    }
+  });
+}
+
+// One block computes one tile. `aligned` says that every row of the six planes
+// starts on a 16-byte boundary (rows_aligned).
+__global__ void __launch_bounds__(kThreads, PP_MIN_BLOCKS)
 postprocess_kernel(const float* __restrict__ r, const float* __restrict__ g,
                    const float* __restrict__ b, float* __restrict__ r_out,
                    float* __restrict__ g_out, float* __restrict__ b_out,
-                   int H, int W) {
-  __shared__ float s_r[kIn * kIn];
-  __shared__ float s_g[kIn * kIn];
-  __shared__ float s_b[kIn * kIn];
-  __shared__ float s_rp[kMid * kMid];
-  __shared__ float s_bp[kMid * kMid];
-
-  const int y0 = blockIdx.y * kTile;
-  const int x0 = blockIdx.x * kTile;
-
-  for (int i = threadIdx.x; i < kIn * kIn; i += blockDim.x) {
-    const int gy = clamp_index(y0 - 4 + i / kIn, H);
-    const int gx = clamp_index(x0 - 4 + i % kIn, W);
-    const size_t o = (size_t)gy * W + gx;
-    s_r[i] = r[o];
-    s_g[i] = g[o];
-    s_b[i] = b[o];
-  }
-  __syncthreads();
-
-  // r' and b' at mid cell (my, mx), which is in-buffer cell (my + 2, mx + 2).
-  for (int i = threadIdx.x; i < kMid * kMid; i += blockDim.x) {
-    const int my = i / kMid, mx = i % kMid;
-    const float gc = s_g[(my + 2) * kIn + mx + 2];
-    float w[32];
-#pragma unroll
-    for (int k = 0; k < 25; ++k) {
-      const int o = (my + k / 5) * kIn + mx + k % 5;
-      w[k] = s_r[o] - s_g[o];
-    }
-    s_rp[i] = median25(w) + gc;
-#pragma unroll
-    for (int k = 0; k < 25; ++k) {
-      const int o = (my + k / 5) * kIn + mx + k % 5;
-      w[k] = s_b[o] - s_g[o];
-    }
-    s_bp[i] = median25(w) + gc;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int ty = i / kTile, tx = i % kTile;
-    const int y = y0 + ty, x = x0 + tx;
-    if (y >= H || x >= W) continue;
-    // Mid cell of each clamped neighbour: the replicate border of g - r' and
-    // g - b'. The clamped neighbour stays within 2 px of (y, x), inside the
-    // mid region.
-    float w[32];
-#pragma unroll
-    for (int k = 0; k < 25; ++k) {
-      const int qy = clamp_index(y + k / 5 - 2, H) - y0 + 2;
-      const int qx = clamp_index(x + k % 5 - 2, W) - x0 + 2;
-      w[k] = s_g[(qy + 2) * kIn + qx + 2] - s_rp[qy * kMid + qx];
-    }
-    const float med_gr = median25(w);
-#pragma unroll
-    for (int k = 0; k < 25; ++k) {
-      const int qy = clamp_index(y + k / 5 - 2, H) - y0 + 2;
-      const int qx = clamp_index(x + k % 5 - 2, W) - x0 + 2;
-      w[k] = s_g[(qy + 2) * kIn + qx + 2] - s_bp[qy * kMid + qx];
-    }
-    const float med_gb = median25(w);
-    const int c = (ty + 2) * kMid + tx + 2;
-    const float rp = s_rp[c];
-    const float bp = s_bp[c];
-    const size_t o = (size_t)y * W + x;
-    r_out[o] = rp;
-    g_out[o] = (med_gr + med_gb + rp + bp) * 0.5f;
-    b_out[o] = bp;
+                   int H, int W, int aligned) {
+  extern __shared__ __align__(16) float smem[];
+  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
+  const bool inside =
+      y0 >= kIn && x0 >= kIn && y0 + kTH + kIn <= H && x0 + kTW + kIn <= W;
+  if (inside && aligned) {
+    postprocess_block<true>(r, g, b, r_out, g_out, b_out, smem, H, W);
+  } else {
+    postprocess_block<false>(r, g, b, r_out, g_out, b_out, smem, H, W);
   }
 }
 
@@ -116,9 +287,14 @@ extern "C" int pysp_postprocess_color(const float* r, const float* g,
                                       const float* b, float* r_out,
                                       float* g_out, float* b_out, int H, int W,
                                       void* stream) {
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  postprocess_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      r, g, b, r_out, g_out, b_out, H, W);
+  static int ready_device = -1;
+  const int bytes = kSmemFloats * (int)sizeof(float);
+  cudaError_t err = allow_shared_memory(postprocess_kernel, bytes, &ready_device);
+  if (err != cudaSuccess) return (int)err;
+  const void* const planes[6] = {r, g, b, r_out, g_out, b_out};
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
+  postprocess_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      r, g, b, r_out, g_out, b_out, H, W, (int)rows_aligned(W, planes, 6));
   return (int)cudaGetLastError();
 }
 #endif

@@ -14,31 +14,79 @@
 // The TPU kernel selects taps through displacement-bounded select chains,
 // because Mosaic has no gather, and uses polynomial Lanczos weights. Hopper
 // gathers natively, so this is the exact function of the JAX package off the
-// TPU: one thread per output pixel reads the maps once, computes the weights
-// and the clamped tap indices once, and gathers the taps of every channel
-// through the read-only cache. Lanczos4 weights are the exact ones of
-// resample.py: t = frac - (k - 3), sinf(pi t) / (pi t) * sinf(pi t / 4) /
-// (pi t / 4) with pi t rounded to float first, 1 where |t| < 1e-7, 0 where
-// |t| >= 4, normalised by their sum taken in ascending tap order; the taps
-// accumulate rows outer, taps inner, each sum seeded with zero. Every
-// operation is the plain version's, in its order, with FMA contraction off
-// (-fmad=false) and IEEE division.
+// TPU: a thread reads the maps of its pixel once, computes the weights and the
+// clamped tap indices once, and sums the taps of every channel, rows outer,
+// taps inner, each sum seeded with zero, multiply then add, with FMA
+// contraction off (-fmad=false) and IEEE division.
 //
-// What bounds it on an H100: device memory for bilinear (8 B of maps and 2 x 4
-// B per channel of image and output per pixel against about 10 operations per
-// channel); for Lanczos4, 32 sinf per pixel (one set of weights per map)
-// against the same bytes, near the line between the two.
+// Bilinear keeps the plain version's operations in their order and is
+// bit-identical to it; it is bound by device memory (8 B of maps and 2 x 4 B a
+// channel of image and output for about 10 operations a channel).
+//
+// Lanczos4 is bound by its instruction count: 64 taps a channel and 16 weights a
+// pixel against the same bytes. What the design does about it:
+//
+// - The weights. The plain version takes, for each of an axis's eight taps at
+//   t = frac - m (m = -3..4), sin(pi t) / (pi t) * sin(pi t / 4) / (pi t / 4):
+//   16 accurate sinf and 24 divisions an axis. But sin(pi t) = (-1)^m
+//   sin(pi frac), and sin(pi t / 4) = sin(pi frac / 4) cos(m pi / 4) -
+//   cos(pi frac / 4) sin(m pi / 4), whose eight constant pairs are 0, +-1 and
+//   +-sqrt(2)/2. So one sinf and one sincosf an axis give all eight numerators,
+//   each divided once by (pi t)(pi t / 4); the special cases (1 where
+//   |t| < 1e-7, 0 where |t| >= 4) and the normalisation by the sum taken in
+//   ascending tap order stay (next to a whole phase the normalisation takes
+//   the rounding of sin(pi frac) out of the one tap that carries the weight).
+//   This is not the plain version's operation sequence, so Lanczos4 is held by
+//   a tolerance and not bit for bit: the plain version rounds pi t to float
+//   before the sine, an absolute error of up to 5e-7 in the argument at |t|
+//   near 4, which the identity does not make. Held: within 5e-6 of remap_plain
+//   on images in [0, 1] (9.5e-7 measured on the 24 MP lens warp on an
+//   NVIDIA H100 80GB HBM3; the weights differ by up to 4.8e-7), and no further
+//   from the same remap computed in float64 than remap_plain is, plus 1e-6
+//   (6.7e-7 against remap_plain's own 6.6e-7).
+// - The taps. For an (H, W, 3) image with shared maps the three channels of a
+//   tap lie side by side, so one address serves three loads and three sums
+//   run together (remap_pixels<., 3>): a third of the address arithmetic, and
+//   a warp's loads of one tap fall into the same three or four cache lines.
+//   Every other layout sums one channel at a time.
+// - Threads in flight. A block of 256 threads computes a 32 x 32 tile, four
+//   pixels a thread, with the registers capped at 64 a thread (four blocks an
+//   SM): uncapped, the fully unrolled taps take 128 registers and the kernel
+//   a quarter longer.
+// - Tried and not kept: staging the bounding box of a block's taps in shared
+//   memory (a coalesced load of about 41 x 41 x 3 floats a block, then every
+//   tap from there, no bank conflict at a stride of three floats). On the 24
+//   MP lens warp it gave the same bytes and the same time as the gather at 64
+//   and 85 registers and was 8-19% slower with fewer threads in flight
+//   (PERF.md): with the three channels together the gather hits the L1 cache
+//   and the kernel is bound by issuing the weights and the sums, not by its
+//   loads.
 //
 // Layout: element (c, y, x) of img and out sits at
 // c * img_plane + (y * W + x) * pix_stride, so (H, W), (C, H, W) and
 // (H, W, C) launch as they lie; map element (c, y, x) sits at
 // c * map_plane + y * W + x, with map_plane 0 for maps shared by the channels.
+
+// The tile, the block and the blocks an SM that the register cap is set for;
+// tools/time_kernels.py builds other shapes beside these through the macros,
+// to compare them on one card in one call.
+#ifndef REMAP_TILE_Y
+#define REMAP_TILE_Y 32
+#endif
+#ifndef REMAP_THREADS
+#define REMAP_THREADS 256
+#endif
+#ifndef REMAP_MIN_BLOCKS
+#define REMAP_MIN_BLOCKS 4
+#endif
+
 namespace {
 
 constexpr int kTileX = 32;
-constexpr int kTileY = 8;
-constexpr int kThreads = kTileX * kTileY;
+constexpr int kTileY = REMAP_TILE_Y;
+constexpr int kThreads = REMAP_THREADS;
 constexpr float kPi = 3.14159265358979323846f;
+constexpr float kHalfSqrt2 = 0.70710678118654752440f;
 
 __device__ __forceinline__ int clamp_index(int v, int n) {
   return v < 0 ? 0 : (v >= n ? n - 1 : v);
@@ -48,20 +96,28 @@ __device__ __forceinline__ int clip_range(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The 8 Lanczos (a = 4) weights of taps -3..4 around floor(coord).
+// The 8 Lanczos (a = 4) weights of taps -3..4 around floor(coord), from one
+// sinf and one sincosf (see the header).
 __device__ __forceinline__ void lanczos4_weights(float frac, float* w) {
+  const float s1 = sinf(kPi * frac);
+  float s4, c4;
+  sincosf(kPi * frac * 0.25f, &s4, &c4);
+  const float d = kHalfSqrt2 * (s4 - c4), e = kHalfSqrt2 * (s4 + c4);
+  // sin(pi t) * sin(pi t / 4) over s1, for t = frac - m, m = -3..4
+  const float q[8] = {d, c4, -e, s4, -d, -c4, e, -s4};
+#pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float t = frac - (float)(k - 3);
     const float pit = kPi * t;
     const bool small = fabsf(t) < 1e-7f;
-    const float safe = small ? 1.0f : pit;
-    const float sinc = small ? 1.0f : sinf(safe) / safe;
-    const float safe4 = small ? 1.0f : pit / 4.0f;
-    const float sinc4 = small ? 1.0f : sinf(safe4) / safe4;
-    w[k] = fabsf(t) < 4.0f ? sinc * sinc4 : 0.0f;
+    const float den = small ? 1.0f : pit * (pit * 0.25f);
+    const float v = small ? 1.0f : (s1 * q[k]) / den;
+    w[k] = fabsf(t) < 4.0f ? v : 0.0f;
   }
   float total = w[0];
+#pragma unroll
   for (int k = 1; k < 8; ++k) total = total + w[k];
+#pragma unroll
   for (int k = 0; k < 8; ++k) w[k] = w[k] / total;
 }
 
@@ -88,21 +144,24 @@ __device__ __forceinline__ Sample sample_at(float mx, float my, int y, int x,
   return s;
 }
 
-template <bool kLanczos>
-__global__ void __launch_bounds__(kThreads)
-remap_kernel(const float* __restrict__ img, const float* __restrict__ map_x,
-             const float* __restrict__ map_y, float* __restrict__ out, int H,
-             int W, int C, long long img_plane, int pix_stride,
-             long long map_plane, int bounded, int dy0, int dy1, int dx0,
-             int dx1) {
+// The block's pixels. NC channels are summed together: 3 for an (H, W, 3)
+// image with shared maps, whose channels lie side by side at every tap
+// (channel n at offset n), else 1.
+template <bool kLanczos, int NC>
+__device__ __forceinline__ void remap_pixels(
+    const float* __restrict__ img, const float* __restrict__ map_x,
+    const float* __restrict__ map_y, float* __restrict__ out, int H, int W,
+    int C, long long img_plane, int pix_stride, long long map_plane,
+    int bounded, int dy0, int dy1, int dx0, int dx1) {
+  constexpr int kTaps = kLanczos ? 8 : 2;
   for (int i = threadIdx.x; i < kTileX * kTileY; i += blockDim.x) {
     const int y = blockIdx.y * kTileY + i / kTileX;
     const int x = blockIdx.x * kTileX + i % kTileX;
     if (y >= H || x >= W) continue;
     const size_t p = (size_t)y * W + x;
-    int rows[8], cols[8];
-    float wy[8], wx[8];
-    for (int c = 0; c < C; ++c) {
+    size_t rows[kTaps], cols[kTaps];  // offsets of the clamped tap rows and columns
+    float wy[kTaps], wx[kTaps];
+    for (int c = 0; c < C; c += NC) {
       if (c == 0 || map_plane != 0) {
         const size_t m = (size_t)c * (size_t)map_plane + p;
         const Sample s = sample_at(map_x[m], map_y[m], y, x, bounded, dy0,
@@ -110,45 +169,73 @@ remap_kernel(const float* __restrict__ img, const float* __restrict__ map_x,
         if (kLanczos) {
           lanczos4_weights(s.fx, wx);
           lanczos4_weights(s.fy, wy);
-          for (int k = 0; k < 8; ++k) {
-            rows[k] = clamp_index(s.by + k - 3, H);
-            cols[k] = clamp_index(s.bx + k - 3, W);
-          }
         } else {
           wx[0] = s.fx;
           wy[0] = s.fy;
-          rows[0] = clamp_index(s.by, H);
-          rows[1] = clamp_index(s.by + 1, H);
-          cols[0] = clamp_index(s.bx, W);
-          cols[1] = clamp_index(s.bx + 1, W);
+        }
+        const int first = kLanczos ? -3 : 0;
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) {
+          rows[k] = (size_t)clamp_index(s.by + first + k, H) * W * pix_stride;
+          cols[k] = (size_t)clamp_index(s.bx + first + k, W) * pix_stride;
         }
       }
       const float* const plane = img + (size_t)c * (size_t)img_plane;
-      float v;
+      float v[NC];
       if (kLanczos) {
-        v = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) v[n] = 0.0f;
+#pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const float* const row = plane + (size_t)rows[j] * W * pix_stride;
-          float acc = 0.0f;
-          for (int k = 0; k < 8; ++k)
-            acc = acc + wx[k] * __ldg(row + (size_t)cols[k] * pix_stride);
-          v = v + wy[j] * acc;
+          const float* const row = plane + rows[j];
+          float acc[NC];
+#pragma unroll
+          for (int n = 0; n < NC; ++n) acc[n] = 0.0f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+#pragma unroll
+            for (int n = 0; n < NC; ++n)
+              acc[n] = acc[n] + wx[k] * __ldg(row + cols[k] + n);
+          }
+#pragma unroll
+          for (int n = 0; n < NC; ++n) v[n] = v[n] + wy[j] * acc[n];
         }
       } else {
-        const float* const r0 = plane + (size_t)rows[0] * W * pix_stride;
-        const float* const r1 = plane + (size_t)rows[1] * W * pix_stride;
-        const float i00 = __ldg(r0 + (size_t)cols[0] * pix_stride);
-        const float i01 = __ldg(r0 + (size_t)cols[1] * pix_stride);
-        const float i10 = __ldg(r1 + (size_t)cols[0] * pix_stride);
-        const float i11 = __ldg(r1 + (size_t)cols[1] * pix_stride);
+        const float* const r0 = plane + rows[0];
+        const float* const r1 = plane + rows[1];
+        const float i00 = __ldg(r0 + cols[0]);
+        const float i01 = __ldg(r0 + cols[1]);
+        const float i10 = __ldg(r1 + cols[0]);
+        const float i11 = __ldg(r1 + cols[1]);
         const float fx = wx[0], fy = wy[0];
         const float top = i00 * (1.0f - fx) + i01 * fx;
         const float bot = i10 * (1.0f - fx) + i11 * fx;
-        v = top * (1.0f - fy) + bot * fy;
+        v[0] = top * (1.0f - fy) + bot * fy;
       }
-      out[(size_t)c * (size_t)img_plane + p * pix_stride] = v;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        out[(size_t)(c + n) * (size_t)img_plane + p * pix_stride] = v[n];
     }
   }
+}
+
+// One block computes a kTileX x kTileY tile of every channel.
+template <bool kLanczos>
+__global__ void __launch_bounds__(kThreads, REMAP_MIN_BLOCKS)
+remap_kernel(const float* __restrict__ img, const float* __restrict__ map_x,
+             const float* __restrict__ map_y, float* __restrict__ out, int H,
+             int W, int C, long long img_plane, int pix_stride,
+             long long map_plane, int bounded, int dy0, int dy1, int dx0,
+             int dx1) {
+  if constexpr (kLanczos) {
+    if (C == 3 && img_plane == 1 && pix_stride == 3 && map_plane == 0) {
+      remap_pixels<true, 3>(img, map_x, map_y, out, H, W, C, img_plane,
+                            pix_stride, map_plane, bounded, dy0, dy1, dx0, dx1);
+      return;
+    }
+  }
+  remap_pixels<kLanczos, 1>(img, map_x, map_y, out, H, W, C, img_plane,
+                            pix_stride, map_plane, bounded, dy0, dy1, dx0, dx1);
 }
 
 }  // namespace

@@ -81,10 +81,6 @@ struct Taps {
   float w[kMaxTaps];
 };
 
-struct alignas(16) Vec4 {
-  float v[4];
-};
-
 // Symmetric border index; cells beyond the 2r halo that no output needs are
 // clamped into the frame so their loads stay in bounds.
 __device__ __forceinline__ int mirror(int i, int n) {

@@ -1,8 +1,14 @@
-// How a block's threads share the cells of a tile region, and the launchers'
-// shared memory limit, for ahd.cu and rl.cu.
+// How a block's threads share the cells of a tile region, the 16-byte vector
+// of four floats, and the launchers' shared memory limit, for ahd.cu, rl.cu
+// and postprocess.cu.
 #pragma once
 
 namespace {
+
+// Four floats that load and store as one 16-byte access.
+struct alignas(16) Vec4 {
+  float v[4];
+};
 
 // Calls f(row, col) for every cell of rows [0, rows) x cols [0, cols). The
 // cells are dealt to the block's threads in row-major order (thread t takes
@@ -28,14 +34,15 @@ __device__ __forceinline__ void for_cells(int rows, int cols, F f) {
 // for_cells for a region that is read from device memory: a thread first
 // issues N loads, value = load(row, col), and only then hands the values on,
 // store(row, col, value), so that N loads are in flight for each thread and
-// not one (the memory system needs tens of KB in flight on every SM).
+// not one (the memory system needs tens of KB in flight on every SM). The
+// value is whatever load returns: a float, a Vec4, a struct of several.
 template <int N, class L, class S>
 __device__ __forceinline__ void for_cells_loading(int rows, int cols, L load, S store) {
   const int step = blockDim.x;
   const int dr = step / cols, dc = step % cols;
   int r = threadIdx.x / cols, c = threadIdx.x % cols;
   while (r < rows) {
-    float v[N];
+    decltype(load(0, 0)) v[N];
     int rr[N], cc[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {

@@ -435,8 +435,10 @@ def remap_kernel(
     (H, W), shared by the channels, or (C, H, W), one per channel. ``kind`` is
     "bilinear" or "lanczos4". ``bounds = ((dy0, dy1), (dx0, dx1))`` clips each
     floor displacement from the identity grid into them first (the bounded
-    remap); None is the plain gather. Equal to :func:`remap_plain`, which runs
-    instead on CPU tensors."""
+    remap); None is the plain gather. Bilinear is bit-identical to
+    :func:`remap_plain`, which runs instead on CPU tensors; Lanczos4 takes an
+    axis's weights from one ``sinf`` and one ``sincosf`` (``csrc/remap.cu``)
+    and is within 5e-6 of it on images in [0, 1]."""
     global remap_kernel_launches
     _check_remap_args(img, map_x, map_y, kind, bounds, channels_last)
     if img.device.type == "cpu":

@@ -34,6 +34,7 @@ def _expand_pad(pad: int | Sequence[int]) -> tuple[int, int, int, int]:
 
 def _pad_axis(x: Tensor, before: int, after: int, dim: int, mode: str) -> Tensor:
     n = x.shape[dim]
+    shape = tuple(x.shape)
     parts = []
     if before:
         if mode == "symmetric":
@@ -41,7 +42,7 @@ def _pad_axis(x: Tensor, before: int, after: int, dim: int, mode: str) -> Tensor
         elif mode == "reflect":
             parts.append(x.narrow(dim, 1, before).flip(dim))
         else:
-            parts.append(x.narrow(dim, 0, 1).expand_as(x.narrow(dim, 0, before)))
+            parts.append(x.narrow(dim, 0, 1).expand(*shape[:dim], before, *shape[dim + 1:]))
     parts.append(x)
     if after:
         if mode == "symmetric":
@@ -49,7 +50,7 @@ def _pad_axis(x: Tensor, before: int, after: int, dim: int, mode: str) -> Tensor
         elif mode == "reflect":
             parts.append(x.narrow(dim, n - 1 - after, after).flip(dim))
         else:
-            parts.append(x.narrow(dim, n - 1, 1).expand_as(x.narrow(dim, 0, after)))
+            parts.append(x.narrow(dim, n - 1, 1).expand(*shape[:dim], after, *shape[dim + 1:]))
     return torch.cat(parts, dim=dim) if len(parts) > 1 else x
 
 

@@ -59,3 +59,19 @@ def heal_case(h2: int, w2: int, density: float, seed: int):
         if h2 > ty + r and w2 > tx + r:
             mask[p, ty - r + 1 : ty + r - 1, tx - r + 1 : tx + r - 1] = True
     return planes, mask
+
+
+def chroma_case(h: int, w: int, seed: int) -> np.ndarray:
+    """r, g, b planes (3, h, w) float32 for the chroma-median stage: a scene
+    with noise, so that the medians differ from pixel to pixel up to the
+    frame's edge, and every plane corner an outlier, which enters a border
+    pixel's window as often as the border rule repeats it."""
+    rng = np.random.default_rng(seed)
+    rgb = make_scene(h, w, seed=seed) + rng.normal(0, 0.05, (h, w, 3))
+    planes = np.ascontiguousarray(rgb.transpose(2, 0, 1), np.float32)
+    corners = ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1))
+    for k, values in enumerate(((1.5, -1.5, -1.0, 1.0), (-0.8, 0.9, 1.2, -1.1),
+                                (1.1, 1.3, -0.9, -1.4))):
+        for (y, x), v in zip(corners, values):
+            planes[k, y, x] = v
+    return planes

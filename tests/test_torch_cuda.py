@@ -16,7 +16,7 @@ from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import chroma_case, heal_case, make_scene, mosaic_rggb, psnr
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -41,15 +41,30 @@ def _frame(h, w, seed, is_hdr, device, noise=0.0):
                               is_hdr=is_hdr, device=device)
 
 
-@pytest.mark.parametrize("shape", [(37, 50), (64, 64), (200, 333)])
+@pytest.mark.parametrize("shape", [
+    (37, 50), (64, 64), (200, 333),
+    (100, 200), (100, 202), (96, 256),   # blocks without border code; unaligned rows; whole tiles
+    (70, 20), (20, 70), (3, 5), (1, 7), (1, 1),   # narrower than a tile, than the window
+])
 def test_postprocess_kernel_bit_exact(cuda, shape):
-    rgb = torch.from_numpy(make_scene(*shape, seed=1)).to(cuda)
-    chans = [rgb[..., k].contiguous() for k in range(3)]
+    chans = list(torch.from_numpy(chroma_case(*shape, seed=shape[0])).to(cuda))
     before = K.postprocess_kernel_launches
     got = K.postprocess_color_kernel(*chans)
     assert K.postprocess_kernel_launches == before + 1
     for g, w in zip(got, postprocess_color_channels(*chans)):
         assert torch.equal(g, w)
+
+
+def test_postprocess_kernel_on_planes_off_the_16_byte_alignment(cuda):
+    """Planes that start 4 bytes past a 16-byte boundary take the path without
+    16-byte accesses and give the plain version's bytes."""
+    h, w = 100, 200
+    store = torch.zeros(3 * h * w + 1, device=cuda)
+    store[1:] = torch.from_numpy(chroma_case(h, w, seed=3)).to(cuda).reshape(-1)
+    chans = list(store[1:].view(3, h, w))
+    assert chans[0].data_ptr() % 16 != 0 and chans[0].is_contiguous()
+    for g, w_ in zip(K.postprocess_color_kernel(*chans), postprocess_color_channels(*chans)):
+        assert torch.equal(g, w_)
 
 
 MAX_AHD_FLIPS = 1e-4   # pixels whose H/V pick cbrtf flips at an exact tie: 0.01%
@@ -125,7 +140,21 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 # --- the finishing path's kernels: RL and remap -------------------------------------
 
-REMAP_ATOL = {"bilinear": 1e-6, "lanczos4": 5e-6}
+# Bilinear is bit-exact. Lanczos4 takes an axis's eight weights from one sinf
+# and one sincosf where the plain version takes sixteen sines of pi t rounded to
+# float: within 5e-6 of it on images in [0, 1], and no further from the float64
+# remap than the plain version is plus 1e-6.
+REMAP_ATOL = {"bilinear": 0.0, "lanczos4": 5e-6}
+LANCZOS4_F64_SLACK = 1e-6
+
+
+def _assert_remap_close(got, img, mx, my, kind, bounds, channels_last):
+    want = K.remap_plain(img, mx, my, kind, bounds, channels_last)
+    assert (got - want).abs().max().item() <= REMAP_ATOL[kind]
+    if kind == "lanczos4":
+        exact = K.remap_plain(img.double(), mx.double(), my.double(), kind, bounds, channels_last)
+        plain_err = (want.double() - exact).abs().max().item()
+        assert (got.double() - exact).abs().max().item() <= plain_err + LANCZOS4_F64_SLACK
 
 
 def _rl_image(h, w, channels, device):
@@ -195,8 +224,35 @@ def test_remap_kernel_against_plain(cuda, kind, bounds, channels, maps):
     before = K.remap_kernel_launches
     got = K.remap_kernel(img, mx, my, kind, bounds, channels_last=channels > 1)
     assert K.remap_kernel_launches == before + 1
-    want = K.remap_plain(img, mx, my, kind, bounds, channels_last=channels > 1)
-    assert (got - want).abs().max().item() <= REMAP_ATOL[kind]
+    _assert_remap_close(got, img, mx, my, kind, bounds, channels > 1)
+
+
+@pytest.mark.parametrize("kind", ["bilinear", "lanczos4"])
+@pytest.mark.parametrize("case", ["planes", "tiny", "random", "whole_phases"])
+def test_remap_kernel_layouts_and_maps(cuda, kind, case):
+    """Beside the cases above: a (3, H, W) stack, a 5x6 frame that is smaller
+    than the taps' reach, random maps that send every pixel anywhere in the
+    frame and past it, and phases next to 0 and 1."""
+    h, w = (5, 6) if case == "tiny" else (203, 330)
+    img = _rl_image(h, w, 3, cuda)
+    channels_last = case != "planes"
+    if case == "planes":
+        img = img.permute(2, 0, 1).contiguous()
+    if case == "random":
+        rng = np.random.default_rng(4)
+        mx = torch.from_numpy(rng.uniform(-3, w + 2, (h, w)).astype(np.float32)).to(cuda)
+        my = torch.from_numpy(rng.uniform(-3, h + 2, (h, w)).astype(np.float32)).to(cuda)
+    elif case == "whole_phases":
+        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=cuda),
+                                torch.arange(w, dtype=torch.float32, device=cuda), indexing="ij")
+        eps = 0.3 * 10.0 ** -(xs % 8)
+        mx = (xs + torch.where(xs % 2 == 0, eps, 1 - eps)).clamp(0, w - 1)
+        my = (ys + torch.where(ys % 2 == 0, 1 - eps, eps)).clamp(0, h - 1)
+    else:
+        mx, my = _remap_maps(h, w, 1, cuda)
+        mx, my = mx[0], my[0]
+    got = K.remap_kernel(img, mx, my, kind, None, channels_last)
+    _assert_remap_close(got, img, mx, my, kind, None, channels_last)
 
 
 def _plain_warp(img, co, center):

@@ -27,7 +27,7 @@ from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.core.frame import RawFrame
 from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.utils.testing import heal_case, make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import chroma_case, heal_case, make_scene, mosaic_rggb, psnr
 
 torch.set_num_threads(1)
 
@@ -43,7 +43,7 @@ DRIVER = r"""
 #define __host__
 #define __forceinline__ inline
 #define __shared__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __align__(n)
 #define __ldg(p) (*(p))
 struct Dim3 { unsigned x, y, z; };
@@ -176,13 +176,15 @@ void emulate(const float* r_h, const float* g_h, const float* b_h, const float* 
 #else
 static void run_pp(void* p) {
   Args* a = (Args*)p;
-  postprocess_kernel(a->a, a->b, a->c, a->x, a->y, a->z, a->H, a->W);
+  const void* const planes[6] = {a->a, a->b, a->c, a->x, a->y, a->z};
+  postprocess_kernel(a->a, a->b, a->c, a->x, a->y, a->z, a->H, a->W,
+                     (int)rows_aligned(a->W, planes, 6));
 }
 void emulate(const float* r, const float* g, const float* b, float* ro, float* go,
              float* bo, int H, int W) {
   Args a{};
   a.a = r; a.b = g; a.c = b; a.x = ro; a.y = go; a.z = bo; a.H = H; a.W = W;
-  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_pp, &a);
+  each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_pp, &a);
 }
 #endif
 }
@@ -224,10 +226,48 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-@pytest.mark.parametrize("shape", [(37, 50), (64, 96), (90, 70)])
+def _chroma_planes(h, w, seed, pad=0):
+    """``chroma_case`` as (3, H, W) CPU planes; ``pad`` floats shift the planes'
+    start, which takes the rows off their 16-byte alignment."""
+    store = torch.zeros(3 * h * w + pad)
+    planes = store[pad:].view(3, h, w)
+    planes.copy_(torch.from_numpy(chroma_case(h, w, seed)))
+    return planes
+
+
+# The tile is 32 rows by 64 columns and a block is free of border code when its
+# tile plus 4 px lies inside a frame whose rows are 16-byte aligned.
+POSTPROCESS_SHAPES = [
+    (37, 50), (64, 96), (90, 70),   # one and a half tiles a side
+    (100, 200),   # 4 x 4 tiles: blocks without border code, edge blocks on each side
+    (100, 202),   # the same with rows off the 16-byte alignment: no block is fast
+    (96, 256),    # whole tiles: the last row and column of blocks touch the edge
+    (70, 20), (20, 70),   # narrower, and lower, than one tile
+    (3, 5), (1, 7), (7, 1), (1, 1),   # smaller than the medians' window
+]
+
+
+@pytest.mark.parametrize("shape", POSTPROCESS_SHAPES)
 def test_postprocess_source_bit_exact(postprocess_lib, shape):
+    """One chroma-median stage's device code equals the plain stage bit for
+    bit. Each of these mutants of the source fails here: the second medians'
+    input mirrored instead of clamped at the border, a halo load shifted by one
+    cell, the strip's window started one row off."""
     h, w = shape
-    rgb = torch.from_numpy(make_scene(h, w, seed=h)).permute(2, 0, 1).contiguous()
+    rgb = _chroma_planes(h, w, seed=h + w)
+    out = torch.full((3, h, w), float("nan"))
+    postprocess_lib.emulate(*(_ptr(rgb[k]) for k in range(3)),
+                            *(_ptr(out[k]) for k in range(3)), h, w)
+    for got, want in zip(out, postprocess_color_channels(rgb[0], rgb[1], rgb[2])):
+        assert torch.equal(got, want)
+
+
+def test_postprocess_source_unaligned_planes(postprocess_lib):
+    """Planes that start off a 16-byte boundary take the path without 16-byte
+    accesses and give the same bytes as aligned ones."""
+    h, w = 100, 200
+    rgb = _chroma_planes(h, w, seed=5, pad=1)
+    assert rgb.data_ptr() % 16 != 0
     out = torch.full((3, h, w), float("nan"))
     postprocess_lib.emulate(*(_ptr(rgb[k]) for k in range(3)),
                             *(_ptr(out[k]) for k in range(3)), h, w)
@@ -386,6 +426,46 @@ def _warp_maps(h, w, c, seed):
     return mx.contiguous(), my.contiguous()
 
 
+# Lanczos4 against ``remap_plain`` on images in [0, 1]: the kernel takes an
+# axis's eight weights from one sinf and one sincosf, the plain version from
+# sixteen sines of pi t rounded to float; the weights differ by up to 4.8e-7.
+LANCZOS4_ATOL = 5e-6
+# ... and against the same remap in float64 the kernel may be this much further
+# off than the float32 plain version is.
+LANCZOS4_F64_SLACK = 1e-6
+
+
+def _remap_emulated(remap_lib, img, mx, my, kind, bounds, channels_last=None):
+    """The remap's device code on CPU tensors: an (H, W) plane, an (H, W, C)
+    image or, with ``channels_last=False``, a (C, H, W) stack."""
+    if channels_last is None:
+        channels_last = img.ndim == 3
+    h, w, channels, plane, pix = K._layout(img, channels_last)
+    out = torch.full_like(img, float("nan"))
+    (dy0, dy1), (dx0, dx1) = bounds or ((0, 0), (0, 0))
+    remap_lib.emulate(_ptr(img), _ptr(mx), _ptr(my), _ptr(out), h, w, channels, plane, pix,
+                      h * w if mx.ndim == 3 else 0,
+                      K.REMAP_KINDS.index(kind), int(bounds is not None),
+                      dy0, dy1, dx0, dx1)
+    assert not bool(torch.isnan(out).any())
+    return out
+
+
+def _assert_remap_close(out, img, mx, my, kind, bounds, channels_last=None):
+    """Bilinear bit-exact; Lanczos4 within its tolerance of the plain version
+    and no further from the float64 remap than the plain version is."""
+    if channels_last is None:
+        channels_last = img.ndim == 3
+    want = K.remap_plain(img, mx, my, kind, bounds, channels_last)
+    if kind == "bilinear":
+        assert torch.equal(out, want)
+        return
+    assert (out - want).abs().max().item() <= LANCZOS4_ATOL
+    exact = K.remap_plain(img.double(), mx.double(), my.double(), kind, bounds, channels_last)
+    plain_err = (want.double() - exact).abs().max().item()
+    assert (out.double() - exact).abs().max().item() <= plain_err + LANCZOS4_F64_SLACK
+
+
 @pytest.mark.parametrize("kind", ["bilinear", "lanczos4"])
 @pytest.mark.parametrize("bounds", [None, ((-2, 1), (-1, 2))])
 @pytest.mark.parametrize("channels,shape,maps", [
@@ -393,26 +473,66 @@ def _warp_maps(h, w, c, seed):
 ])
 def test_remap_source_against_plain(remap_lib, kind, bounds, channels, shape, maps):
     """The remap's device code against ``remap_plain``: bilinear bit-exact,
-    Lanczos4 within 5e-6 (the host's sinf against torch's sin). The bounds are
-    tighter than the maps' displacement, so the clip is exercised."""
+    Lanczos4 within 5e-6 and as close to the float64 remap as the plain
+    version. The bounds are tighter than the maps' displacement, so the clip is
+    exercised."""
     h, w = shape
     img = _rl_image(h, w, channels, seed=w)           # (H, W) or (H, W, C)
     mx, my = _warp_maps(h, w, channels if maps == "per_channel" else 1, seed=h)
     if maps == "shared":
         mx, my = mx[0].contiguous(), my[0].contiguous()
-    out = torch.full_like(img, float("nan"))
-    (dy0, dy1), (dx0, dx1) = bounds or ((0, 0), (0, 0))
-    remap_lib.emulate(_ptr(img), _ptr(mx), _ptr(my), _ptr(out), h, w, channels,
-                      1 if channels > 1 else h * w, channels,
-                      h * w if maps == "per_channel" else 0,
-                      K.REMAP_KINDS.index(kind), int(bounds is not None),
-                      dy0, dy1, dx0, dx1)
-    want = K.remap_plain(img, mx, my, kind, bounds, channels_last=channels > 1)
-    assert not bool(torch.isnan(out).any())
-    if kind == "bilinear":
-        assert torch.equal(out, want)
+    out = _remap_emulated(remap_lib, img, mx, my, kind, bounds)
+    _assert_remap_close(out, img, mx, my, kind, bounds)
+
+
+def _random_maps(h, w, seed):
+    """Maps that send every pixel anywhere in the frame and a little past it."""
+    rng = np.random.default_rng(seed)
+    mx = rng.uniform(-3, w + 2, (h, w)).astype(np.float32)
+    my = rng.uniform(-3, h + 2, (h, w)).astype(np.float32)
+    return torch.from_numpy(mx), torch.from_numpy(my)
+
+
+@pytest.mark.parametrize("kind", ["bilinear", "lanczos4"])
+@pytest.mark.parametrize("case", [
+    "shared", "per_channel", "planes", "plane", "clipped", "tiny", "random",
+])
+def test_remap_source_layouts_and_maps(remap_lib, kind, case):
+    """The remap's device code over three by three tiles that overhang the
+    frame on both axes: an (H, W, 3) image with shared maps (Lanczos4 sums its
+    three channels together) and with a map for each channel, a (3, H, W)
+    stack, one plane, bounds that clip, a frame smaller than the taps' reach,
+    and random maps that send every pixel anywhere in the frame and past it."""
+    h, w = (5, 6) if case == "tiny" else (70, 75)
+    channels = 1 if case == "plane" else 3
+    img = _rl_image(h, w, channels, seed=h)
+    if case == "random":
+        mx, my = _random_maps(h, w, seed=3)
     else:
-        assert (out - want).abs().max().item() <= 5e-6
+        mx, my = _warp_maps(h, w, 3 if case == "per_channel" else 1, seed=h)
+        if case != "per_channel":
+            mx, my = mx[0].contiguous(), my[0].contiguous()
+    bounds = ((-2, 1), (-1, 2)) if case == "clipped" else None
+    channels_last = channels > 1 and case != "planes"
+    if case == "planes":
+        img = img.permute(2, 0, 1).contiguous()
+    out = _remap_emulated(remap_lib, img, mx, my, kind, bounds, channels_last)
+    _assert_remap_close(out, img, mx, my, kind, bounds, channels_last)
+
+
+def test_lanczos4_weights_near_whole_phases(remap_lib):
+    """Phases next to 0 and 1, where one tap takes almost all the weight and
+    sin(pi frac) is a small difference from a rounded argument: a shift by
+    almost a whole pixel stays within the tolerance of the plain version."""
+    h, w = 12, 40
+    img = _rl_image(h, w, 1, seed=2)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    eps = torch.tensor([10.0 ** -(k % 8) for k in range(w)]) * 0.3
+    mx = (xs + torch.where(xs % 2 == 0, eps, 1 - eps)).contiguous()
+    my = (ys + torch.where(ys % 2 == 0, 1 - eps[:h, None], eps[:h, None])).contiguous()
+    out = _remap_emulated(remap_lib, img, mx, my, "lanczos4", None)
+    _assert_remap_close(out, img, mx, my, "lanczos4", None)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,17 @@ def test_pads_bit_exact(name, pad, shape):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(1, 7), (7, 1), (1, 1), (2, 1, 3)])
+def test_pad_replicate_of_planes_thinner_than_the_pad(shape):
+    """The replicate border of a plane with fewer rows or columns than the pad,
+    as the JAX package pads it, and the 5x5 median on it."""
+    x = _field(shape, seed=2)
+    want, got = _both(lambda a: J.pad_replicate(a, 2), lambda a: T.pad_replicate(a, 2), x)
+    np.testing.assert_array_equal(got, want)
+    want, got = _both(J.median5, T.median5, x)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("name", ["gaussian_blur3", "box_sum3", "median5"])
 def test_filters_bit_exact(name, shape):

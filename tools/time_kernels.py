@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times and checks the AHD and RL kernels of pysp_tpu_torch on one NVIDIA GPU,
-for one or more builds of the kernel sources inside one process, so that two
-versions are compared on the same card within one call.
+"""Times and checks the AHD, RL, postprocess and remap kernels of pysp_tpu_torch
+on one NVIDIA GPU, for one or more builds of the kernel sources inside one
+process, so that two versions are compared on the same card within one call.
 
     python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
+                                  [--kernels ahd,rl,postprocess,remap] [--no-check]
 
 Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
 are added to nvcc's (``-DAHD_TILE_W=64``), and CSRC_DIR is a directory that
@@ -11,15 +12,26 @@ holds another version of the sources (default: the package's own ``csrc``).
 Without ``--variant`` the package's own build is the only one. The variants
 are visited in the order given and then once more in reverse (a, b, b, a).
 
-For every variant it prints the ptxas lines of the AHD and RL kernels, holds
-the AHD kernel against the plain version over the whole frame at 512x768 and
-510x762 (0 to 2 stages: the share of pixels that differ, and whether every
-pixel outside the 4 S px dilation of the stage-0 differing set is bit-equal)
-and the RL kernel against ``rl_plain`` (``torch.equal``), and prints one JSON
-line with the times at 4000x6000 (CUDA events, median of 10 after 2 warm-ups):
-the AHD kernel with 0, 1 and 2 stages and the fused tail, the Best develop, one
-RL iteration at sigma 1 and sigma 2 and 20 iterations at sigma 1, with a
-SHA-256 of each output, so that two variants can be compared bit for bit.
+``--kernels`` keeps the named groups only (default: all four).
+
+For every variant it prints the ptxas lines of the chosen kernels and holds
+them against their plain versions: the AHD kernel over the whole frame at
+512x768 and 510x762 (0 to 2 stages: the share of pixels that differ, and
+whether every pixel outside the 4 S px dilation of the stage-0 differing set is
+bit-equal); the RL kernel against ``rl_plain`` (``torch.equal``); the
+postprocess kernel against ``postprocess_color_channels`` at 512x768, 510x762,
+37x50 and 3x5 (``torch.equal``); the remap kernel at 4000x6000 on the lens
+warp's maps and bounds (bilinear ``torch.equal`` to ``remap_plain``; Lanczos4
+by its max abs error against ``remap_plain`` and against the same remap in
+float64, beside the plain version's own error against float64) and on a random
+map. Then it prints one JSON line with the times at 4000x6000 (CUDA events,
+median of 10 after 2 warm-ups) and a SHA-256 of each output, so that two
+variants can be compared bit for bit: the
+AHD kernel with 0, 1 and 2 stages and the fused tail, the Best develop; one RL
+iteration at sigma 1 and sigma 2 and 20 iterations at sigma 1; one postprocess
+stage on the r, g, b planes of the frame's demosaic; the remap of the developed
+(H, W, 3) image, bilinear and Lanczos4, the latter also with a map for each
+channel and on the random map.
 """
 from __future__ import annotations
 
@@ -39,13 +51,26 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pysp_tpu_torch import DevelopConfig, RawFrame, develop  # noqa: E402
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix  # noqa: E402
+from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels  # noqa: E402
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
 from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
-from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr  # noqa: E402
+from pysp_tpu_torch.utils.testing import chroma_case, make_scene, mosaic_rggb, psnr  # noqa: E402
+from pysp_tpu_torch.warp.rectilinear import (  # noqa: E402
+    compute_remapping_table,
+    displacement_bounds,
+)
 
 CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
 WB = np.array([0.45, 1.0, 0.62], np.float32)
 FULL = (4000, 6000)
+GROUPS = ("ahd", "rl", "postprocess", "remap")
+# The lens warp of the finishing path: about 11 px at the corners of 4000x6000.
+WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
+WARP_CENTER = (0.5, 0.5)
+# Lanczos4 against remap_plain, and how much further from the float64 remap
+# than remap_plain the kernel may be.
+LANCZOS4_ATOL = 5e-6
+LANCZOS4_F64_SLACK = 1e-6
 BASE_FLAGS = K.NVCC_FLAGS
 BASE_CSRC = K.CSRC
 
@@ -127,34 +152,119 @@ def check_rl(name: str) -> bool:
     return ok
 
 
-def times(name: str, state: dict) -> dict:
+def check_postprocess(name: str) -> bool:
+    ok = True
+    for h, w in ((512, 768), (510, 762), (37, 50), (3, 5)):
+        planes = torch.from_numpy(chroma_case(h, w, seed=h)).cuda()
+        got = K.postprocess_color_kernel(*planes)
+        want = postprocess_color_channels(*planes)
+        same = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+        print(f"{name}: postprocess {h}x{w}: bit-exact {same}", flush=True)
+        ok &= same
+    return ok
+
+
+def warp_case(h: int, w: int):
+    """The finishing path's lens warp: shared maps, clipped into the frame, and
+    their displacement bounds."""
+    mx, my = compute_remapping_table(WARP_COEFFS, w, h, WARP_CENTER, device="cuda")
+    return (mx.clamp(0, w - 1).contiguous(), my.clamp(0, h - 1).contiguous(),
+            displacement_bounds(WARP_COEFFS, w, h, WARP_CENTER))
+
+
+def random_maps(h: int, w: int, seed: int):
+    """Maps that send every pixel anywhere in the frame."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mx = torch.rand((h, w), generator=g, device="cuda") * (w - 1)
+    my = torch.rand((h, w), generator=g, device="cuda") * (h - 1)
+    return mx, my
+
+
+def check_remap(name: str, state: dict) -> bool:
+    srgb = state["srgb"]
+    h, w = srgb.shape[:2]
+    mx, my, bounds = warp_case(h, w)
+    got = K.remap_kernel(srgb, mx, my, "bilinear", bounds, channels_last=True)
+    ok = torch.equal(got, K.remap_plain(srgb, mx, my, "bilinear", bounds, channels_last=True))
+    print(f"{name}: remap bilinear {h}x{w}x3: bit-exact {ok}", flush=True)
+    cases = [("lens warp", srgb, mx, my, bounds)]
+    small = srgb[:1000, :1500].contiguous()
+    cases.append(("random map", small, *random_maps(1000, 1500, seed=1), None))
+    for label, img, cx, cy, bnd in cases:
+        got = K.remap_kernel(img, cx, cy, "lanczos4", bnd, channels_last=True)
+        want = K.remap_plain(img, cx, cy, "lanczos4", bnd, channels_last=True)
+        exact = K.remap_plain(img.double(), cx.double(), cy.double(), "lanczos4", bnd,
+                              channels_last=True)
+        err = (got - want).abs().max().item()
+        err64 = (got.double() - exact).abs().max().item()
+        plain64 = (want.double() - exact).abs().max().item()
+        good = err <= LANCZOS4_ATOL and err64 <= plain64 + LANCZOS4_F64_SLACK
+        print(f"{name}: remap Lanczos4 {tuple(img.shape)} {label}: max abs err {err:.3g} "
+              f"against remap_plain, {err64:.3g} against float64 (remap_plain itself "
+              f"{plain64:.3g}): {'ok' if good else 'OUTSIDE'}", flush=True)
+        ok &= good
+        del got, want, exact
+    return ok
+
+
+def times(name: str, state: dict, groups) -> dict:
     f = state["frame"]
     mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
     wb = f.wb_reciprocal()
     tail = (True, True)
     out = {"variant": name}
-    for stages in (0, 1, 2):
-        run = lambda: K.ahd_kernel(f.bayer, mat, wb, f.is_hdr, stages, tail)  # noqa: E731
-        out[f"ahd_s{stages}_ms"] = median_ms(run)
-        out[f"ahd_s{stages}_sha"] = digest(run())
-    cfg = DevelopConfig()
-    out["develop_ms"] = [median_ms(lambda: develop(f, cfg), runs=5, warmup=1) for _ in range(3)]
-    luma = state["luma"]
-    for sigma in (1.0, 2.0):
-        taps = get_1d_gaussian_filter(sigma)
-        out[f"rl_sigma{sigma:g}_iter_ms"] = median_ms(lambda: K.rl_kernel(luma, taps, 1))
-        out[f"rl_sigma{sigma:g}_sha"] = digest(K.rl_kernel(luma, taps, 2))
-    taps = get_1d_gaussian_filter(1.0)
-    out["rl_sigma1_20_ms"] = median_ms(lambda: K.rl_kernel(luma, taps, 20))
+    if "ahd" in groups:
+        for stages in (0, 1, 2):
+            run = lambda: K.ahd_kernel(f.bayer, mat, wb, f.is_hdr, stages, tail)  # noqa: E731
+            out[f"ahd_s{stages}_ms"] = median_ms(run)
+            out[f"ahd_s{stages}_sha"] = digest(run())
+        cfg = DevelopConfig()
+        out["develop_ms"] = [median_ms(lambda: develop(f, cfg), runs=5, warmup=1)
+                             for _ in range(3)]
+    if "rl" in groups:
+        luma = state["luma"]
+        for sigma in (1.0, 2.0):
+            taps = get_1d_gaussian_filter(sigma)
+            out[f"rl_sigma{sigma:g}_iter_ms"] = median_ms(lambda: K.rl_kernel(luma, taps, 1))
+            out[f"rl_sigma{sigma:g}_sha"] = digest(K.rl_kernel(luma, taps, 2))
+        taps = get_1d_gaussian_filter(1.0)
+        out["rl_sigma1_20_ms"] = median_ms(lambda: K.rl_kernel(luma, taps, 20))
+    if "postprocess" in groups:
+        planes = state["planes"]
+        out["postprocess_ms"] = median_ms(lambda: K.postprocess_color_kernel(*planes))
+        out["postprocess_sha"] = digest(torch.stack(K.postprocess_color_kernel(*planes)))
+    if "remap" in groups:
+        srgb = state["srgb"]
+        h, w = srgb.shape[:2]
+        mx, my, bounds = warp_case(h, w)
+
+        def remap(kind, cx=mx, cy=my, bnd=bounds):
+            return K.remap_kernel(srgb, cx, cy, kind, bnd, channels_last=True)
+
+        for kind in K.REMAP_KINDS:
+            out[f"remap_{kind}_ms"] = median_ms(lambda: remap(kind))
+            out[f"remap_{kind}_sha"] = digest(remap(kind))
+        # a map for each channel: the lens warp's, a little apart
+        cx = torch.stack([mx - 0.6, mx, mx + 0.7]).clamp(0, w - 1)
+        cy = torch.stack([my + 0.4, my, my - 0.3]).clamp(0, h - 1)
+        wide = ((bounds[0][0] - 1, bounds[0][1] + 1), (bounds[1][0] - 1, bounds[1][1] + 1))
+        out["remap_lanczos4_per_channel_ms"] = median_ms(lambda: remap("lanczos4", cx, cy, wide))
+        rx, ry = random_maps(h, w, seed=2)
+        out["remap_lanczos4_random_ms"] = median_ms(lambda: remap("lanczos4", rx, ry, None))
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--kernels", default=",".join(GROUPS),
+                    help="the groups to check and time, of " + ",".join(GROUPS))
     ap.add_argument("--no-check", action="store_true",
                     help="skip the comparisons with the plain versions")
     args = ap.parse_args()
+    groups = [g for g in args.kernels.split(",") if g]
+    if not groups or any(g not in GROUPS for g in groups):
+        ap.error(f"--kernels takes a comma-separated list of {GROUPS}")
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     card = subprocess.run(
@@ -169,10 +279,16 @@ def main() -> int:
         variants.append((name, [x for x in flags.split(",") if x], csrc))
     f = frame(*FULL, seed=7)
     lin = develop(f, DevelopConfig(gamma_encode=False, use_pallas=False))
+    mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
     state = {"frame": f,
-             "luma": (0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]).contiguous()}
+             "luma": (0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]).contiguous(),
+             "srgb": develop(f, DevelopConfig(use_pallas=False)),
+             "planes": K.ahd_plain(f.bayer, mat, f.wb_reciprocal(), f.is_hdr, 0)}
     del lin
     ok = True
+    tags = {"ahd": "ahd_kernel", "rl": "rl_", "postprocess": "postprocess_kernel",
+            "remap": "remap_kernel"}
+    entry_tags = [tags[g] for g in groups]
     order = variants + variants[::-1] if len(variants) > 1 else variants
     seen = set()
     for name, flags, csrc in order:
@@ -182,15 +298,17 @@ def main() -> int:
             print(f"{name}: nvcc {K.build_seconds:.1f} s; ptxas:", flush=True)
             lines = K.build_log.splitlines()
             for i, line in enumerate(lines):
-                if "Compiling entry" in line and ("ahd_kernel" in line or "rl_" in line):
+                if "Compiling entry" in line and any(tag in line for tag in entry_tags):
                     print("  " + line.split("for 'sm_90a'")[0].strip(), flush=True)
                     for extra in lines[i + 1:i + 4]:
                         if "registers" in extra or "spill" in extra:
                             print("    " + extra.strip(), flush=True)
+            checks = {"ahd": check_ahd, "rl": check_rl, "postprocess": check_postprocess,
+                      "remap": lambda n: check_remap(n, state)}
             if not args.no_check:
-                ok &= check_ahd(name)
-                ok &= check_rl(name)
-        print(json.dumps(times(name, state)), flush=True)
+                for g in groups:
+                    ok &= checks[g](name)
+        print(json.dumps(times(name, state, groups)), flush=True)
     print(card)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
