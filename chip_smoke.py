@@ -163,7 +163,15 @@ from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
-from pysp_tpu_torch.utils.testing import chroma_case, heal_case, make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import (
+    HEAL_TILE_KINDS,
+    chroma_case,
+    heal_case,
+    heal_tile_case,
+    make_scene,
+    mosaic_rggb,
+    psnr,
+)
 from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
 from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
 
@@ -204,6 +212,10 @@ BRACKETS = 5
 # tensor cores (an add, a multiply or a min counts as one operation here).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Instructions the card issues a second: 132 SMs x 4 schedulers x 32 lanes x
+# 1.98 GHz (the boost clock).
+INSTRUCTIONS_PER_S = 33.5e12
+HEAL_DENSITY = 1e-2                # the heal's dense mask in phase 4
 DEVICE = "cuda"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -455,18 +467,20 @@ def check_kernels_small() -> None:
                 check_remap(f"{h}x{w}x{channels}, {maps} maps,", img, mx, my, kind, bounds,
                             channels_last=channels > 1)
 
-    for shape in ((256, 384), (253, 381), (3, 5)):
-        for density in (1e-4, 3e-3, 0.6):
-            planes, mask = (torch.from_numpy(a).to(DEVICE)
-                            for a in heal_case(*shape, density, seed=shape[1]))
-            for sweeps in ((4, 2), (6, 2)):
-                same = torch.equal(K.heal_kernel(planes, mask, *sweeps),
-                                   K.heal_plain(planes, mask, *sweeps))
-                log(f"heal kernel vs plain 4x{shape[0]}x{shape[1]}, density {density:g} "
-                    f"({int(mask.sum())} sites), {sweeps[0]} + {sweeps[1]} sweeps: "
-                    f"bit-exact {same}")
-                if not same:
-                    raise AssertionError("heal kernel differs from plain")
+    cases = [(shape, f"density {density:g}", heal_case(*shape, density, seed=shape[1]))
+             for shape in ((256, 384), (253, 381), (3, 5), (1, 1))
+             for density in (1e-4, 3e-3, 0.6)]
+    cases += [(shape, kind, heal_tile_case(*shape, kind, seed=shape[1]))
+              for shape in ((64, 128), (61, 133), (3, 5), (1, 1)) for kind in HEAL_TILE_KINDS]
+    for shape, label, arrays in cases:
+        planes, mask = (torch.from_numpy(a).to(DEVICE) for a in arrays)
+        for sweeps in ((4, 2), (6, 2)):
+            same = torch.equal(K.heal_kernel(planes, mask, *sweeps),
+                               K.heal_plain(planes, mask, *sweeps))
+            log(f"heal kernel vs plain 4x{shape[0]}x{shape[1]}, {label} ({int(mask.sum())} "
+                f"sites), {sweeps[0]} + {sweeps[1]} sweeps: bit-exact {same}")
+            if not same:
+                raise AssertionError("heal kernel differs from plain")
 
 
 def check_staged_kernels_small() -> None:
@@ -487,13 +501,29 @@ def check_staged_kernels_small() -> None:
             if not same:
                 raise AssertionError("homogeneity kernel differs from plain")
 
-    for h, w in ((512, 768), (510, 762)):
+    for h, w in ((512, 768), (510, 762), (130, 190), (62, 122)):
         for is_hdr in (False, True):
             frame = frame_on_card(h, w, seed=40 + int(is_hdr), is_hdr=is_hdr)
             flips = pick_flips(frame)
             log(f"decision kernel vs plain {h}x{w} hdr={is_hdr}: {flips:.6%} of picks differ")
             if flips > MAX_PICK_FLIPS:
                 raise AssertionError("decision kernel outside the flip bound")
+    # Frames of 2 and 3 px a side on random fields: every count across the
+    # border is a mirror of an in-frame one.
+    for h, w in ((2, 2), (2, 5), (3, 2)):
+        for is_hdr in (False, True):
+            frame = frame_on_card(8, 8, seed=1, is_hdr=is_hdr)
+            mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+            wb = frame.wb_reciprocal()
+            rng = np.random.default_rng(10 * h + w)
+            fields = [torch.from_numpy(rng.random((h, w)).astype(np.float32)).to(DEVICE)
+                      for _ in range(6)]
+            got = K.decision_kernel(*fields, mat, wb, is_hdr)
+            flipped = int((got != ahd_decision_plain(*fields, mat, wb, is_hdr)).sum())
+            log(f"decision kernel vs plain {h}x{w} hdr={is_hdr} (random fields): {flipped} of "
+                f"{h * w} picks differ")
+            if flipped > 1:
+                raise AssertionError("decision kernel differs from plain on a tiny frame")
 
 
 def pick_flips(frame: RawFrame) -> float:
@@ -899,10 +929,26 @@ def corrections_at_main_shapes(frame, flat, burst, corrected, masks):
         f"max abs err {err:.3g}")
     if not torch.equal(got, want):
         raise AssertionError("heal kernel at 24 MP differs from plain")
+    # A dense mask: most of the kernel's 16x16 sub-tiles hold a site.
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    dense = torch.rand(planes.shape, generator=g, device=DEVICE) < HEAL_DENSITY
+    same = torch.equal(K.heal_kernel(planes, dense, fill, smooth),
+                       K.heal_plain(planes, dense, fill, smooth))
+    log(f"heal kernel vs plain at 4x{planes.shape[1]}x{planes.shape[2]} with a random mask at "
+        f"density {HEAL_DENSITY:g} ({int(dense.sum())} sites): bit-exact {same}")
+    if not same:
+        raise AssertionError("heal kernel at 24 MP and a dense mask differs from plain")
     del got, want
+    means = planes.mean(dim=(-2, -1)).contiguous()
+    buf = torch.empty_like(planes)
 
     t = {
         "heal": median_ms(lambda: K.heal_kernel(planes, masks, fill, smooth)),
+        "heal_mean": median_ms(lambda: planes.mean(dim=(-2, -1))),
+        "heal_launch": median_ms(lambda: heal_launch(planes, masks, means, buf, fill, smooth)),
+        "heal_dense": median_ms(lambda: K.heal_kernel(planes, dense, fill, smooth)),
+        "heal_dense_launch": median_ms(
+            lambda: heal_launch(planes, dense, means, buf, fill, smooth)),
         "heal_plain": median_ms(lambda: K.heal_plain(planes, masks, fill, smooth)),
         "config3": median_ms(lambda: develop_pipeline(frame, CFG3, flat=flat)),
         "config3_plain": median_ms(lambda: corrections_plain(frame, flat), runs=3, warmup=1),
@@ -912,6 +958,13 @@ def corrections_at_main_shapes(frame, flat, burst, corrected, masks):
     mp = FULL_H * FULL_W / 1e6
     log(f"corrections times by CUDA events, median of 10 (plain pipelines: median of "
         f"3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log(f"heal_kernel at 4x{planes.shape[1]}x{planes.shape[2]}, {fill} + {smooth} sweeps: the "
+        f"whole call {t['heal']:.4f} ms with the detector's {int(masks.sum())} sites = "
+        f"torch.mean (the seeds) {t['heal_mean']:.4f} ms + the kernel's launch "
+        f"{t['heal_launch']:.4f} ms + {t['heal'] - t['heal_mean'] - t['heal_launch']:.4f} ms "
+        f"of the wrapper's host time; at density {HEAL_DENSITY:g} the whole call "
+        f"{t['heal_dense']:.4f} ms, the launch {t['heal_dense_launch']:.4f} ms")
+    del dense, buf
     log(f"config 3 {mp / (t['config3'] / 1e3):.2f} MP/s with the kernels, "
         f"{mp / (t['config3_plain'] / 1e3):.2f} MP/s plain; config 4 "
         f"{BRACKETS * mp / (t['config4'] / 1e3):.2f} input MP/s with the kernels, "
@@ -956,7 +1009,20 @@ def corrections_at_main_shapes(frame, flat, burst, corrected, masks):
     return {"name": "heal", "route": "cuda", "source": "pysp_tpu_torch/csrc/heal.cu",
             "replaces": "pysp_tpu/ops/pallas_kernels.py:853", "counter": "heal",
             "max_abs_err": err, "ms": t["heal"], "plain_ms": t["heal_plain"],
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "mean_ms": t["heal_mean"], "launch_ms": t["heal_launch"],
+            "dense_ms": t["heal_dense"], "dense_launch_ms": t["heal_dense_launch"]}
+
+
+def heal_launch(planes, masks, means, out, fill: int, smooth: int) -> None:
+    """The heal kernel's launch alone, on seeds computed beforehand (phase 4
+    times the wrapper's parts apart; this launch counts nowhere)."""
+    _, h, w = planes.shape
+    err = K.load_library().pysp_heal(
+        planes.data_ptr(), masks.data_ptr(), means.data_ptr(), out.data_ptr(), h, w, fill,
+        smooth, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"heal launch failed: cudaError {err}")
 
 
 # --- the tiers path: the demosaic layer outside the AHD kernel's route ----------------
@@ -1138,6 +1204,12 @@ def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dic
         f"{k} {nbytes[k] / 1e6:.1f} MB, {ops[k] / 1e9:.2f} G ops ({ops[k] / px:.1f} per px) "
         f"-> {b[k][0]:.4f} ms by {b[k][1]}; the kernel at {t[k] / b[k][0]:.2f}x its bound"
         for k in ops))
+    per_pick, parts = decision_pick_instructions(K._library_path())
+    floor = per_pick * px / INSTRUCTIONS_PER_S * 1e3
+    log(f"decision issue floor (SASS of decision_kernel, tools/sass_count.py): "
+        f"{per_pick:.1f} instructions a pick with no halo ({parts}) -> {floor:.4f} ms at "
+        f"{INSTRUCTIONS_PER_S / 1e12:g} T instructions/s, beside its byte bound "
+        f"{b['decision'][0]:.4f} ms; the kernel at {t['decision'] / floor:.2f}x the floor")
     records = [
         {"name": name, "route": "cuda", "source": f"pysp_tpu_torch/csrc/{source}",
          "replaces": f"pysp_tpu/ops/pallas_kernels.py:{line}", "counter": key,
@@ -1151,7 +1223,54 @@ def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dic
     ]
     # The share of picks behind a max_abs_err of 1.0.
     records[-1]["flipped_picks"] = err["flipped_picks"]
+    records[-1]["issue_floor_ms"] = floor
+    records[-1]["instructions_per_pick"] = per_pick
     return records
+
+
+def decision_pick_instructions(library):
+    """Instructions the decision kernel issues for one pick with no halo,
+    counted from its SASS: each innermost loop's longest path without the
+    IEEE division's slow-path calls (``tools/sass_count.py``: every select's
+    transcendental side and the HDR tonemap), divided by the cells a trip
+    takes. The loops are told apart by what they hold: CIELAB (MUFU; three
+    field loads a cell), counts (shared loads only) and box sums (one store a
+    pick), in the order CIELAB, count, CIELAB, count, box; where the kernel
+    has such a run for edge blocks and one for interior blocks, the smaller.
+    Returns (instructions, a description of the parts)."""
+    from tools.sass_count import kernel_loops
+
+    def kind(lp):
+        ops = lp["ops"]
+        if ops["MUFU"] and ops["LDG"]:
+            return "lab"
+        if ops["STG"]:
+            return "box"
+        return "count" if ops["LDS"] else None
+
+    runs, run = [], []
+    for lp in kernel_loops(library, "decision_kernel"):
+        k = kind(lp)
+        if k is None:
+            continue
+        run.append((k, lp))
+        if k == "box":
+            runs.append(run)
+            run = []
+    best = None
+    for run in runs:
+        if [k for k, _ in run] != ["lab", "count", "lab", "count", "box"]:
+            continue
+        cells = [lp["longest"] / (lp["ops"]["LDG"] // 3) if k == "lab"
+                 else lp["longest"] / lp["ops"]["STG"] if k == "box" else lp["longest"]
+                 for k, lp in run]
+        if best is None or sum(cells) < sum(best):
+            best = cells
+    if best is None:
+        raise AssertionError("the decision kernel's SASS has no CIELAB, count, box run")
+    parts = (f"CIELAB {best[0]:.1f} + {best[2]:.1f}, counts {best[1]:.0f} + {best[3]:.0f}, "
+             f"box sums {best[4]:.2f}")
+    return sum(best), parts
 
 
 def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tensor,

@@ -1,6 +1,6 @@
 // How a block's threads share the cells of a tile region, the 16-byte vector
-// of four floats, and the launchers' shared memory limit, for ahd.cu, rl.cu
-// and postprocess.cu.
+// of four floats, and the launchers' shared memory limit, for ahd.cu, rl.cu,
+// postprocess.cu, heal.cu and decision.cu.
 #pragma once
 
 namespace {

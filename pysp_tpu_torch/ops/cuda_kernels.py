@@ -21,7 +21,8 @@ function of the JAX package that reaches ``pl.pallas_call``:
   ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``.
 
 At the first CUDA call the sources are compiled with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface under
+(one process for each source, all at once) into one shared library with a
+plain C interface under
 ``pysp_tpu_torch/_build/`` (named by a hash of the sources and flags, so an
 edited source rebuilds), which is loaded with ``ctypes``. Kernels launch on
 PyTorch's current stream and allocate nothing; the wrappers allocate outputs.
@@ -107,13 +108,50 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path() -> Path:
+def _library_path(csrc: Path | None = None, flags=None) -> Path:
+    csrc = CSRC if csrc is None else Path(csrc)
     digest = hashlib.sha256()
     for name in _SOURCES + _HEADERS:
         digest.update(name.encode())
-        digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update((csrc / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS if flags is None else flags).encode())
     return BUILD_DIR / f"libpysp_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build_library(csrc: Path | None = None, flags=None):
+    """Compile the sources of ``csrc`` (default ``CSRC``) with ``flags``
+    (default ``NVCC_FLAGS``) into the library that :func:`_library_path`
+    names, unless it is there: one nvcc process for each source, all started
+    together, then one link. Returns (path, the compilers' output, seconds)."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    flags = NVCC_FLAGS if flags is None else tuple(flags)
+    path = _library_path(csrc, flags)
+    if path.exists():
+        return path, "", 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        compile_flags = [f for f in flags if f != "-shared"]
+        jobs = []
+        for name in _SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [_nvcc(), *compile_flags, f"-I{csrc}", "-c", "-o", obj, str(csrc / name)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{logs[-1]}")
+        out = os.path.join(tmp, path.name)
+        cmd = [_nvcc(), "-shared", "-o", out, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{logs[-1]}")
+        os.replace(out, path)
+    return path, "".join(logs), time.perf_counter() - t0
 
 
 def load_library() -> ctypes.CDLL:
@@ -121,23 +159,9 @@ def load_library() -> ctypes.CDLL:
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
-    path = _library_path()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp,
-               *(str(CSRC / s) for s in _SOURCES)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-            )
-        os.replace(tmp, path)
+    path, log, seconds = build_library()
+    if log:
+        build_log, build_seconds = log, seconds
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pysp_ahd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
@@ -518,6 +542,9 @@ def heal_kernel(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
         raise ValueError(f"planes must be (4, H, W), got {tuple(planes.shape)}")
     planes, masks = planes.contiguous(), masks.contiguous()
     _check(planes, "planes")
+    # The seeds of unreached sites, taken as heal_plain takes them; launched
+    # before the masks' checks, which then run while the card computes them.
+    means = planes.mean(dim=(-2, -1)).contiguous()
     if masks.dtype != torch.bool:
         raise TypeError(f"masks must be bool, got {masks.dtype}")
     if masks.device != planes.device or masks.shape != planes.shape:
@@ -526,8 +553,6 @@ def heal_kernel(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
             f"{tuple(masks.shape)} on {masks.device}"
         )
     _, h, w = planes.shape
-    # The seeds of unreached sites, taken as heal_plain takes them.
-    means = planes.mean(dim=(-2, -1)).contiguous()
     out = torch.empty_like(planes)
     lib = load_library()
     with torch.cuda.device(planes.device):

@@ -1,8 +1,9 @@
 """Synthetic-scene and fidelity helpers (NumPy, host only).
 
 Copied from ``pysp_tpu/utils/testing.py`` (the functions the port's smoke run
-and tests use), so that they import without JAX, plus the heal kernel's test
-case, which the smoke run and the tests share.
+and tests use), so that they import without JAX, plus the test cases of the
+heal and postprocess kernels, which the smoke run, ``tools/time_kernels.py``
+and the tests share.
 """
 from __future__ import annotations
 
@@ -58,6 +59,38 @@ def heal_case(h2: int, w2: int, density: float, seed: int):
     for p, (ty, tx), r in ((2, (32, 64), 6), (3, (96, 192), 8)):
         if h2 > ty + r and w2 > tx + r:
             mask[p, ty - r + 1 : ty + r - 1, tx - r + 1 : tx + r - 1] = True
+    return planes, mask
+
+
+HEAL_TILE_KINDS = ("no_site", "every_tile", "tile_corners")
+
+
+def heal_tile_case(h2: int, w2: int, kind: str, seed: int):
+    """CFA planes (4, h2, w2) float32 of a structured scene and a bool mask
+    that walks the heal kernel's tiling (16x16 sweep sub-tiles in 32x64 copy
+    tiles): ``no_site``, an empty mask; ``every_tile``, one site in every
+    16x16 sub-tile, at a place that moves from sub-tile to sub-tile; and
+    ``tile_corners``, sites on every sub-tile corner and 1, 5 and 7 sites
+    (R - 1 for R = 2, 6 and 8 sweeps) before and past it on both axes."""
+    planes = make_scene(h2, w2, seed=seed)[..., [0, 1, 2, 1]].transpose(2, 0, 1).copy()
+    mask = np.zeros((4, h2, w2), bool)
+    if kind == "every_tile":
+        for p in range(4):
+            for k, ty in enumerate(range(0, h2, 16)):
+                for j, tx in enumerate(range(0, w2, 16)):
+                    y = min(ty + (5 * k + 3 * j + p) % 16, h2 - 1)
+                    x = min(tx + (7 * j + 2 * k + p) % 16, w2 - 1)
+                    mask[p, y, x] = True
+    elif kind == "tile_corners":
+        offsets = (-7, -5, -1, 0, 5, 7)
+        for ty in range(0, h2 + 1, 16):
+            for tx in range(0, w2 + 1, 16):
+                for dy in offsets:
+                    for dx in offsets:
+                        if 0 <= ty + dy < h2 and 0 <= tx + dx < w2:
+                            mask[:, ty + dy, tx + dx] = True
+    elif kind != "no_site":
+        raise ValueError(f"kind must be one of {HEAL_TILE_KINDS}, got {kind!r}")
     return planes, mask
 
 

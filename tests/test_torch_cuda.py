@@ -16,7 +16,15 @@ from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.demosaic.ahd import demosaic_ahd_channels, postprocess_color_channels
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.utils.testing import chroma_case, heal_case, make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import (
+    HEAL_TILE_KINDS,
+    chroma_case,
+    heal_case,
+    heal_tile_case,
+    make_scene,
+    mosaic_rggb,
+    psnr,
+)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -349,13 +357,26 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
 @pytest.mark.parametrize("density", [1e-4, 3e-3, 0.6])
-@pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5)])
+@pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5), (1, 1)])
 def test_heal_kernel_bit_exact(cuda, shape, density, sweeps):
     planes, mask = (torch.from_numpy(a).to(cuda) for a in heal_case(*shape, density, shape[1]))
     before = K.heal_kernel_launches
     got = K.heal_kernel(planes, mask, *sweeps)
     assert K.heal_kernel_launches == before + 1
     assert torch.equal(got, K.heal_plain(planes, mask, *sweeps))
+
+
+@pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
+@pytest.mark.parametrize("kind", HEAL_TILE_KINDS)
+@pytest.mark.parametrize("shape", [(64, 128), (61, 133), (3, 5), (1, 1)])
+def test_heal_kernel_tiling(cuda, shape, kind, sweeps):
+    """No site, a site in every sweep sub-tile, sites on and R - 1 past every
+    sub-tile corner: bit-exact, and the planes themselves without a site."""
+    planes, mask = (torch.from_numpy(a).to(cuda) for a in heal_tile_case(*shape, kind, shape[1]))
+    got = K.heal_kernel(planes, mask, *sweeps)
+    assert torch.equal(got, K.heal_plain(planes, mask, *sweeps))
+    if kind == "no_site":
+        assert torch.equal(got, planes)
 
 
 def test_repair_bad_pixels_and_its_gate_on_the_card(cuda):
@@ -479,7 +500,8 @@ def test_homogeneity_kernel_bit_exact(cuda, shape, is_vertical):
 
 
 @pytest.mark.parametrize("is_hdr", [False, True])
-@pytest.mark.parametrize("shape", [(512, 768), (202, 330), (34, 70), (4, 6)])
+@pytest.mark.parametrize("shape", [(512, 768), (202, 330), (34, 70), (4, 6), (130, 190),
+                                   (62, 122)])
 def test_decision_kernel_against_plain(cuda, shape, is_hdr):
     from pysp_tpu_torch.demosaic.ahd import ahd_candidates, ahd_decision, ahd_decision_plain
 
@@ -492,6 +514,25 @@ def test_decision_kernel_against_plain(cuda, shape, is_hdr):
     assert K.decision_kernel_launches == before + 1
     want = ahd_decision_plain(*fields, mat, wb, is_hdr)
     assert float((got != want).float().mean()) <= MAX_PICK_FLIPS
+    assert bool(((got == 0) | (got == 1)).all())
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 5), (3, 2)])
+def test_decision_kernel_on_tiny_frames(cuda, shape, is_hdr):
+    """2 and 3 px a side, random fields: every count across the border is a
+    mirror of an in-frame one."""
+    from pysp_tpu_torch.demosaic.ahd import ahd_decision_plain
+
+    frame = _frame(8, 8, seed=1, is_hdr=is_hdr, device=cuda)
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    rng = np.random.default_rng(shape[0] * 10 + shape[1])
+    fields = [torch.from_numpy(rng.random(shape).astype(np.float32)).to(cuda)
+              for _ in range(6)]
+    got = K.decision_kernel(*fields, mat, wb, is_hdr)
+    want = ahd_decision_plain(*fields, mat, wb, is_hdr)
+    assert int((got != want).sum()) <= 1     # a cbrtf tie flip at most
     assert bool(((got == 0) | (got == 1)).all())
 
 

@@ -27,7 +27,15 @@ from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.core.frame import RawFrame
 from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.utils.testing import chroma_case, heal_case, make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import (
+    HEAL_TILE_KINDS,
+    chroma_case,
+    heal_case,
+    heal_tile_case,
+    make_scene,
+    mosaic_rggb,
+    psnr,
+)
 
 torch.set_num_threads(1)
 
@@ -50,6 +58,9 @@ struct Dim3 { unsigned x, y, z; };
 static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 static inline void __syncthreads() {}
 static inline int __syncthreads_or(int p) { return p; }
+#define __reduce_or_sync(mask, v) (v)
+#define __ffs(x) __builtin_ffs(x)
+#define __popc(x) __builtin_popcount(x)
 namespace { alignas(16) float smem[1 << 17]; }
 #include KERNEL_SOURCE
 static void each_block(unsigned gx, unsigned gy, unsigned gz, void (*run)(void*),
@@ -130,14 +141,17 @@ void emulate(const float* img, const float* map_x, const float* map_y, float* ou
 #elif defined(EMULATE_HEAL)
 static void run_heal(void* p) {
   Args* a = (Args*)p;
-  heal_kernel(a->a, (const unsigned char*)a->b, a->c, a->x, a->H, a->W, a->s, a->r);
+  heal_kernel(a->a, (const unsigned char*)a->b, a->c, a->x, a->H, a->W, a->s, a->r,
+              a->flags);
 }
 void emulate(const float* chan, const void* mask, const float* means, float* out,
              int H, int W, int fill, int smooth) {
   Args a{};
   a.a = chan; a.b = (const float*)mask; a.c = means; a.x = out; a.H = H; a.W = W;
   a.s = fill; a.r = smooth;
-  each_block(cdiv(W, kTile), cdiv(H, kTile), 4, run_heal, &a);
+  a.flags = W % kGroup == 0 && (size_t)chan % 16 == 0 && (size_t)out % 16 == 0 &&
+            (size_t)mask % 8 == 0;
+  each_block(cdiv(W, kCopyW), cdiv(H, kCopyH), 4, run_heal, &a);
 }
 #elif defined(EMULATE_MEDIAN5)
 static void run_median5(void* p) {
@@ -171,7 +185,7 @@ void emulate(const float* r_h, const float* g_h, const float* b_h, const float* 
   Args a{};
   a.a = r_h; a.b = g_h; a.c = b_h; a.d = r_v; a.e = g_v; a.f = b_v; a.g = params;
   a.x = out; a.H = H; a.W = W; a.hdr = is_hdr;
-  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_decision, &a);
+  each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_decision, &a);
 }
 #else
 static void run_pp(void* p) {
@@ -541,20 +555,41 @@ def heal_lib(tmp_path_factory):
 
 
 
-@pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
-@pytest.mark.parametrize("density", [1e-4, 3e-3, 0.6])
-@pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5)])
-def test_heal_source_bit_exact(heal_lib, shape, density, sweeps):
-    """The heal's device code equals the dense masked fill bit for bit, at
-    whole and overhanging tiles and at planes smaller than the halo."""
-    planes, mask = map(torch.from_numpy, heal_case(*shape, density, seed=shape[1]))
-    fill, smooth = sweeps
+def _heal_emulated(heal_lib, planes, mask, fill, smooth):
     assert K.heal_kernel_admits(fill, smooth)
     means = planes.mean(dim=(-2, -1)).contiguous()
     out = torch.full_like(planes, float("nan"))
-    heal_lib.emulate(_ptr(planes), _ptr(mask), _ptr(means), _ptr(out), shape[0], shape[1],
-                     fill, smooth)
-    assert torch.equal(out, K.heal_plain(planes, mask, fill, smooth))
+    heal_lib.emulate(_ptr(planes), _ptr(mask), _ptr(means), _ptr(out), planes.shape[1],
+                     planes.shape[2], fill, smooth)
+    return out
+
+
+@pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
+@pytest.mark.parametrize("density", [1e-4, 3e-3, 0.6])
+@pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5), (1, 1)])
+def test_heal_source_bit_exact(heal_lib, shape, density, sweeps):
+    """The heal's device code equals the dense masked fill bit for bit, at
+    whole and overhanging tiles, at rows that take 16-byte accesses (384) and
+    rows that do not (381), and at planes smaller than the halo."""
+    planes, mask = map(torch.from_numpy, heal_case(*shape, density, seed=shape[1]))
+    out = _heal_emulated(heal_lib, planes, mask, *sweeps)
+    assert torch.equal(out, K.heal_plain(planes, mask, *sweeps))
+
+
+@pytest.mark.parametrize("sweeps", [(4, 2), (6, 2)])
+@pytest.mark.parametrize("kind", HEAL_TILE_KINDS)
+@pytest.mark.parametrize("shape", [(64, 128), (61, 133), (3, 5), (1, 1)])
+def test_heal_source_tiling(heal_lib, shape, kind, sweeps):
+    """The copy tiles and sweep sub-tiles: planes with no site (every block
+    copies and stops), a site in every sub-tile (every block sweeps all of
+    its sub-tiles, one after another in the same shared memory), and sites on
+    every sub-tile corner and R - 1 sites before and past it (the shrinking
+    sweep regions and the halo's reach)."""
+    planes, mask = map(torch.from_numpy, heal_tile_case(*shape, kind, seed=shape[1]))
+    out = _heal_emulated(heal_lib, planes, mask, *sweeps)
+    assert torch.equal(out, K.heal_plain(planes, mask, *sweeps))
+    if kind == "no_site":
+        assert torch.equal(out, planes)
 
 
 # --- the staged AHD route's kernels: median5, homogeneity count, direction pick --------
@@ -650,12 +685,16 @@ def _ring(t: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("is_hdr", [False, True])
-@pytest.mark.parametrize("shape", [(64, 96), (38, 50), (34, 70), (4, 6)])
+@pytest.mark.parametrize("shape", [(64, 96), (38, 50), (34, 70), (4, 6), (130, 190),
+                                   (62, 122)])
 def test_decision_source_against_plain(decision_lib, shape, is_hdr):
-    """The pick's device code against ``ahd_decision_plain``. On the frame's
-    outermost ring the box sum reads counts across the border, mirrored without
-    the edge (reflect-101); a box sum with the symmetric border of the counts'
-    own window would pick differently there, which the case first shows."""
+    """The pick's device code against ``ahd_decision_plain``, at frames that
+    are not a whole number of the kernel's 60x60 tiles; 130x190 has blocks
+    whose CIELAB region lies inside the frame (no border code) beside edge
+    blocks. On the frame's outermost ring the box sum reads counts across the
+    border, mirrored without the edge (reflect-101); a box sum with the
+    symmetric border of the counts' own window would pick differently there,
+    which the case first shows."""
     from pysp_tpu_torch.demosaic.ahd import _build_homogeneity_map
     from pysp_tpu_torch.ops.stencil import box_sum3, pad_reflect
 
@@ -678,3 +717,35 @@ def test_decision_source_against_plain(decision_lib, shape, is_hdr):
     wrong = (wrong_sum(c_h) < wrong_sum(c_v)).float()
     assert int((_ring(wrong) != _ring(want)).sum()) >= 8
     assert int((_ring(out) != _ring(want)).sum()) <= 1
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 5), (3, 2)])
+def test_decision_source_tiny_frames(decision_lib, shape, is_hdr):
+    """Frames of 2 and 3 px a side, where every reflect-101 count is a mirror
+    of an in-frame one and CIELAB's clamp repeats the edge, on random fields."""
+    from pysp_tpu_torch.demosaic.ahd import ahd_decision_plain
+
+    _, mat, wb, _ = _decision_case(8, 8, seed=1, is_hdr=is_hdr)
+    rng = np.random.default_rng(shape[0] * 10 + shape[1])
+    fields = [torch.from_numpy(rng.random(shape).astype(np.float32)) for _ in range(6)]
+    out = torch.full(shape, float("nan"))
+    params = K._ahd_params(mat, wb)
+    decision_lib.emulate(*(_ptr(f) for f in fields), _ptr(params), _ptr(out), shape[0],
+                         shape[1], int(is_hdr))
+    assert torch.equal(out, ahd_decision_plain(*fields, mat, wb, is_hdr))
+
+
+def test_decision_source_white_point_is_the_plain_versions():
+    """decision.cu divides by cv2's white point as compile-time constants; they
+    are the float32 values of colorimetry.transforms._CV2_LAB_WHITE."""
+    import re
+
+    from pysp_tpu_torch.colorimetry.transforms import _CV2_LAB_WHITE
+
+    src = (K.CSRC / "decision.cu").read_text()
+    found = re.search(r"kWhiteX = F32\(([0-9.e+-]+)\), kWhiteY = F32\(([0-9.e+-]+)\), "
+                      r"kWhiteZ = F32\(([0-9.e+-]+)\)", src)
+    assert found is not None
+    consts = np.array([float(v) for v in found.groups()], np.float32)
+    assert consts.tobytes() == np.asarray(_CV2_LAB_WHITE, np.float32).tobytes()

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Times and checks the AHD, RL, postprocess and remap kernels of pysp_tpu_torch
-on one NVIDIA GPU, for one or more builds of the kernel sources inside one
-process, so that two versions are compared on the same card within one call.
+"""Times and checks the AHD, RL, postprocess, remap, heal and AHD decision
+kernels of pysp_tpu_torch on one NVIDIA GPU, for one or more builds of the
+kernel sources inside one process, so that two versions are compared on the
+same card within one call.
 
     python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
-                                  [--kernels ahd,rl,postprocess,remap] [--no-check]
+                                  [--kernels ahd,rl,postprocess,remap,heal,decision]
+                                  [--no-check]
 
 Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
 are added to nvcc's (``-DAHD_TILE_W=64``), and CSRC_DIR is a directory that
@@ -12,7 +14,7 @@ holds another version of the sources (default: the package's own ``csrc``).
 Without ``--variant`` the package's own build is the only one. The variants
 are visited in the order given and then once more in reverse (a, b, b, a).
 
-``--kernels`` keeps the named groups only (default: all four).
+``--kernels`` keeps the named groups only (default: all six).
 
 For every variant it prints the ptxas lines of the chosen kernels and holds
 them against their plain versions: the AHD kernel over the whole frame at
@@ -24,15 +26,26 @@ postprocess kernel against ``postprocess_color_channels`` at 512x768, 510x762,
 warp's maps and bounds (bilinear ``torch.equal`` to ``remap_plain``; Lanczos4
 by its max abs error against ``remap_plain`` and against the same remap in
 float64, beside the plain version's own error against float64) and on a random
-map. Then it prints one JSON line with the times at 4000x6000 (CUDA events,
-median of 10 after 2 warm-ups) and a SHA-256 of each output, so that two
-variants can be compared bit for bit: the
-AHD kernel with 0, 1 and 2 stages and the fused tail, the Best develop; one RL
-iteration at sigma 1 and sigma 2 and 20 iterations at sigma 1; one postprocess
-stage on the r, g, b planes of the frame's demosaic; the remap of the developed
-(H, W, 3) image, bilinear and Lanczos4, the latter also with a map for each
-channel and on the random map.
+map; the heal kernel against ``heal_plain`` on ``heal_case`` planes at
+256x384, 253x381, 3x5 and 1x1 (``torch.equal``); the decision kernel's picks
+against ``ahd_decision_plain`` at 512x768 and 510x762, HDR and not (the share
+that differ). For the decision group it also prints the innermost loops of
+the kernel's SASS with their instruction counts (``tools/sass_count.py``).
+Then it prints one JSON line with the times at 4000x6000 (CUDA events, median
+of 10 after 2 warm-ups) and a SHA-256 of each output, so that two variants can
+be compared bit for bit: the AHD kernel with 0, 1 and 2 stages and the fused
+tail, the Best develop; one RL iteration at sigma 1 and sigma 2 and 20
+iterations at sigma 1; one postprocess stage on the r, g, b planes of the
+frame's demosaic; the remap of the developed (H, W, 3) image, bilinear and
+Lanczos4, the latter also with a map for each channel and on the random map;
+the heal of 4 x 2000 x 3000 planes (4 + 2 sweeps) with the hot-pixel
+detector's masks of a frame with 500 planted hot photosites and with a random
+mask at density 1e-2, each as the whole ``heal_kernel`` call, its
+``torch.mean`` alone and the kernel's launch alone, the launch with no site
+at all (the copy alone) and, as a yardstick for that copy, ``torch``'s own
+copy of the planes; the pick of a frame's six candidate fields, HDR and not.
 """
+
 from __future__ import annotations
 
 import argparse
@@ -51,10 +64,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pysp_tpu_torch import DevelopConfig, RawFrame, develop  # noqa: E402
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix  # noqa: E402
-from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels  # noqa: E402
+from pysp_tpu_torch.core.bayer import bayer_to_planes  # noqa: E402
+from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median  # noqa: E402
+from pysp_tpu_torch.demosaic.ahd import (  # noqa: E402
+    ahd_candidates,
+    ahd_decision_plain,
+    postprocess_color_channels,
+)
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
 from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
-from pysp_tpu_torch.utils.testing import chroma_case, make_scene, mosaic_rggb, psnr  # noqa: E402
+from pysp_tpu_torch.utils.testing import (  # noqa: E402
+    chroma_case,
+    heal_case,
+    make_scene,
+    mosaic_rggb,
+    psnr,
+)
 from pysp_tpu_torch.warp.rectilinear import (  # noqa: E402
     compute_remapping_table,
     displacement_bounds,
@@ -63,7 +88,7 @@ from pysp_tpu_torch.warp.rectilinear import (  # noqa: E402
 CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
 WB = np.array([0.45, 1.0, 0.62], np.float32)
 FULL = (4000, 6000)
-GROUPS = ("ahd", "rl", "postprocess", "remap")
+GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision")
 # The lens warp of the finishing path: about 11 px at the corners of 4000x6000.
 WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
 WARP_CENTER = (0.5, 0.5)
@@ -71,6 +96,9 @@ WARP_CENTER = (0.5, 0.5)
 # than remap_plain the kernel may be.
 LANCZOS4_ATOL = 5e-6
 LANCZOS4_F64_SLACK = 1e-6
+HEAL_SWEEPS = (4, 2)
+HEAL_DENSE = 1e-2
+MAX_PICK_FLIPS = 5e-4   # picks that cbrtf may flip at exact ties (0.05%)
 BASE_FLAGS = K.NVCC_FLAGS
 BASE_CSRC = K.CSRC
 
@@ -101,6 +129,20 @@ def frame(h, w, seed, is_hdr=False, noise=0.0) -> RawFrame:
         mosaic = np.clip(mosaic + rng.normal(0, noise, mosaic.shape), 0.02, 0.98)
     return RawFrame.synthetic(mosaic.astype(np.float32), cam_mat=CAM, wb_neutral=WB,
                               is_hdr=is_hdr, device="cuda")
+
+
+def build_variants(variants) -> dict:
+    """Every variant's library, built all at once: {name: (path, nvcc's output,
+    seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(variant):
+        name, flags, csrc = variant
+        return name, K.build_library(Path(csrc) if csrc else BASE_CSRC,
+                                     BASE_FLAGS + tuple(flags))
+
+    with ThreadPoolExecutor(len(variants)) as pool:
+        return dict(pool.map(one, variants))
 
 
 def load_variant(flags, csrc) -> None:
@@ -207,13 +249,99 @@ def check_remap(name: str, state: dict) -> bool:
     return ok
 
 
+def check_heal(name: str) -> bool:
+    ok = True
+    for shape in ((256, 384), (253, 381), (3, 5), (1, 1)):
+        for density in (1e-4, 3e-3, 0.6):
+            planes, mask = (torch.from_numpy(a).cuda()
+                            for a in heal_case(*shape, density, seed=shape[1]))
+            for sweeps in ((4, 2), (6, 2)):
+                same = torch.equal(K.heal_kernel(planes, mask, *sweeps),
+                                   K.heal_plain(planes, mask, *sweeps))
+                print(f"{name}: heal 4x{shape[0]}x{shape[1]} density {density:g}, "
+                      f"{sweeps[0]} + {sweeps[1]} sweeps: bit-exact {same}", flush=True)
+                ok &= same
+    return ok
+
+
+def check_decision(name: str) -> bool:
+    ok = True
+    for h, w in ((512, 768), (510, 762)):
+        for is_hdr in (False, True):
+            f = frame(h, w, seed=40 + int(is_hdr), is_hdr=is_hdr)
+            mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+            wb = f.wb_reciprocal()
+            fields = [x.contiguous() for x in ahd_candidates(f.bayer, wb)]
+            got = K.decision_kernel(*fields, mat, wb, is_hdr)
+            flips = float((got != ahd_decision_plain(*fields, mat, wb, is_hdr)).float().mean())
+            print(f"{name}: decision {h}x{w} hdr={is_hdr}: {flips:.6%} of picks differ",
+                  flush=True)
+            ok &= flips <= MAX_PICK_FLIPS
+    return ok
+
+
+def print_decision_sass(name: str) -> None:
+    """The innermost loops of the decision kernel's SASS, their counts, and the
+    instructions a pick (``chip_smoke.decision_pick_instructions``)."""
+    from chip_smoke import INSTRUCTIONS_PER_S, decision_pick_instructions
+    from tools.sass_count import kernel_loops
+
+    loops = kernel_loops(K._library_path(), "decision_kernel")
+    print(f"{name}: decision_kernel SASS, innermost loops (start-end: instructions, "
+          f"shortest / longest path): " + ", ".join(
+              f"{lp['start']:#x}-{lp['end']:#x}: {lp['count']} ({lp['shortest']} / "
+              f"{lp['longest']})" for lp in loops), flush=True)
+    per_pick, parts = decision_pick_instructions(K._library_path())
+    print(f"{name}: decision issue floor {per_pick:.1f} instructions a pick ({parts}), "
+          f"{per_pick * FULL[0] * FULL[1] / INSTRUCTIONS_PER_S * 1e3:.4f} ms at {FULL[0]}x{FULL[1]}",
+          flush=True)
+
+
+def heal_state() -> dict:
+    """The 24 MP heal inputs: the CFA planes of a frame with 500 hot
+    photosites planted where the scene is dark (``chip_smoke.plant_hot_sites``)
+    and the median detector's masks of it; a random mask at HEAL_DENSE."""
+    from chip_smoke import plant_hot_sites
+
+    mosaic = mosaic_rggb(make_scene(*FULL, seed=13))
+    hot = plant_hot_sites(mosaic)
+    mosaic[hot[:, 0], hot[:, 1]] = 1.0
+    f = RawFrame.synthetic(mosaic.astype(np.float32), device="cuda")
+    planes = bayer_to_planes(f.bayer).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dense = torch.rand(planes.shape, generator=g, device="cuda") < HEAL_DENSE
+    return {"planes": planes, "masks": find_erroneous_pixels_median(f), "dense": dense}
+
+
+def decision_state() -> dict:
+    """The six candidate fields of the 24 MP frame, non-HDR and HDR, with
+    their colour parameters."""
+    out = {}
+    for is_hdr in (False, True):
+        f = frame(*FULL, seed=7, is_hdr=is_hdr)
+        mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+        wb = f.wb_reciprocal()
+        out[is_hdr] = ([x.contiguous() for x in ahd_candidates(f.bayer, wb)], mat, wb)
+    return out
+
+
+def heal_launch(planes, masks, means, out, fill, smooth) -> None:
+    """The heal kernel's launch alone, on means computed beforehand."""
+    _, h, w = planes.shape
+    err = K.load_library().pysp_heal(
+        planes.data_ptr(), masks.data_ptr(), means.data_ptr(), out.data_ptr(), h, w,
+        fill, smooth, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"heal launch failed: cudaError {err}")
+
+
 def times(name: str, state: dict, groups) -> dict:
-    f = state["frame"]
-    mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
-    wb = f.wb_reciprocal()
-    tail = (True, True)
     out = {"variant": name}
     if "ahd" in groups:
+        f = state["frame"]
+        mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+        wb = f.wb_reciprocal()
+        tail = (True, True)
         for stages in (0, 1, 2):
             run = lambda: K.ahd_kernel(f.bayer, mat, wb, f.is_hdr, stages, tail)  # noqa: E731
             out[f"ahd_s{stages}_ms"] = median_ms(run)
@@ -251,6 +379,29 @@ def times(name: str, state: dict, groups) -> dict:
         out["remap_lanczos4_per_channel_ms"] = median_ms(lambda: remap("lanczos4", cx, cy, wide))
         rx, ry = random_maps(h, w, seed=2)
         out["remap_lanczos4_random_ms"] = median_ms(lambda: remap("lanczos4", rx, ry, None))
+    if "heal" in groups:
+        hs = state["heal"]
+        planes = hs["planes"]
+        means = planes.mean(dim=(-2, -1)).contiguous()
+        buf = torch.empty_like(planes)
+        none = torch.zeros_like(hs["masks"])
+        out["heal_sites"] = int(hs["masks"].sum())
+        out["heal_mean_ms"] = median_ms(lambda: planes.mean(dim=(-2, -1)))
+        for key, masks in (("heal", hs["masks"]), ("heal_dense", hs["dense"])):
+            out[f"{key}_ms"] = median_ms(lambda: K.heal_kernel(planes, masks, *HEAL_SWEEPS))
+            out[f"{key}_launch_ms"] = median_ms(
+                lambda: heal_launch(planes, masks, means, buf, *HEAL_SWEEPS))
+            out[f"{key}_sha"] = digest(K.heal_kernel(planes, masks, *HEAL_SWEEPS))
+        out["heal_copy_launch_ms"] = median_ms(
+            lambda: heal_launch(planes, none, means, buf, *HEAL_SWEEPS))
+        # a yardstick for the copy: torch's own copy of the planes (192 of
+        # the kernel's 216 MB)
+        out["heal_torch_copy_ms"] = median_ms(lambda: buf.copy_(planes))
+    if "decision" in groups:
+        for is_hdr, (fields, mat, wb) in state["decision"].items():
+            key = "decision_hdr" if is_hdr else "decision"
+            out[f"{key}_ms"] = median_ms(lambda: K.decision_kernel(*fields, mat, wb, is_hdr))
+            out[f"{key}_sha"] = digest(K.decision_kernel(*fields, mat, wb, is_hdr))
     return out
 
 
@@ -277,34 +428,50 @@ def main() -> int:
         spec, _, csrc = spec.partition("@")
         name, _, flags = spec.partition(":")
         variants.append((name, [x for x in flags.split(",") if x], csrc))
-    f = frame(*FULL, seed=7)
-    lin = develop(f, DevelopConfig(gamma_encode=False, use_pallas=False))
-    mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
-    state = {"frame": f,
-             "luma": (0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]).contiguous(),
-             "srgb": develop(f, DevelopConfig(use_pallas=False)),
-             "planes": K.ahd_plain(f.bayer, mat, f.wb_reciprocal(), f.is_hdr, 0)}
-    del lin
+    state = {}
+    if {"ahd", "rl", "postprocess", "remap"} & set(groups):
+        f = frame(*FULL, seed=7)
+        lin = develop(f, DevelopConfig(gamma_encode=False, use_pallas=False))
+        mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+        state = {"frame": f,
+                 "luma": (0.299 * lin[..., 0] + 0.587 * lin[..., 1]
+                          + 0.114 * lin[..., 2]).contiguous(),
+                 "srgb": develop(f, DevelopConfig(use_pallas=False)),
+                 "planes": K.ahd_plain(f.bayer, mat, f.wb_reciprocal(), f.is_hdr, 0)}
+        del lin
+    if "heal" in groups:
+        state["heal"] = heal_state()
+        print(f"heal inputs: planes {tuple(state['heal']['planes'].shape)}, "
+              f"{int(state['heal']['masks'].sum())} sites from the detector, "
+              f"{int(state['heal']['dense'].sum())} at density {HEAL_DENSE:g}", flush=True)
+    if "decision" in groups:
+        state["decision"] = decision_state()
     ok = True
     tags = {"ahd": "ahd_kernel", "rl": "rl_", "postprocess": "postprocess_kernel",
-            "remap": "remap_kernel"}
+            "remap": "remap_kernel", "heal": "heal", "decision": "decision_kernel"}
     entry_tags = [tags[g] for g in groups]
     order = variants + variants[::-1] if len(variants) > 1 else variants
+    builds = build_variants(variants)
     seen = set()
     for name, flags, csrc in order:
         load_variant(flags, csrc)
         if name not in seen:
             seen.add(name)
-            print(f"{name}: nvcc {K.build_seconds:.1f} s; ptxas:", flush=True)
-            lines = K.build_log.splitlines()
+            _, log, seconds = builds[name]
+            print(f"{name}: nvcc {seconds:.1f} s (all variants built together); ptxas:",
+                  flush=True)
+            lines = log.splitlines()
             for i, line in enumerate(lines):
                 if "Compiling entry" in line and any(tag in line for tag in entry_tags):
                     print("  " + line.split("for 'sm_90a'")[0].strip(), flush=True)
                     for extra in lines[i + 1:i + 4]:
                         if "registers" in extra or "spill" in extra:
                             print("    " + extra.strip(), flush=True)
+            if "decision" in groups:
+                print_decision_sass(name)
             checks = {"ahd": check_ahd, "rl": check_rl, "postprocess": check_postprocess,
-                      "remap": lambda n: check_remap(n, state)}
+                      "remap": lambda n: check_remap(n, state), "heal": check_heal,
+                      "decision": check_decision}
             if not args.no_check:
                 for g in groups:
                     ok &= checks[g](name)
