@@ -37,7 +37,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      sweeps: bit-exact.
    - median5 kernel against ``ops.stencil.median5`` and homogeneity kernel
      (both directions) against ``homogeneity_map_channels``: 512x768, 509x763
-     (tiles overhang) and 3x5, bit-exact.
+     (tiles overhang, rows off the 16-byte alignment), 100x260 (blocks on the
+     16-byte path beside edge blocks), 130x190, 3x5, 1x7 and 1x1,
+     bit-exact.
    - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
      non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
      ties that ``cbrtf`` flips), the fraction printed.
@@ -104,7 +106,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    plain, and each of the five must beat its plain one. Each kernel's bound is
    the larger of its bytes (each input read once, each output written once)
    over 3.35 TB/s and its float32 operations, counted on its plain version at
-   the same inputs, over 67 TFLOP/s.
+   the same inputs, over 67 TFLOP/s. Beside it: the decision kernel's issue
+   floor (its SASS's instructions a pick), the median5 kernel's min/max floor
+   (the FMNMX of its SASS a pixel at half the issue rate) and the homogeneity kernel's achieved TB/s beside ``torch``'s own copy
+   of its three input planes.
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
@@ -213,8 +218,9 @@ BRACKETS = 5
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Instructions the card issues a second: 132 SMs x 4 schedulers x 32 lanes x
-# 1.98 GHz (the boost clock).
+# 1.98 GHz (the boost clock); min and max issue at half that rate.
 INSTRUCTIONS_PER_S = 33.5e12
+MINMAX_PER_S = INSTRUCTIONS_PER_S / 2
 HEAL_DENSITY = 1e-2                # the heal's dense mask in phase 4
 DEVICE = "cuda"
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -486,7 +492,7 @@ def check_kernels_small() -> None:
 def check_staged_kernels_small() -> None:
     """Phase 2 for the staged AHD route's kernels: median5, homogeneity count
     and direction pick against their plain versions."""
-    for h, w in ((512, 768), (509, 763), (3, 5)):
+    for h, w in ((512, 768), (509, 763), (100, 260), (130, 190), (3, 5), (1, 7), (1, 1)):
         rgb = torch.from_numpy(make_scene(h, w, seed=30 + h % 7)).to(DEVICE)
         x = (rgb[..., 0] - rgb[..., 1]).contiguous()
         same = torch.equal(K.median5_kernel(x), median5(x))
@@ -1126,15 +1132,7 @@ def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dic
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
     wb = frame.wb_reciprocal()
     hdr = frame.is_hdr
-    # The homogeneity kernel's main-path input: the horizontal candidate's
-    # CIELAB planes (what _build_homogeneity_map hands it).
-    r_h, g_h, b_h = fields[:3]
-    rr, gg, bb = r_h * wb[0], g_h * wb[1], b_h * wb[2]
-    lab = [p.contiguous() for p in rgb_to_lab_channels(
-        mat[0, 0] * rr + mat[0, 1] * gg + mat[0, 2] * bb,
-        mat[1, 0] * rr + mat[1, 1] * gg + mat[1, 2] * bb,
-        mat[2, 0] * rr + mat[2, 1] * gg + mat[2, 2] * bb)]
-    del rr, gg, bb
+    lab = homogeneity_planes(fields[:3], mat, wb)
     err = dict(err, homogeneity=0.0)
     for vertical in (False, True):
         got = K.homogeneity_kernel(*lab, vertical)
@@ -1210,6 +1208,24 @@ def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dic
         f"{per_pick:.1f} instructions a pick with no halo ({parts}) -> {floor:.4f} ms at "
         f"{INSTRUCTIONS_PER_S / 1e12:g} T instructions/s, beside its byte bound "
         f"{b['decision'][0]:.4f} ms; the kernel at {t['decision'] / floor:.2f}x the floor")
+    per_median, loops = median5_sass_minmax(K._library_path())
+    med_floor = per_median * px / MINMAX_PER_S * 1e3
+    log(f"median5 min/max floor (FMNMX in the SASS of median5_kernel, tools/sass_count.py): "
+        f"{per_median:g} min/max a pixel ({loops}; median5_columns.cuh's network at "
+        f"the same strip: {median5_minmax_per_pixel():g}) -> {med_floor:.4f} ms at "
+        f"{MINMAX_PER_S / 1e12:g} T min/max per s, beside its byte bound "
+        f"{b['median5'][0]:.4f} ms; the kernel at {t['median5'] / med_floor:.2f}x the floor")
+    # The homogeneity kernel's achieved rate beside torch's own copy of its
+    # three input planes (which moves 1.5x the kernel's bytes).
+    src = torch.stack(lab)
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src))
+    rate = nbytes["homogeneity"] / (t["homogeneity"] * 1e9)
+    copy_rate = 2 * src.numel() * 4 / (copy_ms * 1e9)
+    log(f"homogeneity kernel {rate:.3f} TB/s ({nbytes['homogeneity'] / 1e6:.1f} MB in "
+        f"{t['homogeneity']:.4f} ms); torch's copy of its three input planes {copy_rate:.3f} "
+        f"TB/s ({2 * src.numel() * 4 / 1e6:.1f} MB in {copy_ms:.4f} ms)")
+    del src, dst
     records = [
         {"name": name, "route": "cuda", "source": f"pysp_tpu_torch/csrc/{source}",
          "replaces": f"pysp_tpu/ops/pallas_kernels.py:{line}", "counter": key,
@@ -1225,7 +1241,66 @@ def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dic
     records[-1]["flipped_picks"] = err["flipped_picks"]
     records[-1]["issue_floor_ms"] = floor
     records[-1]["instructions_per_pick"] = per_pick
+    records[0]["issue_floor_ms"] = med_floor
+    records[0]["minmax_per_pixel"] = per_median
+    records[1]["tb_s"] = rate
+    records[1]["torch_copy_tb_s"] = copy_rate
     return records
+
+
+def _median5_strip() -> int:
+    """The strip width of csrc/median5.cu as built without -D (``MED5_STRIP``)."""
+    import re
+
+    return int(re.search(r"#define MED5_STRIP (\d+)",
+                         (K.CSRC / "median5.cu").read_text()).group(1))
+
+
+def median5_sass_minmax(library):
+    """The min and max a pixel that the built median5 kernel issues, counted
+    from its SASS (``tools/sass_count.py``): the FMNMX of each innermost loop
+    that holds them (a trip computes one strip), divided by the strip width;
+    where the edge blocks' loop and the interior blocks' differ, the smaller.
+    Returns (min/max a pixel, a description of the loops)."""
+    from tools.sass_count import kernel_loops
+
+    n = _median5_strip()
+    counts = [lp["ops"]["FMNMX"] for lp in kernel_loops(library, "median5_kernel")
+              if lp["ops"]["FMNMX"]]
+    if not counts:
+        raise AssertionError("the median5 kernel's SASS has no loop of FMNMX")
+    return min(counts) / n, f"FMNMX a strip of {n}: " + ", ".join(map(str, counts))
+
+
+def median5_minmax_per_pixel() -> float:
+    """The min and max a pixel of the median5 kernel's network, counted from
+    csrc/median5_columns.cuh at the strip width of csrc/median5.cu: a
+    compare-exchange is two, a one-sided step one; a strip of N sorts N + 4
+    columns, merges N + 2 pairs and takes N pruned merges and selections."""
+    import re
+
+    text = (K.CSRC / "median5_columns.cuh").read_text()
+    n = _median5_strip()
+
+    def ops(name):
+        body = re.search(r"void " + name + r"\(.*?\n}\n", text, re.S).group(0)
+        return sum(2 if kind == "CMP" else 1
+                   for kind in re.findall(r"MED5_(CMP|MIN|MAX)\(\d+, \d+\);", body))
+
+    # median_of_20_and_5: a min and a max for each of the five side values
+    strip = (n + 4) * ops("sort5") + (n + 2) * ops("merge5x5") + n * (ops("merge10x10_mid") + 10)
+    return strip / n
+
+
+def homogeneity_planes(candidate, mat, wb):
+    """The homogeneity kernel's main-path input: the CIELAB planes of one
+    candidate (r, g, b), what ``_build_homogeneity_map`` hands it."""
+    r, g, b = candidate
+    rr, gg, bb = r * wb[0], g * wb[1], b * wb[2]
+    return [p.contiguous() for p in rgb_to_lab_channels(
+        mat[0, 0] * rr + mat[0, 1] * gg + mat[0, 2] * bb,
+        mat[1, 0] * rr + mat[1, 1] * gg + mat[1, 2] * bb,
+        mat[2, 0] * rr + mat[2, 1] * gg + mat[2, 2] * bb)]
 
 
 def decision_pick_instructions(library):

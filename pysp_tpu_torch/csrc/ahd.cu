@@ -230,7 +230,7 @@ __device__ __forceinline__ void median_strip(const Field& d, const Frame& fr,
       }
     }
   }
-  median5_strip4(col, med);
+  median5_strip<4>(col, med);
 }
 
 // Calls f(ly, lx) for the first pixel of every strip of four of the tile plus

@@ -97,10 +97,6 @@ struct ChromaTile {
   }
 };
 
-__device__ __forceinline__ int clamp_index(int v, int n) {
-  return v < 0 ? 0 : (v >= n ? n - 1 : v);
-}
-
 // Reflect-101 of an index one step outside [0, n): -1 -> 1, n -> n - 2.
 __device__ __forceinline__ int mirror_index(int v, int n) {
   return v < 0 ? -v : (v >= n ? 2 * n - 2 - v : v);

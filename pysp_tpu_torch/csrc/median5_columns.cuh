@@ -1,8 +1,8 @@
 // The shared-column form of the 5x5 median for a strip of neighbouring windows:
 // device code shared by ahd.cu (the chroma-median stages inside the AHD kernel)
-// and postprocess.cu (one such stage on planes), which both call
-// median5_strip4 on a 5x8 window they hold in registers. median5.cu keeps the
-// single-window network of median5.cuh.
+// and postprocess.cu (one such stage on planes), which call median5_strip<4> on
+// a 5x8 window they hold in registers, and median5.cu (the median of a plane),
+// which calls median5_strip<8> on a 5x12 window.
 //
 // The networks of pysp_tpu_torch/ops/stencil.py::median5_from_padded, which the
 // plain version runs on whole planes: every column of five is sorted once
@@ -12,10 +12,11 @@
 // merge, pruned to the ranks 7..12 of the twenty that can still be the median
 // of 25 (merge10x10_mid), and the fifth column enters by the selection
 // identity rank_k(A u B) = max_i min(A[i], B[k - i]) (median_of_20_and_5). For
-// a strip of four windows that is 484 min/max, 121 a median, where the
-// network of median5.cuh takes 202. That count is what bounds both callers on
-// an H100: min and max run at half the rate of an add there. A median is a
-// selection, so the result is bit-identical to every other correct network's.
+// a strip of four windows that is 484 min/max, 121 a median, and for a strip
+// of eight 844, 105.5 a median, where a pruned Batcher network for one window
+// of 25 takes 202. That count is what bounds the callers on an H100: min and
+// max run at half the rate of an add there. A median is a selection, so the
+// result is bit-identical to every other correct network's.
 #pragma once
 
 #define MED5_CMP(i, j)                 \
@@ -123,18 +124,19 @@ __device__ __forceinline__ float median_of_20_and_5(const float* q, const float*
   return t;
 }
 
-// med[j], j = 0..3: the median of the 5x5 window whose columns are
-// col[j .. j + 4] of the 5x8 window col[column][row]. The four windows share
-// the eight sorted columns and the six sorted column pairs. Sorts the columns
-// in place.
-__device__ __forceinline__ void median5_strip4(float (*col)[5], float* med) {
-  float pair[6][10];
+// med[j], j = 0..N-1: the median of the 5x5 window whose columns are
+// col[j .. j + 4] of the 5x(N + 4) window col[column][row]. The N windows
+// share the N + 4 sorted columns and the N + 2 sorted column pairs. Sorts the
+// columns in place.
+template <int N>
+__device__ __forceinline__ void median5_strip(float (*col)[5], float* med) {
+  float pair[N + 2][10];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) sort5(col[c]);
+  for (int c = 0; c < N + 4; ++c) sort5(col[c]);
 #pragma unroll
-  for (int c = 0; c < 6; ++c) merge5x5(col[c], col[c + 1], pair[c]);
+  for (int c = 0; c < N + 2; ++c) merge5x5(col[c], col[c + 1], pair[c]);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N; ++j) {
     float q[6];
     merge10x10_mid(pair[j], pair[j + 2], q);
     med[j] = median_of_20_and_5(q, col[j + 4]);

@@ -23,7 +23,7 @@
 // - A thread takes the medians of a strip of four neighbouring pixels from one
 //   5x8 window in registers (ten 16-byte shared loads; the strips are laid so
 //   that every window starts on a 16-byte boundary) and shares the window's
-//   sorted columns and column pairs between the four (median5_strip4, the
+//   sorted columns and column pairs between the four (median5_strip<4>, the
 //   routine of the AHD kernel's stages). The halo makes a pixel pay
 //   (2 (kTH + 4)(kTW + 4) + 2 kTH kTW) / (kTH kTW) medians: 4.39 at 32 x 64.
 // - The first strips (tile plus 2 px) leave r', b' and the second pair's
@@ -96,18 +96,6 @@ struct Rgb4 {
   Vec4 r, g, b;
 };
 
-__device__ __forceinline__ int clamp_index(int v, int n) {
-  return v < 0 ? 0 : (v >= n ? n - 1 : v);
-}
-
-// Whether rows of W floats behind these plane pointers start on 16-byte
-// boundaries, so that a tile's rows load and store as Vec4.
-inline bool rows_aligned(int W, const void* const* planes, int n) {
-  unsigned long long bits = (unsigned long long)W % 4;
-  for (int k = 0; k < n; ++k) bits |= (unsigned long long)planes[k] % 16;
-  return bits == 0;
-}
-
 // The 5x5 medians of the four pixels (ly, lx .. lx + 3) of `d`, whose halo is
 // two pixels deeper than the strips' region, so that the strip's 5x8 window
 // starts on a 16-byte boundary.
@@ -123,7 +111,7 @@ __device__ __forceinline__ void median_strip(const Field& d, int ly, int lx, flo
       col[4 + k][dy] = b.v[k];
     }
   }
-  median5_strip4(col, med);
+  median5_strip<4>(col, med);
 }
 
 // Calls f(ly, lx) for the first pixel of every strip of four of the tile plus

@@ -67,6 +67,8 @@
 // (H, W, C) launch as they lie; map element (c, y, x) sits at
 // c * map_plane + y * W + x, with map_plane 0 for maps shared by the channels.
 
+#include "tile_loops.cuh"
+
 // The tile, the block and the blocks an SM that the register cap is set for;
 // tools/time_kernels.py builds other shapes beside these through the macros,
 // to compare them on one card in one call.
@@ -87,10 +89,6 @@ constexpr int kTileY = REMAP_TILE_Y;
 constexpr int kThreads = REMAP_THREADS;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kHalfSqrt2 = 0.70710678118654752440f;
-
-__device__ __forceinline__ int clamp_index(int v, int n) {
-  return v < 0 ? 0 : (v >= n ? n - 1 : v);
-}
 
 __device__ __forceinline__ int clip_range(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);

@@ -1,6 +1,8 @@
 // How a block's threads share the cells of a tile region, the 16-byte vector
-// of four floats, and the launchers' shared memory limit, for ahd.cu, rl.cu,
-// postprocess.cu, heal.cu and decision.cu.
+// of four floats, the clamp of an index into a plane (the replicate border),
+// and the launchers' row alignment test and shared memory limit, for ahd.cu,
+// rl.cu, postprocess.cu, heal.cu, decision.cu, median5.cu, homogeneity.cu and
+// remap.cu (which takes only the clamp).
 #pragma once
 
 namespace {
@@ -9,6 +11,12 @@ namespace {
 struct alignas(16) Vec4 {
   float v[4];
 };
+
+// Clamps an index into [0, n): the replicate border, and the symmetric border
+// of a reach of one.
+__device__ __forceinline__ int clamp_index(int v, int n) {
+  return v < 0 ? 0 : (v >= n ? n - 1 : v);
+}
 
 // Calls f(row, col) for every cell of rows [0, rows) x cols [0, cols). The
 // cells are dealt to the block's threads in row-major order (thread t takes
@@ -61,6 +69,14 @@ __device__ __forceinline__ void for_cells_loading(int rows, int cols, L load, S 
       if (rr[k] < rows) store(rr[k], cc[k], v[k]);
     }
   }
+}
+
+// Whether rows of W floats behind these plane pointers start on 16-byte
+// boundaries, so that a tile's rows load and store as Vec4.
+inline bool rows_aligned(int W, const void* const* planes, int n) {
+  unsigned long long bits = (unsigned long long)W % 4;
+  for (int k = 0; k < n; ++k) bits |= (unsigned long long)planes[k] % 16;
+  return bits == 0;
 }
 
 #ifdef __CUDACC__

@@ -60,7 +60,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu", "median5.cu",
             "homogeneity.cu", "decision.cu")
-_HEADERS = ("median5.cuh", "median5_columns.cuh", "ahd_lab.cuh", "tile_loops.cuh")
+_HEADERS = ("median5_columns.cuh", "ahd_lab.cuh", "tile_loops.cuh")
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
 NVCC_FLAGS = (

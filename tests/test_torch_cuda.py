@@ -467,10 +467,25 @@ def test_corrections_pipeline_with_the_kernels_against_plain(cuda):
 # --- the staged AHD route's kernels: median5, homogeneity count, direction pick --------
 
 STAGED_SHAPES = [(512, 768), (203, 330), (33, 70), (3, 5)]
+# The median5 kernel's 16x64 and the homogeneity kernel's 32x64 tiles: blocks on the 16-byte path
+# beside edge blocks (100x260), rows off the 16-byte alignment, planes one
+# pixel wide or high.
+TILE_SHAPES = [(100, 260), (97, 203), (130, 190), (1, 7), (7, 1)]
 MAX_PICK_FLIPS = 5e-4   # picks that flip at exact ties through cbrtf (0.05%)
 
 
-@pytest.mark.parametrize("shape", STAGED_SHAPES + [(1, 1)])
+def _unaligned(planes, cuda):
+    """Copies of (H, W) planes that start 4 bytes past a 16-byte boundary."""
+    h, w = planes[0].shape
+    store = torch.empty(len(planes) * h * w + 1, device=cuda)
+    out = store[1:].view(len(planes), h, w)
+    for dst, src in zip(out, planes):
+        dst.copy_(src)
+    assert out.data_ptr() % 16 != 0
+    return list(out)
+
+
+@pytest.mark.parametrize("shape", STAGED_SHAPES + [(1, 1)] + TILE_SHAPES)
 def test_median5_kernel_bit_exact(cuda, shape):
     from pysp_tpu_torch.ops.stencil import median5
 
@@ -479,14 +494,21 @@ def test_median5_kernel_bit_exact(cuda, shape):
     before = K.median5_kernel_launches
     got = K.median5_kernel(x)
     assert K.median5_kernel_launches == before + 1
-    if min(shape) >= 2:     # the plain version's replicate pad needs 2 px
-        assert torch.equal(got, median5(x))
-    else:
-        assert torch.equal(got, x)
+    assert torch.equal(got, median5(x))
+
+
+def test_median5_kernel_unaligned_plane(cuda):
+    """A plane off the 16-byte alignment takes the path without 16-byte
+    accesses and gives the plain median."""
+    from pysp_tpu_torch.ops.stencil import median5
+
+    rgb = torch.from_numpy(make_scene(100, 260, seed=3)).to(cuda)
+    (x,) = _unaligned([rgb[..., 0] - rgb[..., 1]], cuda)
+    assert torch.equal(K.median5_kernel(x), median5(x))
 
 
 @pytest.mark.parametrize("is_vertical", [False, True])
-@pytest.mark.parametrize("shape", STAGED_SHAPES)
+@pytest.mark.parametrize("shape", STAGED_SHAPES + TILE_SHAPES)
 def test_homogeneity_kernel_bit_exact(cuda, shape, is_vertical):
     from pysp_tpu_torch.colorimetry.transforms import rgb_to_lab_channels
     from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
@@ -496,6 +518,19 @@ def test_homogeneity_kernel_bit_exact(cuda, shape, is_vertical):
     before = K.homogeneity_kernel_launches
     got = K.homogeneity_kernel(lum, a, b, is_vertical)
     assert K.homogeneity_kernel_launches == before + 1
+    assert torch.equal(got, homogeneity_map_channels(lum, a, b, is_vertical))
+
+
+@pytest.mark.parametrize("is_vertical", [False, True])
+def test_homogeneity_kernel_unaligned_planes(cuda, is_vertical):
+    """Planes off the 16-byte alignment take the path without 16-byte
+    accesses and give the plain count."""
+    from pysp_tpu_torch.colorimetry.transforms import rgb_to_lab_channels
+    from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
+
+    rgb = torch.from_numpy(make_scene(100, 260, seed=5)).to(cuda)
+    lum, a, b = _unaligned(rgb_to_lab_channels(*rgb.unbind(-1)), cuda)
+    got = K.homogeneity_kernel(lum, a, b, is_vertical)
     assert torch.equal(got, homogeneity_map_channels(lum, a, b, is_vertical))
 
 

@@ -8,7 +8,8 @@ sources with a small header that maps the CUDA names to that schedule (the
 launchers sit under ``#ifdef __CUDACC__`` and drop out), and the result is held
 against the plain PyTorch versions on CPU tensors with the card's tolerances.
 Shared memory starts filled with NaN, so a read of a cell no stage wrote shows
-up in the output. With one thread, ``__syncthreads_or`` returns that thread's
+up in the output, and a 16-byte access off its alignment traps, as it faults on
+the card. With one thread, ``__syncthreads_or`` returns that thread's
 own predicate, which it took over the whole block.
 
 This checks indexing, halos, buffer reuse and the order of operations. The
@@ -156,23 +157,30 @@ void emulate(const float* chan, const void* mask, const float* means, float* out
 #elif defined(EMULATE_MEDIAN5)
 static void run_median5(void* p) {
   Args* a = (Args*)p;
-  median5_kernel(a->a, a->x, a->H, a->W);
+  median5_kernel(a->a, a->x, a->H, a->W, a->flags);
 }
 void emulate(const float* x, float* out, int H, int W) {
   Args a{};
   a.a = x; a.x = out; a.H = H; a.W = W;
-  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_median5, &a);
+  const void* const planes[2] = {x, out};
+  a.flags = (int)rows_aligned(W, planes, 2);
+  each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_median5, &a);
 }
 #elif defined(EMULATE_HOMOGENEITY)
 static void run_homogeneity(void* p) {
   Args* a = (Args*)p;
-  homogeneity_kernel(a->a, a->b, a->c, a->x, a->H, a->W, a->s);
+  if (a->s)
+    homogeneity_kernel<true>(a->a, a->b, a->c, a->x, a->H, a->W, a->flags);
+  else
+    homogeneity_kernel<false>(a->a, a->b, a->c, a->x, a->H, a->W, a->flags);
 }
 void emulate(const float* lum, const float* la, const float* lb, float* out, int H,
              int W, int vertical) {
   Args a{};
   a.a = lum; a.b = la; a.c = lb; a.x = out; a.H = H; a.W = W; a.s = vertical;
-  each_block(cdiv(W, kTile), cdiv(H, kTile), 1, run_homogeneity, &a);
+  const void* const planes[4] = {lum, la, lb, out};
+  a.flags = (int)rows_aligned(W, planes, 4);
+  each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_homogeneity, &a);
 }
 #elif defined(EMULATE_DECISION)
 static void run_decision(void* p) {
@@ -213,9 +221,12 @@ def _build(tmp_path_factory, source: str, define: str | None, n_ptrs: int,
     driver = out / "driver.cpp"
     driver.write_text(DRIVER)
     lib = out / f"{source}.so"
+    # A load or store through a pointer off its type's alignment (a 16-byte
+    # Vec4 access to a plane whose rows are not 16-byte aligned) traps, as it
+    # faults on the card.
     cmd = ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
-           "-fno-strict-aliasing",
-           f"-I{K.CSRC}", f'-DKERNEL_SOURCE="{K.CSRC / source}"',
+           "-fno-strict-aliasing", "-fsanitize=alignment",
+           "-fsanitize-undefined-trap-on-error", f"-I{K.CSRC}", f'-DKERNEL_SOURCE="{K.CSRC / source}"',
            "-o", str(lib), str(driver)]
     if define:
         cmd.insert(1, f"-D{define}")
@@ -597,6 +608,12 @@ def test_heal_source_tiling(heal_lib, shape, kind, sweeps):
 # Whole tiles, tiles that overhang the plane on both axes, and planes smaller
 # than the windows.
 SMALL_SHAPES = [(64, 96), (37, 50), (33, 70), (3, 5), (2, 2)]
+# The median5 kernel's 16x64 and the homogeneity kernel's 32x64 tiles: blocks
+# free of border code beside edge blocks on every side (100x260), rows off the
+# 16-byte alignment (97x203, 130x190: no block takes the 16-byte path), and
+# planes one pixel wide or high, where both neighbours of a direction clamp to
+# one cell and the median's window repeats one column or row five times.
+TILE_SHAPES = [(100, 260), (97, 203), (130, 190), (1, 1), (1, 7), (7, 1)]
 
 
 @pytest.fixture(scope="module")
@@ -624,40 +641,93 @@ def _set_corners(plane: torch.Tensor, values) -> torch.Tensor:
     return plane
 
 
-@pytest.mark.parametrize("shape", SMALL_SHAPES)
+def _chroma_plane(h, w, seed, pad=0):
+    """R - G of a scene with outlier corners; ``pad`` floats shift the plane's
+    start off its 16-byte alignment."""
+    rgb = torch.from_numpy(make_scene(h, w, seed=seed))
+    store = torch.zeros(h * w + pad)
+    x = store[pad:].view(h, w)
+    x.copy_(rgb[..., 0] - rgb[..., 1])
+    return _set_corners(x, (1.5, -1.5, -1.0, 1.0))
+
+
+@pytest.mark.parametrize("shape", SMALL_SHAPES + TILE_SHAPES)
 def test_median5_source_bit_exact(median5_lib, shape):
+    """The median's device code equals the plain network bit for bit. Each of
+    these mutants of the source fails here: the strip's window started one
+    row off, the edge blocks' clamp replaced by a reflect, the 16-byte halo
+    load shifted by one quad."""
     from pysp_tpu_torch.ops.stencil import median5
 
     h, w = shape
-    rgb = torch.from_numpy(make_scene(h, w, seed=h + w))
-    x = _set_corners((rgb[..., 0] - rgb[..., 1]).contiguous(), (1.5, -1.5, -1.0, 1.0))
+    x = _chroma_plane(h, w, seed=h + w)
     out = torch.full_like(x, float("nan"))
     median5_lib.emulate(_ptr(x), _ptr(out), h, w)
     assert torch.equal(out, median5(x))
 
 
-def _lab_planes(h, w, seed):
+def test_median5_source_unaligned_plane(median5_lib):
+    """A plane that starts off a 16-byte boundary takes the path without
+    16-byte accesses and gives the plain median."""
+    from pysp_tpu_torch.ops.stencil import median5
+
+    h, w = 100, 260
+    x = _chroma_plane(h, w, seed=3, pad=1)
+    assert x.data_ptr() % 16 != 0
+    out = torch.full_like(x, float("nan"))
+    median5_lib.emulate(_ptr(x), _ptr(out), h, w)
+    assert torch.equal(out, median5(x))
+
+
+def _lab_planes(h, w, seed, pad=0):
+    """CIELAB planes of a scene with outlier corners; ``pad`` floats shift the
+    planes' start off their 16-byte alignment."""
     from pysp_tpu_torch.colorimetry.transforms import rgb_to_lab_channels
 
     rgb = torch.from_numpy(make_scene(h, w, seed=seed))
-    lum, a, b = (p.contiguous() for p in rgb_to_lab_channels(*rgb.unbind(-1)))
+    store = torch.zeros(3 * h * w + pad)
+    lum, a, b = store[pad:].view(3, h, w)
+    for dst, src in zip((lum, a, b), rgb_to_lab_channels(*rgb.unbind(-1))):
+        dst.copy_(src)
     _set_corners(lum, (90.0, 5.0, 60.0, 20.0))
     _set_corners(a, (40.0, -40.0, 25.0, -25.0))
     return lum, a, b
 
 
+def _homogeneity_emulated(homogeneity_lib, lum, a, b, is_vertical):
+    h, w = lum.shape
+    out = torch.full_like(lum, float("nan"))
+    homogeneity_lib.emulate(_ptr(lum), _ptr(a), _ptr(b), _ptr(out), h, w, int(is_vertical))
+    return out
+
+
 @pytest.mark.parametrize("is_vertical", [False, True])
-@pytest.mark.parametrize("shape", SMALL_SHAPES + [(1, 7)])
+@pytest.mark.parametrize("shape", SMALL_SHAPES + TILE_SHAPES)
 def test_homogeneity_source_bit_exact(homogeneity_lib, shape, is_vertical):
+    """The count's device code equals the plain count bit for bit. Each of
+    these mutants of the source fails here: the 16-byte halo load shifted by
+    one row, the edge blocks' clamp replaced by a reflect, the run's window
+    read one column off."""
     from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 
     h, w = shape
     lum, a, b = _lab_planes(h, w, seed=h)
-    out = torch.full_like(lum, float("nan"))
-    homogeneity_lib.emulate(_ptr(lum), _ptr(a), _ptr(b), _ptr(out), h, w, int(is_vertical))
+    out = _homogeneity_emulated(homogeneity_lib, lum, a, b, is_vertical)
     want = homogeneity_map_channels(lum, a, b, is_vertical)
     assert torch.equal(out, want)
     assert 3.0 <= float(out.min()) and float(out.max()) <= 9.0
+
+
+@pytest.mark.parametrize("is_vertical", [False, True])
+def test_homogeneity_source_unaligned_planes(homogeneity_lib, is_vertical):
+    """Planes that start off a 16-byte boundary take the path without 16-byte
+    accesses and give the plain count."""
+    from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
+
+    lum, a, b = _lab_planes(100, 260, seed=5, pad=1)
+    assert lum.data_ptr() % 16 != 0
+    out = _homogeneity_emulated(homogeneity_lib, lum, a, b, is_vertical)
+    assert torch.equal(out, homogeneity_map_channels(lum, a, b, is_vertical))
 
 
 # Picks may differ from the plain version's where the box sums tie and cbrtf

@@ -2,8 +2,9 @@
 
 Every op here is bit-exact: the pads move data, the correlations and box sums
 take their taps in the JAX package's order with float32 products and sums, and
-a median is a selection. The CUDA kernels' median network (csrc/median5.cuh)
-is checked against the network the JAX package builds.
+a median is a selection. The CUDA kernels' median networks
+(csrc/median5_columns.cuh) are checked against the networks the JAX package
+builds.
 """
 import re
 from pathlib import Path
@@ -20,7 +21,8 @@ from pysp_tpu_torch.ops import stencil as T
 torch.set_num_threads(1)
 
 SHAPES = [(16, 20), (13, 9), (2, 3, 24, 18)]
-MEDIAN5_CUH = Path(T.__file__).resolve().parent.parent / "csrc" / "median5.cuh"
+MEDIAN5_COLUMNS_CUH = (Path(T.__file__).resolve().parent.parent / "csrc"
+                       / "median5_columns.cuh")
 
 
 def _field(shape, seed=0):
@@ -76,21 +78,24 @@ def test_filter2d_phase_kernels_bit_exact(position, border):
         np.testing.assert_array_equal(got, want)
 
 
-def _cuh_network():
-    ops = re.findall(r"^\s*MED5_(CMP|MIN|MAX)\((\d+), (\d+)\);", MEDIAN5_CUH.read_text(), re.M)
-    return [(kind.lower(), int(i), int(j)) for kind, i, j in ops]
+def _cuh_function(name):
+    """The compare-exchanges of one network of median5_columns.cuh, in order,
+    and the wires its outputs are read from ({output index: wire})."""
+    text = MEDIAN5_COLUMNS_CUH.read_text()
+    body = re.search(r"void " + name + r"\(.*?\n}\n", text, re.S).group(0)
+    ops = [(kind.lower(), int(i), int(j)) for kind, i, j in
+           re.findall(r"^\s*MED5_(CMP|MIN|MAX)\((\d+), (\d+)\);", body, re.M)]
+    outs = {int(k): int(i) for k, i in re.findall(r"^\s*\w+\[(\d+)\] = w\[(\d+)\];", body, re.M)}
+    return ops, outs
 
 
-def test_median5_cuh_is_the_pruned_batcher_network():
-    ops, target, _ = J._median_network(25)
-    assert target == 12
-    assert _cuh_network() == list(ops)
-
-
-def test_median5_cuh_network_selects_the_median():
-    values = np.random.default_rng(6).integers(0, 7, (25, 4000)).astype(np.float32)
-    w = list(values)
-    for kind, i, j in _cuh_network():
+def _run_network(name, wires):
+    """One network of median5_columns.cuh on numpy arrays, as the header runs
+    it on floats: fminf and fmaxf are np.minimum and np.maximum on these
+    values (no NaN)."""
+    ops, outs = _cuh_function(name)
+    w = list(wires)
+    for kind, i, j in ops:
         a, b = w[i], w[j]
         if kind == "cmp":
             w[i], w[j] = np.minimum(a, b), np.maximum(a, b)
@@ -98,4 +103,77 @@ def test_median5_cuh_network_selects_the_median():
             w[i] = np.minimum(a, b)
         else:
             w[j] = np.maximum(a, b)
-    np.testing.assert_array_equal(w[12], np.median(values, axis=0))
+    return [w[outs[k]] for k in sorted(outs)] if outs else w
+
+
+def _sorted_fields(n, seed, ties):
+    """n sorted fields (n, 6, 7): random floats or small integers (ties)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 4, (n, 6, 7)) if ties else rng.random((n, 6, 7))
+    return np.sort(x.astype(np.float32), axis=0)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("network", ["sort5", "merge5x5", "merge10x10_mid"])
+def test_median5_columns_networks_are_the_jax_packages(network, ties):
+    """sort5, merge5x5 and merge10x10_mid of median5_columns.cuh give the JAX
+    package's sort5, merge_sorted and merge_sorted(ranks=_Q_RANKS) outputs bit
+    for bit, on random floats and on integer ties."""
+    if network == "sort5":
+        x = np.random.default_rng(7).integers(0, 4, (5, 6, 7)).astype(np.float32) if ties \
+            else np.random.default_rng(7).random((5, 6, 7)).astype(np.float32)
+        got, want = _run_network("sort5", list(x)), J.sort5([jnp.asarray(v) for v in x])
+        assert len(got) == 5
+    elif network == "merge5x5":
+        a, b = _sorted_fields(5, 8, ties), _sorted_fields(5, 9, ties)
+        got = _run_network("merge5x5", list(a) + list(b))
+        want = J.merge_sorted([jnp.asarray(v) for v in a], [jnp.asarray(v) for v in b])
+        assert len(got) == 10
+    else:
+        a, b = _sorted_fields(10, 10, ties), _sorted_fields(10, 11, ties)
+        got = _run_network("merge10x10_mid", list(a) + list(b))
+        picked = J.merge_sorted([jnp.asarray(v) for v in a], [jnp.asarray(v) for v in b],
+                                ranks=J._Q_RANKS)
+        want = [picked[r] for r in sorted(J._Q_RANKS)]
+        assert len(got) == 6
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w_))
+
+
+def _median5_strip(window):
+    """median5_strip<N> of median5_columns.cuh in numpy on a (5, N + 4, ...)
+    window (rows, columns): the N medians of its 5x5 windows."""
+    text = MEDIAN5_COLUMNS_CUH.read_text()
+    for line in ("for (int c = 0; c < N + 4; ++c) sort5(col[c]);",
+                 "for (int c = 0; c < N + 2; ++c) merge5x5(col[c], col[c + 1], pair[c]);",
+                 "merge10x10_mid(pair[j], pair[j + 2], q);",
+                 "med[j] = median_of_20_and_5(q, col[j + 4]);",
+                 "t = fmaxf(t, fminf(q[1 + k], side[4 - k]));"):
+        assert line in text
+    n = window.shape[1] - 4
+    cols = [_run_network("sort5", list(window[:, c])) for c in range(n + 4)]
+    pairs = [_run_network("merge5x5", cols[c] + cols[c + 1]) for c in range(n + 2)]
+    med = []
+    for j in range(n):
+        q = _run_network("merge10x10_mid", pairs[j] + pairs[j + 2])
+        t = q[0]
+        for k in range(5):
+            t = np.maximum(t, np.minimum(q[1 + k], cols[j + 4][4 - k]))
+        med.append(t)
+    return med
+
+
+@pytest.mark.parametrize("strip", [4, 8])
+@pytest.mark.parametrize("values", ["integer_ties", "floats"])
+def test_median5_strip_selects_the_median(values, strip):
+    """median5_strip's medians of a 5 x (N + 4) window are np.median of its N
+    5x5 windows, in the strips of four of the AHD and postprocess kernels and
+    the strips of eight of the median5 kernel, on small integers (many ties)
+    and on random floats."""
+    rng = np.random.default_rng(6)
+    shape = (5, strip + 4, 1000)
+    window = (rng.integers(0, 7, shape) if values == "integer_ties"
+              else rng.random(shape)).astype(np.float32)
+    for j, got in enumerate(_median5_strip(window)):
+        want = np.median(window[:, j:j + 5].reshape(25, -1), axis=0)
+        np.testing.assert_array_equal(got, want)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Times and checks the AHD, RL, postprocess, remap, heal and AHD decision
-kernels of pysp_tpu_torch on one NVIDIA GPU, for one or more builds of the
-kernel sources inside one process, so that two versions are compared on the
-same card within one call.
+"""Times and checks the AHD, RL, postprocess, remap, heal, AHD decision, 5x5
+median and homogeneity kernels of pysp_tpu_torch on one NVIDIA GPU, for one or
+more builds of the kernel sources inside one process, so that two versions are
+compared on the same card within one call.
 
     python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
-                                  [--kernels ahd,rl,postprocess,remap,heal,decision]
+                                  [--kernels ahd,rl,postprocess,remap,heal,decision,
+                                             median5,homogeneity]
                                   [--no-check]
 
 Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
@@ -14,7 +15,7 @@ holds another version of the sources (default: the package's own ``csrc``).
 Without ``--variant`` the package's own build is the only one. The variants
 are visited in the order given and then once more in reverse (a, b, b, a).
 
-``--kernels`` keeps the named groups only (default: all six).
+``--kernels`` keeps the named groups only (default: all eight).
 
 For every variant it prints the ptxas lines of the chosen kernels and holds
 them against their plain versions: the AHD kernel over the whole frame at
@@ -29,8 +30,12 @@ float64, beside the plain version's own error against float64) and on a random
 map; the heal kernel against ``heal_plain`` on ``heal_case`` planes at
 256x384, 253x381, 3x5 and 1x1 (``torch.equal``); the decision kernel's picks
 against ``ahd_decision_plain`` at 512x768 and 510x762, HDR and not (the share
-that differ). For the decision group it also prints the innermost loops of
-the kernel's SASS with their instruction counts (``tools/sass_count.py``).
+that differ); the median5 kernel against ``ops.stencil.median5`` and the
+homogeneity kernel (both directions) against ``homogeneity_map_channels`` at
+``STAGED_SHAPES``, from 512x768 down to 1x1, with rows on and off the 16-byte
+alignment (``torch.equal``). For the decision group it also prints the
+innermost loops of the kernel's SASS with their instruction counts
+(``tools/sass_count.py``).
 Then it prints one JSON line with the times at 4000x6000 (CUDA events, median
 of 10 after 2 warm-ups) and a SHA-256 of each output, so that two variants can
 be compared bit for bit: the AHD kernel with 0, 1 and 2 stages and the fused
@@ -43,7 +48,10 @@ detector's masks of a frame with 500 planted hot photosites and with a random
 mask at density 1e-2, each as the whole ``heal_kernel`` call, its
 ``torch.mean`` alone and the kernel's launch alone, the launch with no site
 at all (the copy alone) and, as a yardstick for that copy, ``torch``'s own
-copy of the planes; the pick of a frame's six candidate fields, HDR and not.
+copy of the planes; the pick of a frame's six candidate fields, HDR and not;
+the 5x5 median of the R - G plane of the frame's demosaic; the homogeneity
+count of the CIELAB planes of its horizontal candidate, both directions, and,
+as a yardstick for its bytes, ``torch``'s own copy of those three planes.
 """
 
 from __future__ import annotations
@@ -71,8 +79,10 @@ from pysp_tpu_torch.demosaic.ahd import (  # noqa: E402
     ahd_decision_plain,
     postprocess_color_channels,
 )
+from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels  # noqa: E402
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
 from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
+from pysp_tpu_torch.ops.stencil import median5  # noqa: E402
 from pysp_tpu_torch.utils.testing import (  # noqa: E402
     chroma_case,
     heal_case,
@@ -88,7 +98,7 @@ from pysp_tpu_torch.warp.rectilinear import (  # noqa: E402
 CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
 WB = np.array([0.45, 1.0, 0.62], np.float32)
 FULL = (4000, 6000)
-GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision")
+GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision", "median5", "homogeneity")
 # The lens warp of the finishing path: about 11 px at the corners of 4000x6000.
 WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
 WARP_CENTER = (0.5, 0.5)
@@ -99,6 +109,12 @@ LANCZOS4_F64_SLACK = 1e-6
 HEAL_SWEEPS = (4, 2)
 HEAL_DENSE = 1e-2
 MAX_PICK_FLIPS = 5e-4   # picks that cbrtf may flip at exact ties (0.05%)
+# The median5 and homogeneity kernels' checks: whole tiles and tiles that
+# overhang, planes with interior blocks on the 16-byte path (100x260), rows
+# off the 16-byte alignment (509x763, 97x203, 130x190), and planes thinner
+# than the windows.
+STAGED_SHAPES = ((512, 768), (509, 763), (100, 260), (97, 203), (130, 190), (3, 5),
+                 (1, 7), (7, 1), (1, 1))
 BASE_FLAGS = K.NVCC_FLAGS
 BASE_CSRC = K.CSRC
 
@@ -280,6 +296,42 @@ def check_decision(name: str) -> bool:
     return ok
 
 
+def lab_case(h: int, w: int, seed: int):
+    """CIELAB planes of a noisy scene on the card, every corner of L and a an
+    outlier, as the homogeneity kernel's cases."""
+    from pysp_tpu_torch.colorimetry.transforms import rgb_to_lab_channels
+
+    rgb = torch.from_numpy(chroma_case(h, w, seed)).cuda().clamp(0, 1)
+    lum, a, b = (p.contiguous() for p in rgb_to_lab_channels(*rgb))
+    for (y, x), vl, va in zip(((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)),
+                              (90.0, 5.0, 60.0, 20.0), (40.0, -40.0, 25.0, -25.0)):
+        lum[y, x], a[y, x] = vl, va
+    return lum, a, b
+
+
+def check_median5(name: str) -> bool:
+    ok = True
+    for h, w in STAGED_SHAPES:
+        x = torch.from_numpy(chroma_case(h, w, seed=h + w)[0]).cuda()
+        same = torch.equal(K.median5_kernel(x), median5(x))
+        print(f"{name}: median5 {h}x{w}: bit-exact {same}", flush=True)
+        ok &= same
+    return ok
+
+
+def check_homogeneity(name: str) -> bool:
+    ok = True
+    for h, w in STAGED_SHAPES:
+        lab = lab_case(h, w, seed=h)
+        for vertical in (False, True):
+            same = torch.equal(K.homogeneity_kernel(*lab, vertical),
+                               homogeneity_map_channels(*lab, vertical))
+            print(f"{name}: homogeneity {h}x{w} vertical={vertical}: bit-exact {same}",
+                  flush=True)
+            ok &= same
+    return ok
+
+
 def print_decision_sass(name: str) -> None:
     """The innermost loops of the decision kernel's SASS, their counts, and the
     instructions a pick (``chip_smoke.decision_pick_instructions``)."""
@@ -323,6 +375,20 @@ def decision_state() -> dict:
         wb = f.wb_reciprocal()
         out[is_hdr] = ([x.contiguous() for x in ahd_candidates(f.bayer, wb)], mat, wb)
     return out
+
+
+def staged_state() -> dict:
+    """The median5 kernel's 24 MP input, the R - G plane of the frame's
+    demosaic, and the homogeneity kernel's, the CIELAB planes of the frame's
+    horizontal candidate (``chip_smoke.homogeneity_planes``)."""
+    from chip_smoke import homogeneity_planes
+
+    f = frame(*FULL, seed=7)
+    mat = cam_to_lin_srgb_matrix(f.cam_mat, f.cam_white)
+    wb = f.wb_reciprocal()
+    r, g, _ = K.ahd_plain(f.bayer, mat, wb, f.is_hdr, 0)
+    fields = ahd_candidates(f.bayer, wb)
+    return {"chroma": (r - g).contiguous(), "lab": homogeneity_planes(fields[:3], mat, wb)}
 
 
 def heal_launch(planes, masks, means, out, fill, smooth) -> None:
@@ -402,6 +468,25 @@ def times(name: str, state: dict, groups) -> dict:
             key = "decision_hdr" if is_hdr else "decision"
             out[f"{key}_ms"] = median_ms(lambda: K.decision_kernel(*fields, mat, wb, is_hdr))
             out[f"{key}_sha"] = digest(K.decision_kernel(*fields, mat, wb, is_hdr))
+    if "median5" in groups:
+        chroma = state["staged"]["chroma"]
+        out["median5_ms"] = median_ms(lambda: K.median5_kernel(chroma))
+        out["median5_sha"] = digest(K.median5_kernel(chroma))
+    if "homogeneity" in groups:
+        lab = state["staged"]["lab"]
+        for vertical in (False, True):
+            key = "homogeneity_v" if vertical else "homogeneity_h"
+            out[f"{key}_ms"] = median_ms(lambda: K.homogeneity_kernel(*lab, vertical))
+            out[f"{key}_sha"] = digest(K.homogeneity_kernel(*lab, vertical))
+        # a yardstick for its bytes: torch's own copy of the three input planes
+        # (576 MB moved where the kernel moves 384 MB)
+        src = torch.stack(lab)
+        dst = torch.empty_like(src)
+        copy_ms = median_ms(lambda: dst.copy_(src))
+        out["homogeneity_torch_copy_ms"] = copy_ms
+        out["homogeneity_tb_s"] = src[0].numel() * 16 / (out["homogeneity_h_ms"] * 1e9)
+        out["homogeneity_torch_copy_tb_s"] = 2 * src.numel() * 4 / (copy_ms * 1e9)
+        del src, dst
     return out
 
 
@@ -446,9 +531,12 @@ def main() -> int:
               f"{int(state['heal']['dense'].sum())} at density {HEAL_DENSE:g}", flush=True)
     if "decision" in groups:
         state["decision"] = decision_state()
+    if {"median5", "homogeneity"} & set(groups):
+        state["staged"] = staged_state()
     ok = True
     tags = {"ahd": "ahd_kernel", "rl": "rl_", "postprocess": "postprocess_kernel",
-            "remap": "remap_kernel", "heal": "heal", "decision": "decision_kernel"}
+            "remap": "remap_kernel", "heal": "heal", "decision": "decision_kernel",
+            "median5": "median5_kernel", "homogeneity": "homogeneity_kernel"}
     entry_tags = [tags[g] for g in groups]
     order = variants + variants[::-1] if len(variants) > 1 else variants
     builds = build_variants(variants)
@@ -471,7 +559,8 @@ def main() -> int:
                 print_decision_sass(name)
             checks = {"ahd": check_ahd, "rl": check_rl, "postprocess": check_postprocess,
                       "remap": lambda n: check_remap(n, state), "heal": check_heal,
-                      "decision": check_decision}
+                      "decision": check_decision, "median5": check_median5,
+                      "homogeneity": check_homogeneity}
             if not args.no_check:
                 for g in groups:
                     ok &= checks[g](name)
