@@ -43,7 +43,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
      non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
      ties that ``cbrtf`` flips), the fraction printed.
-3. Four main paths, each driven with every launch count set to 0 just before
+3. Five main paths, each driven with every launch count set to 0 just before
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
@@ -92,7 +92,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      1e-5 of the port's own develop of the same frame on the CPU, that the
      median equals its plain version and the picks their plain chain except on
      at most 0.05% of pixels, and that the CLI (``develop --quality fast``)
-     writes the same TIFF.
+     writes the same TIFF. BASELINE config 2 rides along: the same DNG through
+     ``controller_for_source -> update_by_temperature(5000 K, cross blend) ->
+     frame_from_parts -> develop(Fast)``, held like Fast and timed, its colour
+     fields printed, and ``develop --quality fast --temperature 5000`` through
+     the CLI writes the same TIFF.
+   - ca (BASELINE config 5): 16 RGGB DNGs of 1000x1504 (``make_scene``, seeds
+     0-15) with Poly3(0.01) CA planted into R and B through ``load_raw ->
+     stack_frames -> remove_ca_from_raw(Poly3(0.01), Poly3(0.01)) -> develop
+     (Best, 1 stage) -> apply_opcode_3_warp`` (Lanczos4) of every frame ->
+     ``save_image`` of the first and the last. Asserts the launches (remap
+     4 + 16, AHD 16, the others 0), that the CA stage equals the same stage
+     through ``remap_plain`` and the burst's CA the frames' one by one bit for
+     bit, that the R and B planes lie closer to the clean scene after the
+     correction, that every developed frame is finite, (H, W, 3) and within
+     [0, 1] (after the warp within Lanczos4's overshoot), and each >= 50 dB
+     against the same composition from the plain versions. Then the blind fits
+     on a 1000x1504 ring chart DNG (R displaced by Poly3(0.02), B by
+     Poly3(-0.01)): the template fit (R's k1 in (0.002, 0.08)) and the
+     gradient fit (R's k1 within 50% of 0.02), timed, and ``develop --ca
+     template --save-params`` then ``develop --params`` through the CLI, which
+     must fit and write the same TIFF.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
@@ -101,7 +121,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with a map for each channel), the whole develop, the
    whole finishing path, the two corrections pipelines and the three develops
    of the tiers path (the plain staged develop: median of 3 after 1), with
-   the device busy share of each path under ``torch.profiler``. The Best
+   the device busy share of each path under ``torch.profiler``. For the ca
+   path: one bilinear CA launch on the burst's (16, 1000, 1504) greens with
+   shared maps against its plain version, its bound and ``grid_sample``; the
+   AHD kernel on one 1.5 MP frame; config 5's CA stage, 16 develops, 16 warps
+   and the whole composition with the kernels and plain (median of 3 after 1),
+   with its idle share; then the composed 102 MP chain with the kernels
+   (8736x11648: hot-pixel detection and heal -> CA -> Best -> Lanczos4 warp),
+   each stage and the whole chain median of 3 after 1, the CA stage equal to
+   its plain version, the image finite and in range. The Best
    develop is timed five separate times with the kernels and five times
    plain, and each of the five must beat its plain one. Each kernel's bound is
    the larger of its bytes (each input read once, each output written once)
@@ -113,11 +141,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the four main paths
+kernel's ``launches`` there is the sum of its counts over the five main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -134,11 +163,17 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from pysp_tpu_torch import (
     PipelineConfig,
+    Poly3CorrectionModel,
     QualityDemosaic,
     RawFrame,
+    compute_ca_lens_models_for_raw,
+    compute_structural_instability,
     develop_pipeline,
     develop_to_image,
+    fit_ca_models_gradient,
+    frame_from_parts,
     load_raw,
+    remove_ca_from_raw,
     save_image,
     stack_frames,
 )
@@ -147,9 +182,17 @@ from pysp_tpu_torch.colorimetry.transforms import (
     lin_srgb_to_srgb,
     rgb_to_lab_channels,
 )
-from pysp_tpu_torch.core.bayer import bayer_to_planes, planes_to_bayer
+from pysp_tpu_torch.core.bayer import (
+    bayer_to_planes,
+    bayer_to_rgbg,
+    planes_to_bayer,
+    reversible_transform_rggb,
+)
 from pysp_tpu_torch.core.frame import unstack_frames
 from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median, repair_bad_pixels
+from pysp_tpu_torch.correct.ca import removal as ca_removal
+from pysp_tpu_torch.correct.ca import solver as ca_solver
+from pysp_tpu_torch.correct.ca.roi import PooledChannel, RoiDetector
 from pysp_tpu_torch.correct.flat_field import flat_frame_correction
 from pysp_tpu_torch.correct.hdr import fuse_exposures_to_raw
 from pysp_tpu_torch.demosaic.ahd import (
@@ -160,12 +203,15 @@ from pysp_tpu_torch.demosaic.ahd import (
     postprocess_color_channels,
 )
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, develop_channels_mega
+from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
 from pysp_tpu_torch.io.metadata import get_opcode_3_block
+from pysp_tpu_torch.io.raw_loader import controller_for_source
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
+from pysp_tpu_torch.ops.resample import remap_bilinear
 from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
 from pysp_tpu_torch.utils.testing import (
@@ -176,7 +222,9 @@ from pysp_tpu_torch.utils.testing import (
     make_scene,
     mosaic_rggb,
     psnr,
+    ring_chart,
 )
+from pysp_tpu_torch.warp import rectilinear
 from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
 from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
 
@@ -1040,6 +1088,19 @@ FAST_CFG = DevelopConfig(quality=QualityDemosaic.Fast)
 DRAFT_CFG = DevelopConfig(quality=QualityDemosaic.Draft)
 
 
+CONFIG2_KELVIN = 5000.0            # BASELINE config 2: WB from a colour temperature
+
+
+def frame_at_temperature(path: str, frame: RawFrame, kelvin: float) -> RawFrame:
+    """The frame rebuilt with the WB solved for ``kelvin``, as the CLI's
+    ``--temperature`` does: the source's controller, updated with the cross
+    blend, then ``frame_from_parts`` of the un-canonicalized mosaic."""
+    ctrl = controller_for_source(path, frame)
+    ctrl.update_by_temperature(kelvin, allow_cross_blend=True)
+    sensor = reversible_transform_rggb(frame.bayer, frame.source_pattern).cpu().numpy()
+    return frame_from_parts(sensor, frame.source_pattern, ctrl, float(frame.ev))
+
+
 def tiers_path(tmp: str):
     """Phase 3, tiers: the develop path's two DNGs through ``load_raw ->
     develop -> save_image`` at Best with three stages (the staged AHD route),
@@ -1048,7 +1109,7 @@ def tiers_path(tmp: str):
     counts and what phase 4 measures at these shapes."""
     paths = {name: os.path.join(tmp, f"{name}.dng") for name in ("rggb", "bggr")}
     tifs = {name: os.path.join(tmp, f"tiers_{name}.tif")
-            for name in ("staged", "fast", "draft", "bggr_fast")}
+            for name in ("staged", "fast", "draft", "bggr_fast", "config2")}
     zero_launch_counts()
     t0 = time.perf_counter()
     frame = load_raw(paths["rggb"])
@@ -1059,6 +1120,10 @@ def tiers_path(tmp: str):
     bggr = load_raw(paths["bggr"])
     outs["bggr_fast"] = develop(bggr, FAST_CFG)
     save_image(tifs["bggr_fast"], outs["bggr_fast"])
+    # BASELINE config 2: Fast with the WB solved for a colour temperature.
+    warm = frame_at_temperature(paths["rggb"], frame, CONFIG2_KELVIN)
+    outs["config2"] = develop(warm, FAST_CFG)
+    save_image(tifs["config2"], outs["config2"])
     # The two kernels that no develop calls (as in the JAX package), through
     # their entry points at the staged route's own shapes.
     demosaiced = develop_to_image(frame, STAGED_CFG).image
@@ -1089,7 +1154,7 @@ def tiers_path(tmp: str):
         raise AssertionError("the staged develop with the kernels differs from plain")
     # (b) Fast and Draft: plain PyTorch on the card against the same on the CPU.
     for name, f, cfg in (("fast", frame, FAST_CFG), ("draft", frame, DRAFT_CFG),
-                         ("bggr_fast", bggr, FAST_CFG)):
+                         ("bggr_fast", bggr, FAST_CFG), ("config2", warm, FAST_CFG)):
         out = outs[name]
         check_image(name, out, f.height, f.width)
         if os.path.getsize(tifs[name]) < f.height * f.width * 6:
@@ -1116,9 +1181,26 @@ def tiers_path(tmp: str):
     if err["flipped_picks"] > MAX_PICK_FLIPS:
         raise AssertionError("decision kernel at 24 MP outside the flip bound")
     del want, picks, chroma_median, outs
-    # (d) The CLI.
+    # (d) Config 2's frame and times, and the CLI.
+    rebuild_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame_at_temperature(paths["rggb"], frame, CONFIG2_KELVIN)
+        torch.cuda.synchronize()
+        rebuild_s.append(time.perf_counter() - t0)
+    config2_ms = median_ms(lambda: develop(warm, FAST_CFG))
+    log(f"config 2 ({CONFIG2_KELVIN:g} K, cross blend): cam_mat "
+        f"{np.round(warm.cam_mat.cpu().numpy(), 6).tolist()}, cam_white "
+        f"{np.round(warm.cam_white.cpu().numpy(), 6).tolist()}, wb_neutral "
+        f"{np.round(warm.wb_neutral.cpu().numpy(), 6).tolist()} (as shot "
+        f"{np.round(frame.wb_neutral.cpu().numpy(), 6).tolist()}); controller_for_source -> "
+        f"update_by_temperature -> frame_from_parts {statistics.median(rebuild_s):.3f} s "
+        f"host clock (median of 3), develop Fast {config2_ms:.3f} ms (CUDA events, median "
+        f"of 10)")
     run_cli([paths["rggb"], "--quality", "fast"], tifs["fast"],
             os.path.join(tmp, "tiers_fast_cli.tif"))
+    run_cli([paths["rggb"], "--quality", "fast", "--temperature", str(CONFIG2_KELVIN)],
+            tifs["config2"], os.path.join(tmp, "tiers_config2_cli.tif"))
     return launches, frame, chroma, fields, err
 
 
@@ -1532,6 +1614,359 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
     ]
 
 
+# --- the ca path: BASELINE config 5, the blind fits, the composed 102 MP chain -------
+
+CA_H, CA_W = 1000, 1504            # config 5's burst (bench.py)
+CA_FRAMES = 16
+CA_K1 = 0.01                       # the Poly3 CA planted into R and B and removed
+CA_WARP = [(1.005, -0.01, 0.002, 0.0, 0.0003, -0.0002)] * 3
+CA_CFG = DevelopConfig(quality=QualityDemosaic.Best, postprocess_stages=1)
+CA_PLAIN_CFG = DevelopConfig(quality=QualityDemosaic.Best, postprocess_stages=1,
+                             use_pallas=False)
+CA_MARGIN = 16                     # plane sites left out at the border of the alignment error
+RING_K1 = {"R": 0.02, "B": -0.01}  # the blind fits' ring chart
+CHAIN_H, CHAIN_W = 8736, 11648     # the composed 102 MP chain
+
+
+@contextlib.contextmanager
+def plain_remaps():
+    """The CA removal and the lens warp with the remap kernel's plain version
+    in its place; the launch counts do not move."""
+    saved = ca_removal.remap_kernel, rectilinear.remap_kernel
+    ca_removal.remap_kernel = rectilinear.remap_kernel = K.remap_plain
+    try:
+        yield
+    finally:
+        ca_removal.remap_kernel, rectilinear.remap_kernel = saved
+
+
+def plant_ca(plane: torch.Tensor, k1: float) -> torch.Tensor:
+    """``plane`` sampled through Poly3(k1)'s inverse coordinate field (as
+    tests/test_ca.py plants CA): the displacement that Poly3(k1) removes."""
+    h, w = plane.shape
+    coords = Poly3CorrectionModel(k1).get_undistorted_coordinates(plane)
+    return remap_bilinear(plane, *ca_removal._maps_from_offsets(coords, h, w))
+
+
+def ca_mosaic(rgb: np.ndarray, k_r: float, k_b: float) -> np.ndarray:
+    """The RGGB mosaic of ``rgb`` with R displaced by Poly3(k_r) and B by
+    Poly3(k_b), planted on the card."""
+    planes = torch.from_numpy(np.ascontiguousarray(rgb.transpose(2, 0, 1))).to(DEVICE)
+    out = torch.stack([plant_ca(planes[0], k_r), planes[1], plant_ca(planes[2], k_b)], -1)
+    return mosaic_rggb(out.cpu().numpy())
+
+
+def dng_bytes(mosaic: np.ndarray) -> bytes:
+    return write_synthetic_dng(np.ascontiguousarray(200 + mosaic * 3800).astype(np.uint16))
+
+
+def ca_composition(burst: RawFrame, block: bytes):
+    """Config 5 after the load: CA removal over the burst, then each frame's
+    Best develop (one stage) and lens warp (Lanczos4). Returns the corrected
+    burst, the developed images and the warped ones."""
+    model = Poly3CorrectionModel(CA_K1)
+    corrected = remove_ca_from_raw(burst, model, model)
+    devs = [develop(f, CA_CFG) for f in unstack_frames(corrected)]
+    return corrected, devs, [apply_opcode_3_warp(img, block) for img in devs]
+
+
+def ca_composition_plain(burst: RawFrame, block: bytes):
+    """The same composition from the plain versions on the card."""
+    model = Poly3CorrectionModel(CA_K1)
+    with plain_remaps():
+        corrected = remove_ca_from_raw(burst, model, model)
+        return [apply_opcode_3_warp(develop(f, CA_PLAIN_CFG), block)
+                for f in unstack_frames(corrected)]
+
+
+def check_warped(name: str, dev: torch.Tensor, out: torch.Tensor, h: int, w: int) -> None:
+    """The developed image within [0, 1]; the warped one finite, (H, W, 3)
+    and within Lanczos4's overshoot of [0, 1] (the TIFF writer clips)."""
+    check_image(f"{name} before the warp", dev, h, w)
+    if tuple(out.shape) != (h, w, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: warped image {tuple(out.shape)} is not finite (H, W, 3)")
+    ring = lanczos4_overshoot()
+    lo, hi = out.min().item(), out.max().item()
+    if lo < -ring or hi > 1.0 + ring:
+        raise AssertionError(f"{name}: warped image outside [-{ring}, 1 + {ring}]: [{lo}, {hi}]")
+
+
+def plane_error(bayer: torch.Tensor, clean: torch.Tensor, plane: int) -> float:
+    """Mean absolute error of a CFA plane against the clean scene's, inside a
+    margin of CA_MARGIN sites."""
+    m = CA_MARGIN
+    d = bayer_to_planes(bayer)[..., plane, m:-m, m:-m] - bayer_to_planes(clean)[..., plane, m:-m, m:-m]
+    return d.abs().mean().item()
+
+
+def ca_path(tmp: str):
+    """Phase 3, ca: config 5 (16 DNGs with planted CA -> stack -> CA removal ->
+    Best develop -> lens warp -> TIFF), the blind template and gradient fits
+    on a ring chart with their CLI round trip, and the composed 102 MP chain.
+    Returns the launch counts of config 5 and what phase 4 measures."""
+    block = encode_warp_rectilinear(CA_WARP, (0.5, 0.5))
+    model = Poly3CorrectionModel(CA_K1)
+    paths, clean = [], []
+    for seed in range(CA_FRAMES):
+        rgb = make_scene(CA_H, CA_W, seed=seed)
+        clean.append(mosaic_rggb(rgb))
+        paths.append(os.path.join(tmp, f"ca{seed}.dng"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(dng_bytes(ca_mosaic(rgb, CA_K1, CA_K1)))
+    tifs = [os.path.join(tmp, f"ca{k}.tif") for k in (0, CA_FRAMES - 1)]
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    burst = stack_frames([load_raw(p) for p in paths])
+    corrected, devs, outs = ca_composition(burst, block)
+    save_image(tifs[0], outs[0])
+    save_image(tifs[1], outs[-1])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"ca path, config 5 ({CA_FRAMES} DNGs {CA_H}x{CA_W} -> load_raw -> stack_frames -> "
+        f"remove_ca_from_raw(Poly3({CA_K1}) x2) -> develop Best 1 stage -> lens warp "
+        f"{CA_WARP[0]} -> save_image of frames 0 and {CA_FRAMES - 1}): {seconds:.3f} s host "
+        f"clock, kernel launches {launches}")
+    if burst.bayer.device.type != DEVICE:
+        raise AssertionError("load_raw / stack_frames did not put the burst on the card")
+    expect_launches("ca", launches, remap=4 + CA_FRAMES, ahd=CA_FRAMES)
+
+    # (a) The CA stage with the kernel is its plain version, bit for bit.
+    with plain_remaps():
+        plain = remove_ca_from_raw(burst, model, model).bayer
+    same = torch.equal(corrected.bayer, plain)
+    log(f"CA stage ({CA_FRAMES}x{CA_H}x{CA_W}) with the remap kernel vs remap_plain on the "
+        f"card: bit-exact {same}")
+    if not same:
+        raise AssertionError("the CA stage with the remap kernel differs from plain")
+    # (b) The burst's CA is the frames' one by one.
+    frames = unstack_frames(burst)
+    same = all(torch.equal(remove_ca_from_raw(f, model, model).bayer, c)
+               for f, c in zip(frames, corrected.bayer))
+    log(f"CA over the burst in one launch a remap vs frame by frame: equal {same}")
+    if not same:
+        raise AssertionError("the burst's CA differs from the frames' one by one")
+    # (c) R and B realign with the clean scene.
+    clean_t = (200 + torch.from_numpy(np.stack(clean)).to(DEVICE) * 3800 - 256) / 4095
+    for name, plane in (("R", 0), ("B", 2)):
+        before = plane_error(burst.bayer, clean_t, plane)
+        after = plane_error(corrected.bayer, clean_t, plane)
+        log(f"{name} planes against the clean scene, mean abs error inside {CA_MARGIN} "
+            f"sites: {before:.6f} before, {after:.6f} after CA removal (ratio "
+            f"{after / before:.4f})")
+        if not after < before:
+            raise AssertionError(f"CA removal did not realign the {name} planes")
+    del clean_t, plain
+    # (d) The images, and (e) each against the plain composition.
+    for k, (dev, out) in enumerate(zip(devs, outs)):
+        check_warped(f"config 5 frame {k}", dev, out, CA_H, CA_W)
+    for tif in tifs:
+        if os.path.getsize(tif) < CA_H * CA_W * 6:
+            raise AssertionError(f"{tif} is too short")
+    want = ca_composition_plain(burst, block)
+    worst = min(psnr(o.double().cpu().numpy(), w_.double().cpu().numpy())
+                for o, w_ in zip(outs, want))
+    log(f"config 5: every frame against the plain composition on the card >= {worst:.2f} dB")
+    if worst < MIN_PSNR:
+        raise AssertionError(f"a config 5 frame is {worst:.2f} dB from the plain composition")
+    del want, devs, outs, corrected
+
+    ca_fits(tmp)
+    return launches, burst, block
+
+
+def ring_frame_mosaic(h: int, w: int) -> np.ndarray:
+    """tests/test_ca.py's ring chart scaled to the frame (radii and width),
+    R displaced by Poly3(0.02) and B by Poly3(-0.01)."""
+    size = min(h, w)
+    img = ring_chart(h, w, radii=tuple(size * f for f in (0.23, 0.33, 0.41)), amp=0.6,
+                     sigma=size / 128, base=0.1) + 0.1
+    return ca_mosaic(np.dstack([img] * 3), RING_K1["R"], RING_K1["B"])
+
+
+def ca_fits(tmp: str) -> None:
+    """The blind fits on a ring chart DNG of config 5's size: the template fit
+    (timed whole and split into the instability, the host ROI screening and
+    the device batch of template matches) and the gradient fit, each held to
+    its JAX test's gate; then ``--ca template --save-params`` and ``--params``
+    through the CLI."""
+    path = os.path.join(tmp, "rings.dng")
+    with open(path, "wb") as fh:
+        fh.write(dng_bytes(ring_frame_mosaic(CA_H, CA_W)))
+    frame = load_raw(path)
+
+    def host_clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    match_s = []
+    batch = ca_solver.template_match_batch
+
+    def timed_batch(*args, **kw):
+        out, s = host_clock(lambda: batch(*args, **kw))
+        match_s.append(s)
+        return out
+
+    ca_solver.template_match_batch = timed_batch
+    try:
+        si, si_s = host_clock(lambda: compute_structural_instability(frame))
+        _, roi_s = host_clock(lambda: [
+            RoiDetector(PooledChannel(si[..., c].cpu().numpy()), default_threshold=16)
+            for c in (0, 2)])
+        (r, b), template_s = host_clock(lambda: compute_ca_lens_models_for_raw(
+            frame, Poly3CorrectionModel(), Poly3CorrectionModel(),
+            max_distortion_additional_scale=0.03))
+    finally:
+        ca_solver.template_match_batch = batch
+    k_r, k_b = float(r.get_coefficients()[0]), float(b.get_coefficients()[0])
+    log(f"template fit on a {CA_H}x{CA_W} ring chart (R Poly3({RING_K1['R']}), B "
+        f"Poly3({RING_K1['B']})): {template_s:.3f} s host clock, of which the device batch "
+        f"of template matches {sum(match_s):.3f} s ({len(match_s)} calls); apart: "
+        f"instability {si_s:.4f} s, host ROI screening of R and B {roi_s:.3f} s; k1 R "
+        f"{k_r:.6f}, B {k_b:.6f}")
+    if not 0.002 < k_r < 0.08:
+        raise AssertionError(f"template fit: R's k1 {k_r} outside (0.002, 0.08)")
+
+    (r, b), gradient_s = host_clock(lambda: fit_ca_models_gradient(frame, steps=120))
+    k_r, k_b = float(r.get_coefficients()[0]), float(b.get_coefficients()[0])
+    log(f"gradient fit (120 Adam steps a channel): {gradient_s:.3f} s host clock; k1 R "
+        f"{k_r:.6f}, B {k_b:.6f}")
+    if abs(k_r - RING_K1["R"]) > 0.5 * RING_K1["R"]:
+        raise AssertionError(f"gradient fit: R's k1 {k_r} not within 50% of {RING_K1['R']}")
+
+    params, fit_tif = os.path.join(tmp, "rings.json"), os.path.join(tmp, "rings_fit.tif")
+    cmd = [sys.executable, "-m", "pysp_tpu_torch", "develop", path, "-o", fit_tif, "--ca",
+           "template", "--save-params", params]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0 or "CA fit failed" in proc.stderr:
+        raise AssertionError(f"the CLI's --ca template failed ({proc.returncode}):\n"
+                             f"{proc.stderr}")
+    with open(params) as fh:
+        saved = json.load(fh)
+    log(f"CLI {' '.join(cmd[3:])}: {time.perf_counter() - t0:.3f} s host clock; "
+        f"{proc.stdout.strip()}; sidecar CA {saved.get('ca')}")
+    run_cli([path, "--params", params], fit_tif, os.path.join(tmp, "rings_replay.tif"))
+
+
+def ca_at_main_shapes(burst: RawFrame, block: bytes):
+    """Phase 4 for the ca path: one bilinear CA launch on the burst's
+    upsampled greens against its plain version, its bound and grid_sample;
+    the AHD kernel on one 1.5 MP frame; the stages of config 5 and the whole
+    composition with and without the kernels, with the device's idle share.
+    Returns what the AHD and remap records add."""
+    model = Poly3CorrectionModel(CA_K1)
+    _, g1, _, g2 = bayer_to_rgbg(burst.bayer)
+    g = resample_g_to_full_resolution(g1, g2)
+    n, h, w = g.shape
+    mx, my = ca_removal._maps_from_offsets(model.get_undistorted_coordinates(g[0]), h, w)
+    got, want = K.remap_kernel(g, mx, my, "bilinear"), K.remap_plain(g, mx, my, "bilinear")
+    if not torch.equal(got, want):
+        raise AssertionError("the bilinear CA remap at config 5's shape differs from plain")
+    grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], dim=-1)[None]
+
+    def grid_sample():
+        return F.grid_sample(g[None], grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    gs_diff = (grid_sample()[0] - got).abs().max().item()
+    nbytes = n * h * w * 4 * 2 + h * w * 8      # stack in and out, two shared maps
+    ops = float_ops(lambda: K.remap_plain(g, mx, my, "bilinear"))
+    b = bound(nbytes, ops)
+    t = {"ca_bilinear": median_ms(lambda: K.remap_kernel(g, mx, my, "bilinear")),
+         "ca_bilinear_plain": median_ms(lambda: K.remap_plain(g, mx, my, "bilinear")),
+         "ca_grid_sample": median_ms(grid_sample)}
+    log(f"bilinear CA remap of {n}x{h}x{w} with shared maps: bit-exact against plain; "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops -> bound {b[0]:.4f} ms by {b[1]}; "
+        f"kernel {t['ca_bilinear']:.4f} ms ({t['ca_bilinear'] / b[0]:.2f}x), plain "
+        f"{t['ca_bilinear_plain']:.4f} ms, grid_sample {t['ca_grid_sample']:.4f} ms (max abs "
+        f"diff {gs_diff:.3g})")
+    del got, want, grid
+
+    frame = unstack_frames(burst)[0]
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    tail = (True, True)
+    t["ahd_frame"] = median_ms(lambda: K.ahd_kernel(frame.bayer, mat, wb, False, 1, tail))
+    t["ahd_frame_plain"] = median_ms(lambda: K.ahd_plain(frame.bayer, mat, wb, False, 1, tail))
+
+    corrected, devs, _ = ca_composition(burst, block)
+    frames = unstack_frames(corrected)
+    t["ca_stage"] = median_ms(lambda: remove_ca_from_raw(burst, model, model))
+    t["develop_x16"] = median_ms(lambda: [develop(f, CA_CFG) for f in frames])
+    t["warp_x16"] = median_ms(lambda: [apply_opcode_3_warp(img, block) for img in devs])
+    t["config5"] = median_ms(lambda: ca_composition(burst, block))
+    t["config5_plain"] = median_ms(lambda: ca_composition_plain(burst, block), runs=3, warmup=1)
+    del corrected, devs, frames
+    mp = CA_FRAMES * CA_H * CA_W / 1e6
+    log(f"config 5 at {CA_FRAMES}x{CA_H}x{CA_W} by CUDA events, median of 10 (config5_plain: "
+        f"median of 3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log(f"config 5 {mp / (t['config5'] / 1e3):.2f} MP/s with the kernels, "
+        f"{mp / (t['config5_plain'] / 1e3):.2f} MP/s plain")
+    host_ms, device_ms, launches = device_busy(lambda: ca_composition(burst, block))
+    idle = max(0.0, 1 - device_ms / host_ms)
+    log(f"config 5 under torch.profiler, 3 runs: {host_ms:.3f} ms host clock per run, "
+        f"{device_ms:.3f} ms of device kernels ({launches:.0f} kernels) per run, device idle "
+        f"{idle:.1%} of the host time")
+    return {"ca_bilinear": {"shape": [n, h, w], "max_abs_err": 0.0, "ms": t["ca_bilinear"],
+                            "plain_ms": t["ca_bilinear_plain"], "bound_ms": b[0],
+                            "bound_by": b[1], "library_ms": t["ca_grid_sample"],
+                            "library": "torch.nn.functional.grid_sample",
+                            "library_max_abs_diff": gs_diff},
+            "ahd_ca_frame": {"shape": [CA_H, CA_W], "ms": t["ahd_frame"],
+                             "plain_ms": t["ahd_frame_plain"]}}
+
+
+def chain_102mp() -> dict:
+    """The composed 102 MP chain with the kernels: hot-pixel detection and
+    heal -> CA removal -> Best develop (1 stage) -> lens warp (Lanczos4), on an
+    8736x11648 RGGB frame on the card with planted hot sites and Poly3(0.01)
+    CA. Each stage timed apart (median of 3 after 1) and the whole chain."""
+    t0 = time.perf_counter()
+    mosaic = ca_mosaic(make_scene(CHAIN_H, CHAIN_W, seed=31), CA_K1, CA_K1)
+    hot = plant_hot_sites(mosaic)
+    mosaic[hot[:, 0], hot[:, 1]] = 1.0
+    frame = RawFrame.synthetic(mosaic, cam_mat=CAM, wb_neutral=WB, device=DEVICE)
+    del mosaic
+    log(f"102 MP chain input: {CHAIN_H}x{CHAIN_W} RGGB frame on the card with {len(hot)} hot "
+        f"sites and Poly3({CA_K1}) CA planted, built in {time.perf_counter() - t0:.1f} s")
+    model = Poly3CorrectionModel(CA_K1)
+    block = encode_warp_rectilinear(CA_WARP, (0.5, 0.5))
+    torch.cuda.reset_peak_memory_stats()
+
+    def heal(f):
+        return repair_bad_pixels(f, find_erroneous_pixels_median(f))
+
+    healed = heal(frame)
+    corrected = remove_ca_from_raw(healed, model, model)
+    with plain_remaps():
+        same = torch.equal(remove_ca_from_raw(healed, model, model).bayer, corrected.bayer)
+    log(f"102 MP CA stage with the remap kernel vs remap_plain: bit-exact {same}")
+    if not same:
+        raise AssertionError("the 102 MP CA stage differs from plain")
+    dev = develop(corrected, CA_CFG)
+    out = apply_opcode_3_warp(dev, block)
+    check_warped("102 MP chain", dev, out, CHAIN_H, CHAIN_W)
+    del out
+    t = {"heal": median_ms(lambda: heal(frame), runs=3, warmup=1),
+         "ca": median_ms(lambda: remove_ca_from_raw(healed, model, model), runs=3, warmup=1),
+         "develop": median_ms(lambda: develop(corrected, CA_CFG), runs=3, warmup=1),
+         "warp": median_ms(lambda: apply_opcode_3_warp(dev, block), runs=3, warmup=1)}
+    t["sum"] = sum(t.values())
+    t["chain"] = median_ms(lambda: apply_opcode_3_warp(develop(remove_ca_from_raw(
+        heal(frame), model, model), CA_CFG), block), runs=3, warmup=1)
+    t["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"102 MP chain ({CHAIN_H}x{CHAIN_W}) by CUDA events, median of 3: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items() if k != "peak_gb")
+        + f"; {CHAIN_H * CHAIN_W / 1e6 / (t['chain'] / 1e3):.1f} MP/s; peak device memory "
+        f"{t['peak_gb']:.2f} GB")
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1552,11 +1987,21 @@ def main() -> int:
         finishing_launches, lin, srgb, block = finishing_path(tmp)
         corrections_launches, *corrections_state = corrections_path(tmp)
         tiers_launches, *tiers_state = tiers_path(tmp)
+        ca_launches, burst5, block5 = ca_path(tmp)
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
     del corrections_state
     records.extend(tiers_at_main_shapes(*tiers_state))
+    del tiers_state
+    ca = ca_at_main_shapes(burst5, block5)
+    del burst5
+    chain_102mp()
+    for rec in records:
+        if rec["name"] == "ahd":
+            rec["ca_frame"] = ca["ahd_ca_frame"]
+        elif rec["name"] == "remap_lanczos4":
+            rec["ca_bilinear"] = ca["ca_bilinear"]
     # Each path's counts were set to 0 just before it and read just after it;
     # "launches" is their sum, "launches_by_path" each path's own.
     for rec in records:
@@ -1564,7 +2009,8 @@ def main() -> int:
         by_path = {"develop": develop_launches[counter],
                    "finishing": finishing_launches[counter],
                    "corrections": corrections_launches[counter],
-                   "tiers": tiers_launches[counter]}
+                   "tiers": tiers_launches[counter],
+                   "ca": ca_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
 

@@ -22,10 +22,17 @@ Bayer-domain HDR fuse of a bracketed burst, ``develop_pipeline``:
     burst = stack_frames([load_raw(p) for p in paths])
     srgb = develop_pipeline(burst, PipelineConfig(fuse_hdr=True))
 
+Lateral chromatic aberration: fit R->G and B->G radial models blind from the
+mosaic, or by gradient descent, and remove them from a frame or a burst:
+
+    model_r, model_b = compute_ca_lens_models_for_raw(frame)  # or fit_ca_models_gradient
+    frame = remove_ca_from_raw(frame, model_r, model_b)
+
 The command line: ``python -m pysp_tpu_torch develop shot.dng -o out.tif
 --deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--flat``, ``--dark``,
 ``--repair-hot-pixels``, ``--denoise`` and ``--hdr`` (several inputs) for
-the corrections.
+the corrections; ``--ca template|gradient|refine``, ``--save-params`` /
+``--params`` (a JSON sidecar of the fitted state) and ``--temperature``.
 """
 
 from .colorimetry.transforms import (
@@ -57,6 +64,20 @@ from .correct.flat_field import (
     flat_frame_correction,
 )
 from .correct.hdr import fuse_exposures_from_debayer, fuse_exposures_to_raw
+from .correct.ca.models import (
+    Poly3CorrectionModel,
+    Poly5CorrectionModel,
+    PtLensCorrectionModel,
+)
+from .correct.ca.instability import compute_structural_instability
+from .correct.ca.models import lensfun_poly3_remap_coords
+from .correct.ca.removal import compute_ca_lens_models_for_raw, remove_ca_from_raw
+from .correct.ca.gradfit import (
+    fit_ca_models_gradient,
+    fit_poly3_gradient,
+    fit_radial_gradient,
+    refine_ca_models_gradient,
+)
 from .demosaic import demosaic, demosaic_ahd, demosaic_draft, demosaic_eag
 from .filters.blur import blur_gaussian
 from .filters.sharpen import (
@@ -123,6 +144,13 @@ __all__ = [
     "denoise_bayer_wavelet",
     "fuse_exposures_to_raw",
     "fuse_exposures_from_debayer",
+    "Poly3CorrectionModel",
+    "Poly5CorrectionModel",
+    "PtLensCorrectionModel",
+    "compute_structural_instability",
+    "lensfun_poly3_remap_coords",
+    "compute_ca_lens_models_for_raw",
+    "remove_ca_from_raw",
     "demosaic",
     "demosaic_ahd",
     "demosaic_draft",

@@ -2,26 +2,30 @@
 
 Counterpart of ``pysp_tpu/cli.py``, in the JAX CLI's order and branches:
 
-- ``--hdr`` with several inputs: load -> stack -> ``develop_pipeline`` (per-frame
-  corrections, then the Bayer-domain fuse, then develop) -> the filters ->
-  save as ``<first input>_hdr.tif``; with ``--repair-hot-pixels`` the masks
-  are the burst's consensus (``hot_pixel_shared_ratio=0.5``);
-- ``--flat`` / ``--dark``: load -> ``develop_pipeline`` (dark, flat, heal,
-  denoise) -> the filters -> the warp -> save;
-- otherwise: load -> heal (``--repair-hot-pixels``) -> denoise (``--denoise``)
-  -> develop -> the linear-light filters (``--deconv``, ``--unsharp``,
-  ``--blur``) -> clip and sRGB gamma -> the DNG OpcodeList3 warp (``--warp``)
-  -> save.
+- ``--hdr`` with several inputs: load -> stack -> (``--params``: the sidecar's
+  WB neutral and CA models applied to every frame before the fuse) ->
+  ``develop_pipeline`` (per-frame corrections, then the Bayer-domain fuse,
+  then develop) -> the filters -> save as ``<first input>_hdr.tif``; with
+  ``--repair-hot-pixels`` the masks are the burst's consensus
+  (``hot_pixel_shared_ratio=0.5``);
+- otherwise: load (``--temperature``: the frame rebuilt with the WB solved for
+  that colour temperature) -> the sidecar's WB neutral (``--params``) -> CA
+  (the sidecar's models, or a fit: ``--ca template|gradient|refine``) ->
+  ``--save-params`` -> then ``--flat`` / ``--dark``: ``develop_pipeline``
+  (dark, flat, heal, denoise); else heal (``--repair-hot-pixels``) -> denoise
+  (``--denoise``) -> develop -> the linear-light filters (``--deconv``,
+  ``--unsharp``, ``--blur``) -> clip and sRGB gamma -> the DNG OpcodeList3
+  warp (``--warp``) -> save.
 
-The image stays on the device from the load to the save.
+A sidecar's temperature replays through the ``--temperature`` branch, as in
+the JAX CLI. The image stays on the device from the load to the save.
 
 The JAX CLI takes its device from JAX's backend; this one takes ``--device``,
 ``cuda`` unless asked otherwise, and raises without a GPU. Every flag and
 subcommand that is not ported yet (several inputs without ``--hdr``,
-``--temperature``, ``--ca``, ``--stats``, ``--save-params`` / ``--params``,
-``info``, ``harvest``, ``verify-decode``) parses as in the JAX CLI and raises
-``NotImplementedError`` naming its ROADMAP.md item; so does an output format
-other than TIFF (through ``save_image``).
+``--stats``, ``info``, ``harvest``, ``verify-decode``) parses as in the JAX
+CLI and raises ``NotImplementedError`` naming its ROADMAP.md item; so does an
+output format other than TIFF (through ``save_image``).
 """
 from __future__ import annotations
 
@@ -30,7 +34,11 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
+
+from .correct.ca.removal import remove_ca_from_raw
+from .utils.sidecar import ca_model_from_dict, ca_model_to_dict, load_sidecar, save_sidecar
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -94,12 +102,7 @@ def _refuse_unported(args) -> None:
     unported = [
         (len(args.inputs) > 1 and not args.hdr, "several inputs (the streamed develop)",
          "queue A, item 15 (pipeline/stream.py)"),
-        (args.temperature is not None, "--temperature",
-         "queue A, item 15 (the rest of the CLI)"),
-        (args.ca is not None, "--ca", "queue A, item 13 (correct/ca)"),
         (args.stats, "--stats", "queue A, item A7 (develop_with_stats)"),
-        (args.save_params is not None or args.params is not None,
-         "--save-params / --params", "queue A, item 13 (the CA sidecar)"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -218,9 +221,20 @@ def _develop(args) -> int:
         )
 
     if args.hdr:
+        if args.save_params:
+            print("--save-params does nothing with --hdr (no fit runs); ignored",
+                  file=sys.stderr)
         t0 = time.time()
         batch = stack_frames([load_raw(src, device=device) for src in args.inputs],
                              device=device)
+        if args.params:
+            # the saved WB and CA apply per frame BEFORE the fuse (canonical
+            # sensor-space order: corrections precede HDR stacking)
+            sidecar = load_sidecar(args.params)
+            if sidecar["wb_neutral"] is not None:
+                batch = batch.replace(wb_neutral=_neutral(sidecar, device).expand_as(
+                    batch.wb_neutral).contiguous())
+            batch = remove_ca_from_raw(batch, sidecar["ca_model_r"], sidecar["ca_model_b"])
         out = develop_pipeline(batch, pcfg, **aux)
         dst = args.output or os.path.splitext(args.inputs[0])[0] + "_hdr.tif"
         return _finish(args, out, filtering, device, t0, dst,
@@ -228,7 +242,23 @@ def _develop(args) -> int:
 
     src = args.inputs[0]
     t0 = time.time()
+    sidecar = load_sidecar(args.params) if args.params else None
+    if args.temperature is None and sidecar is not None:
+        args.temperature = sidecar["temperature_k"]
     frame = load_raw(src, device=device)
+    if args.temperature is not None:
+        frame = _frame_at_temperature(src, frame, args.temperature, device)
+    elif sidecar is not None and sidecar["wb_neutral"] is not None:
+        # restore the saved camera neutral exactly (WB gains = 1/neutral)
+        frame = frame.replace(wb_neutral=_neutral(sidecar, device))
+
+    frame, fitted = _remove_ca(args, src, frame, sidecar)
+    if args.save_params:
+        save_sidecar(args.save_params, ca_model_r=fitted[0], ca_model_b=fitted[1],
+                     wb_neutral=frame.wb_neutral.cpu().numpy().astype(np.float64),
+                     temperature=args.temperature)
+        print(f"develop parameters -> {args.save_params}", file=sys.stderr)
+
     if args.flat or args.dark:
         out = develop_pipeline(frame, pcfg, **aux)
     else:
@@ -240,6 +270,57 @@ def _develop(args) -> int:
             frame = denoise_bayer_wavelet(frame, args.denoise)
         out = develop(frame, cfg)
     return _finish(args, out, filtering, device, t0, _dst_for(args, src), src, warp_src=src)
+
+
+def _neutral(sidecar, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(sidecar["wb_neutral"], np.float32), device=device)
+
+
+def _frame_at_temperature(src: str, frame, temperature: float, device):
+    """The frame rebuilt with the WB solved for ``temperature`` (Kelvin):
+    the source's controller, updated, then ``frame_from_parts`` from the
+    un-canonicalized mosaic (it canonicalizes again from the source pattern)."""
+    from .core.bayer import reversible_transform_rggb
+    from .io.raw_loader import controller_for_source, frame_from_parts
+
+    ctrl = controller_for_source(src, frame)
+    ctrl.update_by_temperature(temperature, allow_cross_blend=True)
+    sensor = reversible_transform_rggb(frame.bayer, frame.source_pattern).cpu().numpy()
+    return frame_from_parts(sensor, frame.source_pattern, ctrl, float(frame.ev),
+                            device=device)
+
+
+def _remove_ca(args, src: str, frame, sidecar):
+    """CA removal with the sidecar's models, or with the models that ``--ca``
+    fits; returns the frame and the models applied (``(None, None)`` if none)."""
+    if sidecar is not None and (sidecar["ca_model_r"] is not None
+                                or sidecar["ca_model_b"] is not None):
+        # saved coefficients: apply without re-fitting (sidecar workflow)
+        models = (sidecar["ca_model_r"], sidecar["ca_model_b"])
+        return remove_ca_from_raw(frame, *models), models
+    if not args.ca:
+        return frame, (None, None)
+
+    from .correct.ca.gradfit import fit_ca_models_gradient, refine_ca_models_gradient
+    from .correct.ca.removal import compute_ca_lens_models_for_raw
+
+    if args.ca == "gradient":
+        models = fit_ca_models_gradient(frame)
+    else:
+        try:
+            models = compute_ca_lens_models_for_raw(frame)
+        except ValueError as e:
+            # e.g. "Not enough tiles": a featureless scene stays untouched
+            print(f"{src}: CA fit failed ({e}); --ca skipped", file=sys.stderr)
+            return frame, (None, None)
+        if args.ca == "refine":
+            models = refine_ca_models_gradient(frame, *models)
+    if args.save_params:
+        # apply each model exactly as the sidecar will replay it (coefficients
+        # through their JSON float form), so that the fit's develop and a
+        # --params replay are bit-identical
+        models = tuple(ca_model_from_dict(ca_model_to_dict(m)) for m in models)
+    return remove_ca_from_raw(frame, *models), models
 
 
 def main(argv=None) -> int:

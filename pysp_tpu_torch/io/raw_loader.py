@@ -6,6 +6,9 @@ normalize, decode and validate the 2x2 CFA pattern, apply DNG ActiveArea and
 DefaultCrop with CFA-alignment checks, build the WB controller from the embedded
 calibration matrices, compute EV, and canonicalize the mosaic to RGGB.
 
+``controller_for_source`` rebuilds a decoded frame's WB controller, for WB
+from a colour temperature (``frame_from_parts`` then builds the frame anew).
+
 Not ported yet (ROADMAP.md queue A, items A3-A6): lossless-JPEG DNGs, DNG
 opcode lists, the persistent camera-matrix harvest and every non-DNG format.
 """
@@ -202,6 +205,42 @@ def frame_from_parts(
         source_pattern=pattern,
         device=device,
     )
+
+
+def controller_for_source(source: Source, frame: RawFrame) -> CameraWhiteBalanceController:
+    """Rebuild a WB controller for a decoded frame so ``update_by_*`` calls work
+    (counterpart of ``pysp_tpu/io/raw_loader.py``'s).
+
+    A DNG carries its calibration matrices in EXIF (ColorMatrix1/2/3) and its
+    as-shot neutral: the controller is built from them. Without EXIF matrices
+    (a non-TIFF container, or a TIFF without them) it falls through to the
+    single matrix the frame already holds, with the frame's neutral. The JAX
+    package first looks the EXIF model up in its camera-matrix registry there;
+    the port has no registry yet (ROADMAP.md queue A, item A5: the
+    camera-matrix registry and autoharvest)."""
+    import struct
+
+    from ..colorimetry.illuminants import StandardIlluminantSeries
+    from ..colorimetry.spaces import MatXyzToCamera
+
+    try:
+        tf = T.read_tiff(source)
+        mats = exif_get_color_mat_sources(tf)
+    except (ValueError, struct.error):
+        # non-TIFF containers carry no EXIF color matrices at all
+        tf, mats = None, []
+    if mats:
+        neutral = exif_get_as_shot_neutral(tf)
+    else:
+        mats = [
+            MatXyzToCamera(
+                frame.cam_mat.cpu().numpy().astype(np.float64),
+                frame.cam_white.cpu().numpy().astype(np.float64),
+                StandardIlluminantSeries.SERIES_DAYLIGHT,
+            )
+        ]
+        neutral = frame.wb_neutral.cpu().numpy().astype(np.float64)
+    return CameraWhiteBalanceController(mats, neutral)
 
 
 def _is_dng(source: Source) -> bool:

@@ -1,8 +1,8 @@
 """Synthetic-scene and fidelity helpers (NumPy, host only).
 
 Copied from ``pysp_tpu/utils/testing.py`` (the functions the port's smoke run
-and tests use), so that they import without JAX, plus the test cases of the
-heal and postprocess kernels, which the smoke run, ``tools/time_kernels.py``
+and tests use, ``ring_chart`` the CA scene among them), so that they import
+without JAX, plus the test cases of the heal and postprocess kernels, which the smoke run, ``tools/time_kernels.py``
 and the tests share.
 """
 from __future__ import annotations
@@ -38,6 +38,21 @@ def mosaic_rggb(rgb: np.ndarray) -> np.ndarray:
     bayer[1::2, 0::2] = rgb[1::2, 0::2, 1]
     bayer[1::2, 1::2] = rgb[1::2, 1::2, 2]
     return bayer
+
+
+def ring_chart(
+    h: int = 256, w: int = 256, radii=(60, 90, 110), amp: float = 0.5,
+    sigma: float = 2.0, base: float = 0.2,
+) -> np.ndarray:
+    """Concentric rings: tangential edges perpendicular to the radius — the content
+    the blind CA fit needs."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    r = np.hypot(yy - cy, xx - cx)
+    img = np.full((h, w), base, np.float32)
+    for rad in radii:
+        img += amp * np.exp(-0.5 * ((r - rad) / sigma) ** 2)
+    return img.astype(np.float32)
 
 
 def heal_case(h2: int, w2: int, density: float, seed: int):

@@ -191,11 +191,7 @@ def test_hdr_output_is_named_after_the_first_input(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ca"], "item 13"),
     (["--stats"], "A7"),
-    (["--temperature", "5000"], "item 15"),
-    (["--params", "p.json"], "item 13"),
-    (["--hdr", "--params", "p.json"], "item 13"),
 ])
 def test_unported_flags_name_their_roadmap_item(warped_dng, flags, item):
     path, _ = warped_dng

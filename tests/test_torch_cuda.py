@@ -623,3 +623,79 @@ def test_staged_wrappers_reject_what_the_kernels_do_not_take(cuda):
                           torch.ones(3, device=cuda), False)
     with pytest.raises(ValueError, match="contiguous"):
         K.median5_kernel(x.t()[:, :4])
+
+
+# --- chromatic aberration ---------------------------------------------------------------
+
+
+def _ca_removal_plain(monkeypatch, frame, model_r, model_b):
+    """``remove_ca_from_raw`` with the remap kernel's plain version in its place."""
+    from pysp_tpu_torch.correct.ca import removal
+
+    with monkeypatch.context() as m:
+        m.setattr(removal, "remap_kernel", K.remap_plain)
+        return removal.remove_ca_from_raw(frame, model_r, model_b)
+
+
+@pytest.mark.parametrize("case", ["single", "burst", "r_only", "odd_planes"])
+def test_ca_removal_on_the_card_equals_plain(cuda, monkeypatch, case):
+    """CA removal through the remap kernel is the plain remap's bit for bit:
+    4 launches a call with two models (2 with one), for a frame or a burst."""
+    from pysp_tpu_torch import Poly3CorrectionModel, Poly5CorrectionModel, remove_ca_from_raw
+    from pysp_tpu_torch.core.frame import stack_frames
+
+    h, w = (258, 334) if case == "odd_planes" else (256, 320)
+    frames = [_frame(h, w, seed=s, is_hdr=False, device=cuda) for s in range(3)]
+    frame = stack_frames(frames, device=cuda) if case == "burst" else frames[0]
+    model_r = Poly3CorrectionModel(0.02)
+    model_b = None if case == "r_only" else Poly5CorrectionModel(-0.01, 0.004)
+    before = K.remap_kernel_launches
+    got = remove_ca_from_raw(frame, model_r, model_b)
+    assert K.remap_kernel_launches == before + (2 if model_b is None else 4)
+    want = _ca_removal_plain(monkeypatch, frame, model_r, model_b)
+    assert got.bayer.device.type == "cuda" and torch.equal(got.bayer, want.bayer)
+    if case == "burst":
+        for f, g in zip(frames, got.bayer):
+            assert torch.equal(g, remove_ca_from_raw(f, model_r, model_b).bayer)
+
+
+def test_template_match_batch_on_the_card_matches_the_cpu(cuda):
+    from pysp_tpu_torch.correct.ca.matcher import template_match_batch
+
+    rng = np.random.default_rng(3)
+    target = rng.random((64, 64)).astype(np.float32)
+    tiles = np.stack([target[24:40, 30:46], target[10:26, 8:24], target[33:49, 40:56]])
+    starts = np.array([[21.0, 27.0], [7.5, 5.25], [30.2, 37.9]])
+    vecs = np.full((3, 2), 6.0 / np.sqrt(72) / 4)
+    pos = starts[:, None] + np.arange(64)[None, :, None] * vecs[:, None]
+    mask = np.arange(64)[None] < np.array([[25], [30], [64]])
+    got = template_match_batch(torch.from_numpy(target).to(cuda), tiles, pos, mask, vecs)
+    want = template_match_batch(torch.from_numpy(target), tiles, pos, mask, vecs)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=2e-4)
+
+
+def test_poly3_gradient_fit_on_the_card_matches_the_cpu(cuda):
+    from pysp_tpu_torch.correct.ca.gradfit import fit_poly3_gradient, poly3_correct_channel
+
+    scene = torch.from_numpy(make_scene(96, 128, seed=2)[..., 1].copy())
+    moving = poly3_correct_channel(scene, -0.015)
+    got, got_loss = fit_poly3_gradient(moving.to(cuda), scene.to(cuda), steps=40)
+    want, want_loss = fit_poly3_gradient(moving, scene, steps=40)
+    assert abs(got - want) <= 1e-4 and np.isfinite(got_loss)
+
+
+def test_centre_pixel_rule_on_the_card(cuda):
+    """On an odd-by-odd plane the centre offset is 0 and every value finite."""
+    from pysp_tpu_torch import Poly5CorrectionModel, lensfun_poly3_remap_coords
+    from pysp_tpu_torch.correct.ca.gradfit import radial_correct_channel
+
+    model = Poly5CorrectionModel(0.01, -0.004)
+    for coords in (model.get_distorted_coordinates(torch.zeros(21, 21, device=cuda)),
+                   model.get_undistorted_coordinates(torch.zeros(21, 21, device=cuda))):
+        assert bool(torch.isfinite(coords).all()) and coords[10, 10].abs().max().item() == 0.0
+    mx, my = lensfun_poly3_remap_coords((21, 21), 0.01, -0.02, 1.01, device=cuda)
+    assert bool(torch.isfinite(mx).all()) and (mx[10, 10].item(), my[10, 10].item()) == (10, 10)
+    plane = torch.rand(21, 21, device=cuda)
+    out = radial_correct_channel(plane, torch.tensor([0.01, -0.004], device=cuda), "poly5")
+    assert bool(torch.isfinite(out).all()) and out[10, 10].item() == plane[10, 10].item()
