@@ -43,7 +43,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
      non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
      ties that ``cbrtf`` flips), the fraction printed.
-3. Five main paths, each driven with every launch count set to 0 just before
+3. Six main paths, each driven with every launch count set to 0 just before
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
@@ -113,6 +113,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      gradient fit (R's k1 within 50% of 0.02), timed, and ``develop --ca
      template --save-params`` then ``develop --params`` through the CLI, which
      must fit and write the same TIFF.
+   - surface (the rest of the DNG develop surface): a 4000x6000 RGGB DNG of
+     ``make_scene`` with one region blown in all three channels and a larger
+     one in G only, scaled so that 5% of the photosites reach the white
+     level, carrying an OpcodeList1 (a FixBadPixelsConstant on 200 planted
+     sentinels, a FixBadPixelsList of 500 dead points and 10 dead rects) and
+     an OpcodeList2 (a 17x17 GainMap for each CFA phase, gains 0.8-1.3, and a
+     FixVignetteRadial), through ``load_raw -> develop_with_stats(Best,
+     highlights="reconstruct") -> save_image``, then
+     ``demosaic.ahd.postprocess_color`` of the image (the postprocess
+     kernel's (H, W, 3) entry) and a staged reconstruct develop (three
+     stages) of a 1500x2000 crop. Asserts the launches (the develop one AHD
+     launch in its demosaic-only mode and nothing else; the path AHD 1,
+     homogeneity 2, postprocess 4), the load on the card within 1e-6 of the
+     load on the CPU, every listed site and no other changed by the heal,
+     the develop against the plain one on the card (>= 90 dB, under 0.01% of
+     pixels off by more than 1e-4, whole frame and border frame), the blown
+     core below white with real variance and every value in [0, 1 + 1e-6],
+     the statistics against float64 NumPy (means and std within 1e-5
+     relative, fractions exact, p99 as ``numpy.quantile`` within 1e-6), the
+     (H, W, 3) entry ``torch.equal`` to the plain stage, the staged develop
+     against plain with the same gates, and ``develop --highlights
+     reconstruct --stats`` through the CLI: the same TIFF, and on stderr the
+     JAX CLI's stats keys with the in-process values.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
@@ -137,11 +160,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the same inputs, over 67 TFLOP/s. Beside it: the decision kernel's issue
    floor (its SASS's instructions a pick), the median5 kernel's min/max floor
    (the FMNMX of its SASS a pixel at half the issue rate) and the homogeneity kernel's achieved TB/s beside ``torch``'s own copy
-   of its three input planes.
+   of its three input planes. For the surface path: the load split on the
+   host clock (decode, to the card, opcode heal, gains, the whole
+   ``load_raw``), the reconstruct develop with the kernel and plain, its
+   AHD kernel in planes mode, reconstruction and tail, the planes mode
+   against the tail mode, ``develop_with_stats`` against ``develop``, the
+   (H, W, 3) postprocess entry against the channel entry (and against
+   channel copies and a stack), each with the card's name and power limit,
+   and the develop's idle share.
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the five main paths
+kernel's ``launches`` there is the sum of its counts over the six main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
@@ -162,14 +192,21 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pysp_tpu_torch import (
+    GainMap,
     PipelineConfig,
     Poly3CorrectionModel,
     QualityDemosaic,
     RawFrame,
     compute_ca_lens_models_for_raw,
     compute_structural_instability,
+    VignetteRadial,
+    apply_gain_opcodes,
     develop_pipeline,
     develop_to_image,
+    develop_with_stats,
+    encode_gain_map,
+    encode_opcode_list,
+    encode_vignette_radial,
     fit_ca_models_gradient,
     frame_from_parts,
     load_raw,
@@ -200,6 +237,7 @@ from pysp_tpu_torch.demosaic.ahd import (
     ahd_decision,
     ahd_decision_plain,
     demosaic_ahd_channels,
+    postprocess_color,
     postprocess_color_channels,
 )
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, develop_channels_mega
@@ -208,7 +246,12 @@ from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
 from pysp_tpu_torch.io.metadata import get_opcode_3_block
-from pysp_tpu_torch.io.raw_loader import controller_for_source
+from pysp_tpu_torch.io import tiff as T
+from pysp_tpu_torch.io.raw_loader import (
+    _black_white_levels,
+    _normalize_host,
+    controller_for_source,
+)
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.ops.resample import remap_bilinear
@@ -224,6 +267,8 @@ from pysp_tpu_torch.utils.testing import (
     psnr,
     ring_chart,
 )
+from pysp_tpu_torch.warp import fix_opcodes as FO
+from pysp_tpu_torch.warp import gain_opcodes as GO
 from pysp_tpu_torch.warp import rectilinear
 from pysp_tpu_torch.warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear
 from pysp_tpu_torch.warp.rectilinear import compute_remapping_table, displacement_bounds
@@ -1967,6 +2012,355 @@ def chain_102mp() -> dict:
     return t
 
 
+# --- the surface path: OpcodeList1/2 at load, highlight reconstruction, statistics ----
+
+SURFACE_CFG = DevelopConfig(quality=QualityDemosaic.Best, highlights="reconstruct")
+SURFACE_PLAIN_CFG = DevelopConfig(quality=QualityDemosaic.Best, highlights="reconstruct",
+                                  use_pallas=False)
+SURFACE_STAGED_CFG = DevelopConfig(quality=QualityDemosaic.Best, highlights="reconstruct",
+                                   postprocess_stages=STAGED_STAGES)
+SURFACE_STAGED_PLAIN_CFG = DevelopConfig(quality=QualityDemosaic.Best, highlights="reconstruct",
+                                         postprocess_stages=STAGED_STAGES, use_pallas=False)
+SURFACE_CLIP_SHARE = 0.05          # photosites of the scene at the white level
+SURFACE_MIN_PSNR = 90.0            # the reconstruct develop, kernel against plain, at 24 MP
+SURFACE_POINTS, SURFACE_RECTS = 500, 10
+SURFACE_CONSTANT = 7               # FixBadPixelsConstant's stored sentinel
+SURFACE_CONSTANT_SITES = 200
+SURFACE_GAIN_POINTS = 17           # a 17x17 gain grid for each CFA phase
+SURFACE_VIGNETTE = (0.25, -0.05, 0.01, 0.0, 0.0)
+LOAD_ATOL = 1e-6                   # the load on the card against the load on the CPU
+STATS_RTOL = 1e-5                  # means and std on the card against float64 NumPy
+P99_ATOL = 1e-6
+# The keys of the JAX CLI's --stats JSON (pysp_tpu/utils/tracing.py).
+STATS_KEYS = {"sensor": ["clip_high_frac", "clip_low_frac", "mean", "p99"],
+              "output": ["mean_rgb", "neg_frac", "sat_frac", "std_rgb"]}
+BLACK, WHITE = 256, 4095           # write_synthetic_dng's levels; black + white is 1.0
+
+
+def surface_scene(h: int, w: int):
+    """The surface path's mosaic, before its defects: ``make_scene`` with one
+    blown region where all three channels clip and a larger one where only G
+    clips, scaled so that about SURFACE_CLIP_SHARE of the photosites reach
+    the white level. Returns the stored counts and the two regions' masks."""
+    rgb = make_scene(h, w, seed=11)
+    yy, xx = np.ogrid[0:h, 0:w]
+    core = np.exp(-(((yy - 0.3 * h) / (0.06 * h)) ** 2 + ((xx - 0.3 * w) / (0.06 * w)) ** 2))
+    ring = np.exp(-(((yy - 0.65 * h) / (0.11 * h)) ** 2 + ((xx - 0.65 * w) / (0.11 * w)) ** 2))
+    rgb *= (1.0 + 5.0 * core)[..., None].astype(np.float32)
+    rgb[..., 1] *= (1.0 + 1.2 * ring).astype(np.float32)
+    mosaic = mosaic_rggb(rgb)
+    k = int(mosaic.size * (1 - SURFACE_CLIP_SHARE))
+    scale = 1.0 / float(np.partition(mosaic.reshape(-1), k)[k])
+    stored = (BLACK + np.minimum(mosaic * scale, 1.0) * WHITE).astype(np.uint16)
+    return stored, core > 0.5, ring > 0.5
+
+
+def surface_opcodes(stored: np.ndarray, seed: int = 12):
+    """Plants the defects into ``stored`` (in place) and returns the two
+    opcode blocks: OpcodeList1 holds a FixBadPixelsConstant (SURFACE_CONSTANT
+    stored at SURFACE_CONSTANT_SITES sites) and a FixBadPixelsList of
+    SURFACE_POINTS dead points and SURFACE_RECTS dead rects; OpcodeList2 a
+    GainMap for each CFA phase (pitch 2, a 17x17 grid, gains 0.8-1.3) and a
+    FixVignetteRadial."""
+    h, w = stored.shape
+    rng = np.random.default_rng(seed)
+    stored.flat[rng.choice(h * w, SURFACE_CONSTANT_SITES, replace=False)] = SURFACE_CONSTANT
+    points = np.stack([rng.integers(0, h, SURFACE_POINTS),
+                       rng.integers(0, w, SURFACE_POINTS)], 1).astype(np.int32)
+    tops, lefts = rng.integers(0, h - 8, SURFACE_RECTS), rng.integers(0, w - 8, SURFACE_RECTS)
+    sizes = rng.integers(2, 7, (SURFACE_RECTS, 2))
+    rects = np.stack([tops, lefts, tops + sizes[:, 0], lefts + sizes[:, 1]], 1).astype(np.int32)
+    stored[points[:, 0], points[:, 1]] = BLACK            # dead photosites
+    for top, left, bottom, right in rects:
+        stored[top:bottom, left:right] = BLACK
+    block1 = encode_opcode_list([
+        (FO.OPCODE_FIX_BAD_PIXELS_CONSTANT,
+         FO.encode_fix_bad_pixels_constant(FO.BadPixelsConstant(SURFACE_CONSTANT, 0))),
+        (FO.OPCODE_FIX_BAD_PIXELS_LIST,
+         FO.encode_fix_bad_pixels_list(FO.BadPixelsList(0, points, rects))),
+    ])
+    n = SURFACE_GAIN_POINTS
+    ops = [(GO.OPCODE_GAIN_MAP, encode_gain_map(GainMap(
+        dy, dx, h, w, 0, 1, 2, 2, n, n, 1.0 / (n - 1), 1.0 / (n - 1), 0.0, 0.0, 1,
+        rng.uniform(0.8, 1.3, (n, n, 1)).astype(np.float32))))
+        for dy in (0, 1) for dx in (0, 1)]
+    ops.append((GO.OPCODE_FIX_VIGNETTE_RADIAL,
+                encode_vignette_radial(VignetteRadial(SURFACE_VIGNETTE, 0.5, 0.5))))
+    return block1, encode_opcode_list(ops)
+
+
+def stats_against_numpy(name: str, stats: dict, bayer: torch.Tensor, lim_sat: float,
+                        out: torch.Tensor) -> None:
+    """``develop_with_stats``'s statistics against float64 NumPy over the same
+    tensors: means and std within STATS_RTOL relative, the fractions exact
+    (the count over n, one float32 division), p99 as ``numpy.quantile``
+    (linear) within P99_ATOL."""
+    x = bayer.cpu().numpy()
+    rgb = out.cpu().numpy().reshape(-1, 3)
+
+    def frac(mask):
+        return np.float32(np.count_nonzero(mask)) / np.float32(mask.size)
+
+    want = {"sensor": {"mean": x.mean(dtype=np.float64),
+                       "clip_high_frac": frac(x >= np.float32(lim_sat)),
+                       "clip_low_frac": frac(x <= 0.0),
+                       "p99": np.quantile(x, 0.99)},
+            "output": {"mean_rgb": rgb.mean(axis=0, dtype=np.float64),
+                       "std_rgb": rgb.astype(np.float64).std(axis=0),
+                       "sat_frac": frac(rgb >= 1.0), "neg_frac": frac(rgb <= 0.0)}}
+    worst = {}
+    for part, entries in want.items():
+        for key, w_ in entries.items():
+            g = stats[part][key].cpu().numpy()
+            if key.endswith("_frac"):
+                ok, worst[key] = bool(np.array_equal(g, w_)), float(np.abs(g - w_).max())
+            elif key == "p99":
+                worst[key] = float(abs(g - w_))
+                ok = worst[key] <= P99_ATOL
+            else:
+                worst[key] = float(np.max(np.abs(g / w_ - 1)))
+                ok = worst[key] <= STATS_RTOL
+            if not ok:
+                raise AssertionError(f"{name}: {part} {key} {g} against NumPy's {w_}")
+    log(f"{name} statistics against float64 NumPy over the same tensors (means and std "
+        f"within {STATS_RTOL:g} relative, fractions exact, p99 within {P99_ATOL:g}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; sensor {json.dumps({k: float(v) for k, v in stats['sensor'].items()})}")
+
+
+def surface_path(tmp: str, card: str):
+    """Phase 3, surface: a 24 MP DNG carrying OpcodeList1 and OpcodeList2
+    through ``load_raw -> develop_with_stats(Best, highlights="reconstruct")
+    -> save_image``, the postprocess kernel's (H, W, 3) entry on the image,
+    a staged reconstruct develop of a 1500x2000 crop, then the CLI's
+    ``--highlights reconstruct --stats``. Returns the launch counts and what
+    phase 4 measures."""
+    stored, core, ring = surface_scene(FULL_H, FULL_W)
+    clean = stored.copy()
+    block1, block2 = surface_opcodes(stored)
+    path = os.path.join(tmp, "surface.dng")
+    with open(path, "wb") as fh:
+        fh.write(write_synthetic_dng(stored, opcode_list_1=block1, opcode_list_2=block2))
+    tif, cli_tif = (os.path.join(tmp, f"{n}.tif") for n in ("surface", "surface_cli"))
+    clipped = (clean == BLACK + WHITE)
+    log(f"surface DNG {FULL_H}x{FULL_W}: {clipped.mean():.3%} of the photosites at the white "
+        f"level; the blown region's R, G, B sites {clipped[0::2, 0::2][core[0::2, 0::2]].mean():.1%}, "
+        f"{clipped[0::2, 1::2][core[0::2, 1::2]].mean():.1%}, "
+        f"{clipped[1::2, 1::2][core[1::2, 1::2]].mean():.1%} clipped; the G-only region's "
+        f"{clipped[0::2, 0::2][ring[0::2, 0::2]].mean():.1%}, "
+        f"{clipped[0::2, 1::2][ring[0::2, 1::2]].mean():.1%}, "
+        f"{clipped[1::2, 1::2][ring[1::2, 1::2]].mean():.1%}")
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    frame = load_raw(path)
+    out, stats = develop_with_stats(frame, SURFACE_CFG)
+    save_image(tif, out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    develop_launches = launch_counts()
+    image_stage = postprocess_color(out, use_pallas=True)
+    y0, x0 = (FULL_H - BGGR_H) // 4 * 2, (FULL_W - BGGR_W) // 4 * 2   # even: RGGB stays
+    crop = frame.replace(bayer=frame.bayer[y0:y0 + BGGR_H, x0:x0 + BGGR_W].contiguous())
+    staged = develop(crop, SURFACE_STAGED_CFG)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"surface path (load_raw of a {FULL_H}x{FULL_W} DNG with OpcodeList1/2 -> "
+        f"develop_with_stats Best reconstruct -> save_image): {seconds:.3f} s host clock, kernel "
+        f"launches {develop_launches}; then postprocess_color of the image (the (H, W, 3) entry) "
+        f"and a staged reconstruct develop ({STAGED_STAGES} stages) of a {BGGR_H}x{BGGR_W} "
+        f"crop: launches {launches}")
+    if frame.bayer.device.type != DEVICE:
+        raise AssertionError("load_raw did not put the frame on the card")
+    expect_launches("surface develop", develop_launches, ahd=1)
+    expect_launches("surface", launches, ahd=1, homogeneity=2, postprocess=1 + STAGED_STAGES)
+
+    # (a) The load on the card against the port's own load on the CPU, and the
+    # opcode heal: every listed site changed, no other.
+    on_cpu = load_raw(path, device="cpu")
+    err = (frame.bayer.cpu() - on_cpu.bayer).abs().max().item()
+    log(f"load_raw with OpcodeList1/2 on the card vs on the CPU: max abs {err:.3g} "
+        f"(tolerance {LOAD_ATOL:g})")
+    if err > LOAD_ATOL:
+        raise AssertionError("the load on the card differs from the load on the CPU")
+    del on_cpu
+    mask = FO.bad_pixel_mask_from_opcodes(stored, block1)
+    raw_ifd = T.read_tiff(path).find_raw_ifd()
+    normalized = torch.from_numpy(_normalize_host(stored, *_black_white_levels(raw_ifd)))
+    healed = FO.heal_bad_pixels_from_opcodes(normalized.to(DEVICE), stored, block1).cpu()
+    changed = (healed != normalized).numpy()
+    log(f"opcode heal: {int(mask.sum())} listed sites ({SURFACE_CONSTANT_SITES} constant, "
+        f"{SURFACE_POINTS} points, {SURFACE_RECTS} rects), {int(changed[mask].sum())} of them "
+        f"changed, {int(changed[~mask].sum())} unlisted sites changed")
+    if not changed[mask].all() or changed[~mask].any():
+        raise AssertionError("the opcode heal changed other sites than the listed ones")
+    del normalized, healed, changed
+
+    # (b) The reconstruct develop with the kernel against the plain develop.
+    if tuple(out.shape) != (FULL_H, FULL_W, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"surface: output {tuple(out.shape)} is not a finite (H, W, 3)")
+    p = develop_stats(f"surface {FULL_H}x{FULL_W} reconstruct develop", out,
+                      develop(frame, SURFACE_PLAIN_CFG), SURFACE_MIN_PSNR)
+    log(f"surface reconstruct develop: {p:.2f} dB against plain (gate {SURFACE_MIN_PSNR:g} dB)")
+    if os.path.getsize(tif) < FULL_H * FULL_W * 6:
+        raise AssertionError(f"{tif} is too short")
+    # (c) The blown core renders below white with real variance (the JAX test's gate).
+    out_clip = develop(frame, DevelopConfig(quality=QualityDemosaic.Best))
+    core_px = out_clip[..., 1] > 0.995
+    mean, std = out[core_px].mean().item(), out[core_px].std().item()
+    log(f"blown core ({int(core_px.sum())} pixels at white in the clip develop): reconstruct "
+        f"mean {mean:.4f}, std {std:.4f}; output range [{out.min().item():.4f}, "
+        f"{out.max().item():.6f}]")
+    if core_px.sum() <= 50 or not mean < 0.995 or not std > 1e-3:
+        raise AssertionError("the reconstruct develop renders the blown core flat")
+    if out.min().item() < 0.0 or out.max().item() > 1.0 + 1e-6:
+        raise AssertionError("the reconstruct develop leaves [0, 1 + 1e-6]")
+    del out_clip, core_px
+    # (d) The statistics.
+    stats_against_numpy("develop_with_stats", stats, frame.bayer, float(frame.lim_sat), out)
+    # (e) The (H, W, 3) entry of the postprocess kernel against the plain stage.
+    same = torch.equal(image_stage, postprocess_color(out))
+    log(f"postprocess kernel's (H, W, 3) entry on the developed {FULL_H}x{FULL_W} image vs "
+        f"the plain stage: bit-exact {same}")
+    if not same:
+        raise AssertionError("the postprocess kernel's (H, W, 3) entry differs from plain")
+    del image_stage
+    # (f) The staged reconstruct develop against plain, with the same gates.
+    develop_stats(f"surface staged reconstruct develop {BGGR_H}x{BGGR_W}", staged,
+                  develop(crop, SURFACE_STAGED_PLAIN_CFG), SURFACE_MIN_PSNR)
+    del staged, crop
+    # (g) The CLI: the TIFF and the stats JSON on stderr.
+    cmd = [sys.executable, "-m", "pysp_tpu_torch", "develop", path, "--highlights",
+           "reconstruct", "--stats", "-o", cli_tif]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n{proc.stderr}")
+    cli_stats = json.loads(proc.stderr)
+    keys = {k: sorted(v) for k, v in cli_stats.items()}
+    with open(tif, "rb") as a, open(cli_tif, "rb") as b:
+        same = a.read() == b.read()
+    host = {k: {kk: vv.cpu().numpy().tolist() for kk, vv in v.items()} for k, v in stats.items()}
+    log(f"CLI develop surface.dng --highlights reconstruct --stats: "
+        f"{time.perf_counter() - t0:.3f} s host clock (a new process); {proc.stdout.strip()}; "
+        f"stats keys {keys}, equal to the in-process stats {cli_stats == host}; TIFF "
+        f"identical to the in-process one: {same}")
+    if keys != STATS_KEYS or cli_stats != host:
+        raise AssertionError("the CLI's --stats JSON is not the in-process statistics")
+    if not same:
+        raise AssertionError("the CLI's TIFF differs from the in-process path's")
+    return launches, path, frame, out
+
+
+def surface_at_main_shapes(path: str, frame: RawFrame, out: torch.Tensor, card: str) -> dict:
+    """Phase 4 for the surface path: the load split on the host clock, the
+    reconstruct develop and its stages, the AHD kernel's planes mode against
+    its tail mode, ``develop_with_stats`` against ``develop``, the postprocess
+    kernel's (H, W, 3) entry against its channel entry, and the device's idle
+    share. Returns what the AHD and postprocess records add."""
+    from pysp_tpu_torch.correct.highlights import (
+        compress_highlights,
+        reconstruct_highlights_channels,
+    )
+
+    # The load split: decode on the host, the mosaic to the card, the heal, the gains.
+    split = {k: [] for k in ("decode", "to_card", "opcode_heal", "gains", "load_raw")}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tf = T.read_tiff(path)
+        raw_ifd = tf.find_raw_ifd()
+        data = tf.read_strips(raw_ifd)
+        sensor = _normalize_host(data, *_black_white_levels(raw_ifd))
+        t1 = time.perf_counter()
+        dev = torch.from_numpy(sensor).to(DEVICE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dev = FO.heal_bad_pixels_from_opcodes(dev, data, raw_ifd.get(T.TAG_OPCODE_LIST_1).as_bytes())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        apply_gain_opcodes(dev, raw_ifd.get(T.TAG_OPCODE_LIST_2).as_bytes())
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        load_raw(path)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for k, a, b in (("decode", t0, t1), ("to_card", t1, t2), ("opcode_heal", t2, t3),
+                        ("gains", t3, t4), ("load_raw", t4, t5)):
+            split[k].append((b - a) * 1e3)
+    del dev, sensor, data
+    log(f"surface load split, host clock, median of 3 ({card}): " + ", ".join(
+        f"{k} {statistics.median(v):.3f} ms" for k, v in split.items()))
+
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    hdr = frame.is_hdr
+    planes = K.ahd_kernel(frame.bayer, mat, wb, hdr, 1)
+    rec = reconstruct_highlights_channels(*planes, wb, frame.lim_sat)
+
+    def tail():
+        srgb = [lin_srgb_to_srgb(compress_highlights(torch.clamp(c, min=0.0)))
+                for c in _color_tail_channels(*rec, mat, False, False)]
+        return torch.stack(srgb, dim=-1)
+
+    px = frame.height * frame.width
+    chans = [out[..., k].contiguous() for k in range(3)]
+    t = {
+        "develop": median_ms(lambda: develop(frame, SURFACE_CFG)),
+        "develop_plain": median_ms(lambda: develop(frame, SURFACE_PLAIN_CFG)),
+        "ahd_planes": median_ms(lambda: K.ahd_kernel(frame.bayer, mat, wb, hdr, 1)),
+        "reconstruct": median_ms(lambda: reconstruct_highlights_channels(*planes, wb,
+                                                                         frame.lim_sat)),
+        "tail": median_ms(tail),
+        "ahd_tail_mode": median_ms(lambda: K.ahd_kernel(frame.bayer, mat, wb, hdr, 1,
+                                                        (True, True))),
+        "develop_with_stats": median_ms(lambda: develop_with_stats(frame, SURFACE_CFG)),
+        "pp_image_entry": median_ms(lambda: K.postprocess_color_image_kernel(out)),
+        "pp_channel_entry": median_ms(lambda: K.postprocess_color_kernel(*chans)),
+        "pp_copies_channels_stack": median_ms(lambda: torch.stack(K.postprocess_color_kernel(
+            *(out[..., k].contiguous() for k in range(3))), dim=-1)),
+        "pp_image_plain": median_ms(lambda: postprocess_color(out)),
+        "ahd_planes_plain": median_ms(lambda: K.ahd_plain(frame.bayer, mat, wb, hdr, 1),
+                                      runs=3, warmup=1),
+    }
+    mp = px / 1e6
+    log(f"surface times at {frame.height}x{frame.width} by CUDA events, median of 10 "
+        f"(ahd_planes_plain: median of 3) ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log(f"surface reconstruct develop {mp / (t['develop'] / 1e3):.2f} MP/s with the kernel, "
+        f"{mp / (t['develop_plain'] / 1e3):.2f} MP/s plain; of it the AHD kernel (planes) "
+        f"{t['ahd_planes']:.3f}, the reconstruction {t['reconstruct']:.3f}, the tail "
+        f"{t['tail']:.3f} ms; AHD planes mode {t['ahd_planes']:.3f} vs tail mode "
+        f"{t['ahd_tail_mode']:.3f} ms; develop_with_stats {t['develop_with_stats']:.3f} vs "
+        f"develop {t['develop']:.3f} ms; postprocess (H, W, 3) entry {t['pp_image_entry']:.3f} "
+        f"vs channel entry {t['pp_channel_entry']:.3f} ms (with the channel copies and the "
+        f"stack {t['pp_copies_channels_stack']:.3f} ms) ({card})")
+    host_ms, device_ms, n = device_busy(lambda: develop(frame, SURFACE_CFG))
+    log(f"surface reconstruct develop under torch.profiler, 3 runs: {host_ms:.3f} ms host "
+        f"clock per run, {device_ms:.3f} ms of device kernels ({n:.0f} kernels) per run, "
+        f"device idle {max(0.0, 1 - device_ms / host_ms):.1%} of the host time ({card})")
+
+    nbytes = {"ahd_planes": px * (4 + 12), "pp_image": px * (12 + 12)}
+    ops = {"ahd_planes": float_ops(lambda: K.ahd_plain(frame.bayer, mat, wb, hdr, 1)),
+           "pp_image": float_ops(lambda: postprocess_color(out))}
+    b = {k: bound(nbytes[k], ops[k]) for k in ops}
+    log("surface bounds (NVIDIA H100 SXM, 3.35 TB/s, 67 TFLOP/s float32): " + ", ".join(
+        f"{k} {nbytes[k] / 1e6:.1f} MB, {ops[k] / 1e9:.2f} G ops -> {b[k][0]:.4f} ms by "
+        f"{b[k][1]}" for k in ops))
+    got, want = K.ahd_kernel(frame.bayer, mat, wb, hdr, 1), K.ahd_plain(frame.bayer, mat, wb, hdr, 1)
+    planes_err = (got - want).abs().max().item()
+    del got, want, planes, rec, chans
+    return {"ahd_planes_mode": {"shape": [frame.height, frame.width], "max_abs_err": planes_err,
+                                "ms": t["ahd_planes"], "plain_ms": t["ahd_planes_plain"],
+                                "bound_ms": b["ahd_planes"][0], "bound_by": b["ahd_planes"][1],
+                                "tail_mode_ms": t["ahd_tail_mode"], "library_ms": None},
+            "image_entry": {"shape": [frame.height, frame.width, 3], "max_abs_err": 0.0,
+                            "ms": t["pp_image_entry"], "plain_ms": t["pp_image_plain"],
+                            "bound_ms": b["pp_image"][0], "bound_by": b["pp_image"][1],
+                            "channel_entry_ms": t["pp_channel_entry"],
+                            "copies_channels_stack_ms": t["pp_copies_channels_stack"],
+                            "library_ms": None}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1988,6 +2382,9 @@ def main() -> int:
         corrections_launches, *corrections_state = corrections_path(tmp)
         tiers_launches, *tiers_state = tiers_path(tmp)
         ca_launches, burst5, block5 = ca_path(tmp)
+        surface_launches, *surface_state = surface_path(tmp, card)
+        surface = surface_at_main_shapes(*surface_state, card)
+        del surface_state
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
@@ -2000,6 +2397,9 @@ def main() -> int:
     for rec in records:
         if rec["name"] == "ahd":
             rec["ca_frame"] = ca["ahd_ca_frame"]
+            rec["planes_mode"] = surface["ahd_planes_mode"]
+        elif rec["name"] == "postprocess_color":
+            rec["image_entry"] = surface["image_entry"]
         elif rec["name"] == "remap_lanczos4":
             rec["ca_bilinear"] = ca["ca_bilinear"]
     # Each path's counts were set to 0 just before it and read just after it;
@@ -2010,7 +2410,8 @@ def main() -> int:
                    "finishing": finishing_launches[counter],
                    "corrections": corrections_launches[counter],
                    "tiers": tiers_launches[counter],
-                   "ca": ca_launches[counter]}
+                   "ca": ca_launches[counter],
+                   "surface": surface_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
 

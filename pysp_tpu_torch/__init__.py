@@ -28,18 +28,27 @@ mosaic, or by gradient descent, and remove them from a frame or a burst:
     model_r, model_b = compute_ca_lens_models_for_raw(frame)  # or fit_ca_models_gradient
     frame = remove_ca_from_raw(frame, model_r, model_b)
 
+A DNG's OpcodeList1 (listed bad pixels) and OpcodeList2 (shading gains)
+apply at load. Highlight reconstruction and per-develop statistics:
+
+    srgb = develop(frame, DevelopConfig(highlights="reconstruct"))
+    srgb, stats = develop_with_stats(frame, DevelopConfig())
+
 The command line: ``python -m pysp_tpu_torch develop shot.dng -o out.tif
---deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--flat``, ``--dark``,
-``--repair-hot-pixels``, ``--denoise`` and ``--hdr`` (several inputs) for
-the corrections; ``--ca template|gradient|refine``, ``--save-params`` /
-``--params`` (a JSON sidecar of the fitted state) and ``--temperature``.
+--deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--highlights reconstruct`` and
+``--stats``; ``--flat``, ``--dark``, ``--repair-hot-pixels``, ``--denoise``
+and ``--hdr`` (several inputs) for the corrections; ``--ca
+template|gradient|refine``, ``--save-params`` / ``--params`` (a JSON sidecar
+of the fitted state) and ``--temperature``.
 """
 
 from .colorimetry.transforms import (
+    cam_to_clean_xyz,
     cam_to_lin_srgb,
     lin_srgb_to_oklab,
     lin_srgb_to_srgb,
     oklab_to_lin_srgb,
+    srgb_to_lin_srgb,
 )
 from .colorimetry.wb import CameraWhiteBalanceController, controller_from_tags
 from .const import BayerPattern, PatternDemosaic, QualityDemosaic
@@ -51,6 +60,7 @@ from .core.bayer import (
     rgbg_to_bayer,
 )
 from .core.frame import DevelopedImage, RawFrame, stack_frames
+from .core.normalization import bayer_normalize
 from .correct.bad_pixels import (
     find_erroneous_pixels_median,
     find_erroneous_pixels_threshold,
@@ -97,8 +107,22 @@ from .io.metadata import (
 )
 from .io.raw_loader import frame_from_parts, load_raw, load_raw_dng
 from .ops.resample import bilinear_sample, remap_bilinear, remap_lanczos4
-from .pipeline.develop import DevelopConfig, develop, develop_burst, develop_to_image
+from .pipeline.develop import (
+    DevelopConfig,
+    develop,
+    develop_burst,
+    develop_to_image,
+    develop_with_stats,
+)
 from .pipeline.pipeline import PipelineConfig, develop_pipeline
+from .warp.gain_opcodes import (
+    GainMap,
+    VignetteRadial,
+    apply_gain_opcodes,
+    encode_gain_map,
+    encode_opcode_list,
+    encode_vignette_radial,
+)
 from .warp.opcodes import apply_opcode_3_warp, encode_warp_rectilinear, stack_warp_prior
 from .warp.rectilinear import (
     compute_offset_remapping_table,
@@ -118,13 +142,16 @@ __all__ = [
     "PipelineConfig",
     "develop_pipeline",
     "stack_frames",
+    "bayer_normalize",
     "bayer_to_planes",
     "bayer_to_rgbg",
     "planes_to_bayer",
     "reversible_transform_rggb",
     "rgbg_to_bayer",
     "cam_to_lin_srgb",
+    "cam_to_clean_xyz",
     "lin_srgb_to_srgb",
+    "srgb_to_lin_srgb",
     "lin_srgb_to_oklab",
     "oklab_to_lin_srgb",
     "CameraWhiteBalanceController",
@@ -158,11 +185,18 @@ __all__ = [
     "develop",
     "develop_burst",
     "develop_to_image",
+    "develop_with_stats",
     "frame_from_parts",
     "load_raw",
     "load_raw_dng",
     "save_image",
     "apply_opcode_3_warp",
+    "apply_gain_opcodes",
+    "GainMap",
+    "VignetteRadial",
+    "encode_gain_map",
+    "encode_vignette_radial",
+    "encode_opcode_list",
     "encode_warp_rectilinear",
     "stack_warp_prior",
     "compute_remapping_table",

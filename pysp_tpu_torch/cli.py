@@ -13,9 +13,13 @@ Counterpart of ``pysp_tpu/cli.py``, in the JAX CLI's order and branches:
   (the sidecar's models, or a fit: ``--ca template|gradient|refine``) ->
   ``--save-params`` -> then ``--flat`` / ``--dark``: ``develop_pipeline``
   (dark, flat, heal, denoise); else heal (``--repair-hot-pixels``) -> denoise
-  (``--denoise``) -> develop -> the linear-light filters (``--deconv``,
+  (``--denoise``) -> develop (``--stats``: the sensor and output statistics
+  printed to stderr as JSON) -> the linear-light filters (``--deconv``,
   ``--unsharp``, ``--blur``) -> clip and sRGB gamma -> the DNG OpcodeList3
   warp (``--warp``) -> save.
+
+``--highlights reconstruct`` rebuilds clipped channels before the colour
+tail; a DNG's OpcodeList1 / OpcodeList2 apply at load.
 
 A sidecar's temperature replays through the ``--temperature`` branch, as in
 the JAX CLI. The image stays on the device from the load to the save.
@@ -23,13 +27,14 @@ the JAX CLI. The image stays on the device from the load to the save.
 The JAX CLI takes its device from JAX's backend; this one takes ``--device``,
 ``cuda`` unless asked otherwise, and raises without a GPU. Every flag and
 subcommand that is not ported yet (several inputs without ``--hdr``,
-``--stats``, ``info``, ``harvest``, ``verify-decode``) parses as in the JAX
-CLI and raises ``NotImplementedError`` naming its ROADMAP.md item; so does an
-output format other than TIFF (through ``save_image``).
+``info``, ``harvest``, ``verify-decode``) parses as in the JAX CLI and raises
+``NotImplementedError`` naming its ROADMAP.md item; so does an output format
+other than TIFF (through ``save_image``).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -99,16 +104,11 @@ _SUBCOMMAND_ITEMS = {
 
 def _refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for a develop flag that is not ported."""
-    unported = [
-        (len(args.inputs) > 1 and not args.hdr, "several inputs (the streamed develop)",
-         "queue A, item 15 (pipeline/stream.py)"),
-        (args.stats, "--stats", "queue A, item A7 (develop_with_stats)"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to pysp_tpu_torch yet (ROADMAP.md {item})"
-            )
+    if len(args.inputs) > 1 and not args.hdr:
+        raise NotImplementedError(
+            "several inputs (the streamed develop) is not ported to pysp_tpu_torch "
+            "yet (ROADMAP.md queue A, item 15: pipeline/stream.py)"
+        )
 
 
 def _split_spec(spec, default_second):
@@ -181,6 +181,7 @@ def _develop(args) -> int:
         QualityDemosaic,
         develop,
         develop_pipeline,
+        develop_with_stats,
         find_erroneous_pixels_median,
         load_raw,
         repair_bad_pixels,
@@ -268,7 +269,13 @@ def _develop(args) -> int:
             from .correct.denoise import denoise_bayer_wavelet
 
             frame = denoise_bayer_wavelet(frame, args.denoise)
-        out = develop(frame, cfg)
+        if args.stats:
+            out, stats = develop_with_stats(frame, cfg)
+            host_stats = {k: {kk: vv.cpu().numpy().tolist() for kk, vv in v.items()}
+                          for k, v in stats.items()}
+            print(json.dumps(host_stats, indent=2), file=sys.stderr)
+        else:
+            out = develop(frame, cfg)
     return _finish(args, out, filtering, device, t0, _dst_for(args, src), src, warp_src=src)
 
 

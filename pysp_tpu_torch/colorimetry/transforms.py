@@ -1,8 +1,9 @@
 """Device-side colour transforms on tensors.
 
 Counterpart of the device half of ``pysp_tpu/colorimetry/transforms.py``:
-the de-tint row-normalized camera -> linear sRGB conversion, the sRGB gamma
-encode and the cv2-compatible channelwise RGB -> CIELAB used by AHD.
+the de-tint row-normalized camera -> destination RGB conversion (linear sRGB,
+or XYZ through a Rec. 2020 PCS), the sRGB gamma encode and decode, Oklab and
+the cv2-compatible RGB -> CIELAB used by AHD.
 
 Two numerical rules keep the CPU and CUDA results the same as each other:
 
@@ -22,8 +23,9 @@ from .spaces import LinRgbColorspace
 
 Tensor = torch.Tensor
 
-# Base (unadapted, D65-white) RGB->XYZ matrix, computed once on host in float64.
+# Base (unadapted, D65-white) RGB->XYZ matrices, computed once on host in float64.
 _REC709_TO_XYZ = np.asarray(LinRgbColorspace.REC709.mat_to_xyz(), np.float64)
+_REC2020_TO_XYZ = np.asarray(LinRgbColorspace.REC2020.mat_to_xyz(), np.float64)
 _D65_XYZ = np.array([0.31272 / 0.32903, 1.0, (1 - 0.31272 - 0.32903) / 0.32903])
 
 _BRADFORD_NP = np.array(
@@ -112,14 +114,42 @@ def cam_to_lin_srgb_matrix(cam_mat: Tensor, cam_white: Tensor) -> Tensor:
     )
 
 
+def cam_to_rgb_norm(
+    rgb: Tensor,
+    cam_mat: Tensor,
+    cam_white: Tensor,
+    dest_base: Tensor,
+    dest_white: Tensor,
+    clip_highlights: bool = True,
+) -> Tensor:
+    """Camera-space RGB (..., 3) -> destination linear RGB with de-tint
+    normalization: build ``cam_mat @ (RGB->XYZ adapted to camera white)``,
+    row-normalize so camera r=g=b maps to output r=g=b, invert, apply."""
+    if clip_highlights:
+        rgb = clip_rgb(rgb)
+    color_mat = cam_to_rgb_norm_matrix(cam_mat, cam_white, dest_base, dest_white)
+    return mat3_apply(rgb, color_mat).to(torch.float32)
+
+
 def cam_to_lin_srgb(
     rgb: Tensor, cam_mat: Tensor, cam_white: Tensor, clip_highlights: bool = True
 ) -> Tensor:
     """Camera-space RGB (..., 3) -> linear sRGB with de-tint normalization."""
-    if clip_highlights:
-        rgb = clip_rgb(rgb)
-    color_mat = cam_to_lin_srgb_matrix(cam_mat, cam_white)
-    return mat3_apply(rgb, color_mat).to(torch.float32)
+    return cam_to_rgb_norm(
+        rgb, cam_mat, cam_white, _f32(_REC709_TO_XYZ, cam_mat), _f32(_D65_XYZ, cam_mat),
+        clip_highlights,
+    )
+
+
+def cam_to_clean_xyz(
+    rgb: Tensor, cam_mat: Tensor, cam_white: Tensor, clip_highlights: bool = True
+) -> Tensor:
+    """Camera RGB (..., 3) -> XYZ through a wide-gamut PCS (Rec. 2020)."""
+    dest_base = _f32(_REC2020_TO_XYZ, cam_mat)
+    rgb_norm = cam_to_rgb_norm(
+        rgb, cam_mat, cam_white, dest_base, _f32(_D65_XYZ, cam_mat), clip_highlights
+    )
+    return mat3_apply(rgb_norm, dest_base).to(torch.float32)
 
 
 def lin_srgb_to_srgb(rgb: Tensor) -> Tensor:
@@ -129,6 +159,16 @@ def lin_srgb_to_srgb(rgb: Tensor) -> Tensor:
         rgb <= 0.0031308,
         rgb * 12.92,
         1.055 * torch.pow(torch.clamp(rgb, min=1e-12), 1.0 / 2.4) - 0.055,
+    )
+
+
+def srgb_to_lin_srgb(srgb: Tensor) -> Tensor:
+    """sRGB -> linear sRGB gamma decode. Clips to [0,1] first."""
+    srgb = clip_rgb(srgb)
+    return torch.where(
+        srgb <= 0.04045,
+        div_const(srgb, 12.92),
+        torch.pow(div_const(srgb + 0.055, 1.055), 2.4),
     )
 
 
@@ -209,3 +249,10 @@ def rgb_to_lab_channels(r: Tensor, g: Tensor, b: Tensor):
     a = 500.0 * (fx - fy)
     bb = 200.0 * (fy - fz)
     return lum, a, bb
+
+
+def rgb_to_lab(rgb: Tensor) -> Tensor:
+    """RGB [0,1] (..., 3) -> CIELAB (..., 3) with cv2's float semantics:
+    :func:`rgb_to_lab_channels` on the three channels, stacked."""
+    lum, a, b = rgb_to_lab_channels(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+    return torch.stack([lum, a, b], dim=-1)

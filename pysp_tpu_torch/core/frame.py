@@ -23,6 +23,11 @@ _D65_WHITE = (0.95043, 1.0, 1.08890)
 
 
 def _f32(value, device) -> Tensor:
+    """A float32 contiguous copy of ``value`` (an array, a number or a tensor
+    on any device) on ``device``."""
+    if isinstance(value, torch.Tensor):
+        out = torch.empty(tuple(value.shape), dtype=torch.float32, device=device)
+        return out.copy_(value)
     return torch.tensor(np.asarray(value, np.float32), device=device)
 
 
@@ -87,9 +92,9 @@ class RawFrame:
         source_pattern: BayerPattern = BayerPattern.Rggb,
         device=CARD,
     ) -> "RawFrame":
-        """Build a frame from NumPy arrays (or anything ``np.asarray`` takes),
-        copied into float32 contiguous tensors on ``device`` (the card unless
-        the caller asks for another)."""
+        """Build a frame from NumPy arrays (or anything ``np.asarray`` takes, or
+        tensors), copied into float32 contiguous tensors on ``device`` (the
+        card unless the caller asks for another)."""
         device = resolve_device(device)
         return cls(
             bayer=_f32(bayer, device),

@@ -1,4 +1,5 @@
-// One AHD chroma-median postprocess stage on three (H, W) float32 planes:
+// One AHD chroma-median postprocess stage on three (H, W) float32 planes, or
+// on one (H, W, 3) interleaved image:
 //
 //   r' = med5(r - g) + g
 //   b' = med5(b - g) + g
@@ -7,8 +8,10 @@
 // every 5x5 median with a replicate border, as cv2.medianBlur(src, 5).
 //
 // Replaces: pysp_tpu/ops/pallas_kernels.py::postprocess_color_pallas_channels
-// (body _postprocess_kernel). Plain version beside it:
-// pysp_tpu_torch/demosaic/ahd.py::postprocess_color_channels.
+// (body _postprocess_kernel) and, for the (H, W, 3) image,
+// postprocess_color_pallas. Plain versions beside them:
+// pysp_tpu_torch/demosaic/ahd.py::postprocess_color_channels and
+// postprocess_color.
 //
 // What bounds it on an H100: the rate of min and max, not device memory.
 // A pixel moves 24 bytes (12 read, 12 written) and takes four exact medians of
@@ -40,9 +43,16 @@
 //   that the clamp names, which lies in the block's own region. Any H, W >= 1
 //   goes.
 //
+// The layout is a template parameter too. The planes' kernel reads and writes
+// three planes; the image's kernel (HWC) reads and writes one (H, W, 3) array,
+// a pixel's three channels side by side (a pixel stride of 3): a strip of four
+// pixels is three 16-byte accesses, split into its three channels in
+// registers, so the image needs no channel copies before the stage and no
+// stack after it.
+//
 // The arithmetic is the plain version's subtractions, adds and one multiply by
 // 0.5 in the same order, and a median is a selection, so the result is
-// bit-identical to the plain version at every shape.
+// bit-identical to the plain version at every shape, in both layouts.
 #include "median5_columns.cuh"
 #include "tile_loops.cuh"
 
@@ -96,6 +106,35 @@ struct Rgb4 {
   Vec4 r, g, b;
 };
 
+// The pixels o .. o + 3 of the three channels (pixel indices; 16-byte aligned).
+// HWC: r is the image and g, b are unused; else three planes.
+template <bool HWC>
+__device__ __forceinline__ Rgb4 load_rgb4(const float* r, const float* g, const float* b,
+                                          size_t o) {
+  if (HWC) {
+    const Vec4* p = (const Vec4*)(r + 3 * o);
+    const Vec4 a = p[0], c = p[1], d = p[2];  // r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3
+    return Rgb4{Vec4{{a.v[0], a.v[3], c.v[2], d.v[1]}}, Vec4{{a.v[1], c.v[0], c.v[3], d.v[2]}},
+                Vec4{{a.v[2], c.v[1], d.v[0], d.v[3]}}};
+  }
+  return Rgb4{*(const Vec4*)(r + o), *(const Vec4*)(g + o), *(const Vec4*)(b + o)};
+}
+
+template <bool HWC>
+__device__ __forceinline__ void store_rgb4(float* r, float* g, float* b, size_t o,
+                                           const Vec4& vr, const Vec4& vg, const Vec4& vb) {
+  if (HWC) {
+    Vec4* p = (Vec4*)(r + 3 * o);
+    p[0] = Vec4{{vr.v[0], vg.v[0], vb.v[0], vr.v[1]}};
+    p[1] = Vec4{{vg.v[1], vb.v[1], vr.v[2], vg.v[2]}};
+    p[2] = Vec4{{vb.v[2], vr.v[3], vg.v[3], vb.v[3]}};
+    return;
+  }
+  *(Vec4*)(r + o) = vr;
+  *(Vec4*)(g + o) = vg;
+  *(Vec4*)(b + o) = vb;
+}
+
 // The 5x5 medians of the four pixels (ly, lx .. lx + 3) of `d`, whose halo is
 // two pixels deeper than the strips' region, so that the strip's 5x8 window
 // starts on a 16-byte boundary.
@@ -121,12 +160,17 @@ __device__ __forceinline__ void for_strips(int e, F f) {
   for_cells(kTH + 2 * e, (kTW + 2 * e) / 4, [&](int r, int q) { f(r - e, 4 * q - e); });
 }
 
-template <bool FAST>
+// HWC: r, g, b (and the outputs) point at one image's channels 0, 1, 2, a
+// pixel stride of 3 apart; else at three planes. No element is written
+// through two of the pointers, nor read through one and written through
+// another, so they stay __restrict__ in both layouts.
+template <bool FAST, bool HWC>
 __device__ __forceinline__ void postprocess_block(
     const float* __restrict__ r, const float* __restrict__ g,
     const float* __restrict__ b, float* __restrict__ r_out,
     float* __restrict__ g_out, float* __restrict__ b_out, float* smem, int H,
     int W) {
+  constexpr int S = HWC ? 3 : 1;  // pixel stride
   const Field G{smem, kIn}, RG{G.p + cells(kIn), kIn}, BG{RG.p + cells(kIn), kIn};
   const Field RP{BG.p + cells(kIn), kMid}, BP{RP.p + cells(kMid), kMid};
   const Field GR{BP.p + cells(kMid), kMid}, GB{GR.p + cells(kMid), kMid};
@@ -142,7 +186,7 @@ __device__ __forceinline__ void postprocess_block(
         kTH + 2 * kIn, (kTW + 2 * kIn) / 4,
         [&](int row, int q) {
           const size_t o = (size_t)(y0 + row - kIn) * W + (x0 + 4 * q - kIn);
-          return Rgb4{*(const Vec4*)(r + o), *(const Vec4*)(g + o), *(const Vec4*)(b + o)};
+          return load_rgb4<HWC>(r, g, b, o);
         },
         [&](int row, int q, const Rgb4& v) {
           Vec4 rg, bg;
@@ -160,8 +204,8 @@ __device__ __forceinline__ void postprocess_block(
     for_cells_loading<4>(
         kTH + 2 * kIn, kTW + 2 * kIn,
         [&](int row, int c) {
-          const size_t o = (size_t)clamp_index(y0 + row - kIn, H) * W +
-                           clamp_index(x0 + c - kIn, W);
+          const size_t o = ((size_t)clamp_index(y0 + row - kIn, H) * W +
+                            clamp_index(x0 + c - kIn, W)) * S;
           return Rgb{r[o], g[o], b[o]};
         },
         [&](int row, int c, const Rgb& v) {
@@ -234,43 +278,59 @@ __device__ __forceinline__ void postprocess_block(
     }
     const size_t o = (size_t)(y0 + ly) * W + (x0 + lx);
     if (FAST) {
-      *(Vec4*)(r_out + o) = rp;
-      *(Vec4*)(g_out + o) = gp;
-      *(Vec4*)(b_out + o) = bp;
+      store_rgb4<HWC>(r_out, g_out, b_out, o, rp, gp, bp);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (!holds(ly, lx + j)) continue;
-        r_out[o + j] = rp.v[j];
-        g_out[o + j] = gp.v[j];
-        b_out[o + j] = bp.v[j];
+        r_out[(o + j) * S] = rp.v[j];
+        g_out[(o + j) * S] = gp.v[j];
+        b_out[(o + j) * S] = bp.v[j];
       }
     }
   });
 }
 
-// One block computes one tile. `aligned` says that every row of the six planes
-// starts on a 16-byte boundary (rows_aligned).
-__global__ void __launch_bounds__(kThreads, PP_MIN_BLOCKS)
-postprocess_kernel(const float* __restrict__ r, const float* __restrict__ g,
-                   const float* __restrict__ b, float* __restrict__ r_out,
-                   float* __restrict__ g_out, float* __restrict__ b_out,
-                   int H, int W, int aligned) {
+// One block computes one tile. `aligned` says that every row of the planes
+// (of the image) starts on a 16-byte boundary (rows_aligned).
+template <bool HWC>
+__device__ __forceinline__ void postprocess_tile(
+    const float* __restrict__ r, const float* __restrict__ g,
+    const float* __restrict__ b, float* __restrict__ r_out,
+    float* __restrict__ g_out, float* __restrict__ b_out, int H, int W,
+    int aligned) {
   extern __shared__ __align__(16) float smem[];
   const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
   const bool inside =
       y0 >= kIn && x0 >= kIn && y0 + kTH + kIn <= H && x0 + kTW + kIn <= W;
   if (inside && aligned) {
-    postprocess_block<true>(r, g, b, r_out, g_out, b_out, smem, H, W);
+    postprocess_block<true, HWC>(r, g, b, r_out, g_out, b_out, smem, H, W);
   } else {
-    postprocess_block<false>(r, g, b, r_out, g_out, b_out, smem, H, W);
+    postprocess_block<false, HWC>(r, g, b, r_out, g_out, b_out, smem, H, W);
   }
+}
+
+// Three (H, W) planes in, three out.
+__global__ void __launch_bounds__(kThreads, PP_MIN_BLOCKS)
+postprocess_kernel(const float* __restrict__ r, const float* __restrict__ g,
+                   const float* __restrict__ b, float* __restrict__ r_out,
+                   float* __restrict__ g_out, float* __restrict__ b_out,
+                   int H, int W, int aligned) {
+  postprocess_tile<false>(r, g, b, r_out, g_out, b_out, H, W, aligned);
+}
+
+// One (H, W, 3) image in, one out.
+__global__ void __launch_bounds__(kThreads, PP_MIN_BLOCKS)
+postprocess_hwc_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
+                       int W, int aligned) {
+  postprocess_tile<true>(img, img + 1, img + 2, out, out + 1, out + 2, H, W, aligned);
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
-// Launches one stage on `stream`; returns the cudaError_t of the launch.
+// Launches one stage on three planes on `stream`; returns the cudaError_t of
+// the launch.
 extern "C" int pysp_postprocess_color(const float* r, const float* g,
                                       const float* b, float* r_out,
                                       float* g_out, float* b_out, int H, int W,
@@ -283,6 +343,20 @@ extern "C" int pysp_postprocess_color(const float* r, const float* g,
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
   postprocess_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
       r, g, b, r_out, g_out, b_out, H, W, (int)rows_aligned(W, planes, 6));
+  return (int)cudaGetLastError();
+}
+
+// Launches one stage on an (H, W, 3) image on `stream`.
+extern "C" int pysp_postprocess_color_hwc(const float* img, float* out, int H, int W,
+                                          void* stream) {
+  static int ready_device = -1;
+  const int bytes = kSmemFloats * (int)sizeof(float);
+  cudaError_t err = allow_shared_memory(postprocess_hwc_kernel, bytes, &ready_device);
+  if (err != cudaSuccess) return (int)err;
+  const void* const images[2] = {img, out};
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
+  postprocess_hwc_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      img, out, H, W, (int)rows_aligned(W, images, 2));
   return (int)cudaGetLastError();
 }
 #endif

@@ -115,6 +115,19 @@ def postprocess_color_channels(r: Tensor, g: Tensor, b: Tensor):
     return r, g, b
 
 
+def postprocess_color(image: Tensor, use_pallas: bool = False) -> Tensor:
+    """One chroma-median stage on an (H, W, 3) image. With ``use_pallas`` a
+    CUDA image goes through the postprocess kernel's (H, W, 3) entry
+    (``ops.cuda_kernels.postprocess_color_image_kernel``, bit-identical);
+    otherwise the plain stage runs on the three channels."""
+    if use_pallas and image.device.type == "cuda":
+        from ..ops.cuda_kernels import postprocess_color_image_kernel
+
+        return postprocess_color_image_kernel(image.contiguous())
+    r, g, b = postprocess_color_channels(image[..., 0], image[..., 1], image[..., 2])
+    return torch.stack([r, g, b], dim=-1)
+
+
 def ahd_candidates(bayer: Tensor, wb: Tensor):
     """The six candidate fields ``(r_h, g_h, b_h, r_v, g_v, b_v)`` of a
     canonical-RGGB mosaic (H, W): green interpolated along the rows (h) and

@@ -6,11 +6,16 @@ normalize, decode and validate the 2x2 CFA pattern, apply DNG ActiveArea and
 DefaultCrop with CFA-alignment checks, build the WB controller from the embedded
 calibration matrices, compute EV, and canonicalize the mosaic to RGGB.
 
+The DNG's OpcodeList1 (FixBadPixelsConstant / FixBadPixelsList: the listed
+photosites healed) and OpcodeList2 (GainMap / FixVignetteRadial: the shading
+gains) apply to the normalized mosaic before the ActiveArea and the crop, on
+the load device, as in the JAX package.
+
 ``controller_for_source`` rebuilds a decoded frame's WB controller, for WB
 from a colour temperature (``frame_from_parts`` then builds the frame anew).
 
-Not ported yet (ROADMAP.md queue A, items A3-A6): lossless-JPEG DNGs, DNG
-opcode lists, the persistent camera-matrix harvest and every non-DNG format.
+Not ported yet (ROADMAP.md queue A, items A3, A5 and A6): lossless-JPEG DNGs,
+the persistent camera-matrix harvest and every non-DNG format.
 """
 from __future__ import annotations
 
@@ -68,11 +73,12 @@ def _decode_pattern(cfa_codes) -> BayerPattern:
 
 
 def _apply_area_and_crop(
-    sensor: np.ndarray,
+    sensor,
     active_area: Optional[list],
     crop: Optional[Tuple[list, list]],
-) -> np.ndarray:
-    """ActiveArea then DefaultCrop, with CFA-alignment guards."""
+):
+    """ActiveArea then DefaultCrop of a mosaic (an array or a tensor), with
+    CFA-alignment guards."""
     if active_area is not None:
         # DNG ActiveArea: top, left, bottom, right, treated as inclusive indices
         y_start, x_start = active_area[0], active_area[1]
@@ -119,13 +125,15 @@ def _black_white_levels(raw_ifd: T.Ifd, n: int = 4) -> Tuple[np.ndarray, np.ndar
     return black[:n].astype(np.float64), white[:n].astype(np.float64)
 
 
-def load_raw_dng(source: Source, device=CARD) -> RawFrame:
+def load_raw_dng(source: Source, apply_gain_opcodes: bool = True, device=CARD) -> RawFrame:
     """Load an uncompressed DNG through the built-in parser onto ``device``
     (the card unless the caller asks for another; see ``core.device``).
 
-    Raises ``NotImplementedError`` for a DNG that carries OpcodeList1 or
-    OpcodeList2: the opcode decoders are not ported yet, and skipping them would
-    develop a different image than the JAX package does."""
+    With ``apply_gain_opcodes`` (the JAX package's switch, for both lists) the
+    OpcodeList1 bad pixels are healed on the normalized mosaic, matched for
+    FixBadPixelsConstant on the stored counts after the linearization table,
+    and then the OpcodeList2 gains are applied, both on ``device`` and before
+    the ActiveArea and the crop."""
     device = resolve_device(device)
     tf = T.read_tiff(source)
     raw_ifd = tf.find_raw_ifd()
@@ -142,14 +150,6 @@ def load_raw_dng(source: Source, device=CARD) -> RawFrame:
         list(cfa.as_bytes() if isinstance(cfa.values, bytes) else cfa.as_ints())[:4]
     )
 
-    for tag, name in ((T.TAG_OPCODE_LIST_1, "OpcodeList1"),
-                      (T.TAG_OPCODE_LIST_2, "OpcodeList2")):
-        if raw_ifd.get(tag) is not None:
-            raise NotImplementedError(
-                f"DNG {name} is not ported to pysp_tpu_torch yet "
-                "(ROADMAP.md queue A, item A4: the OpcodeList1/2 load path)"
-            )
-
     data = tf.read_strips(raw_ifd)
     lin = raw_ifd.get(T.TAG_LINEARIZATION_TABLE)
     if lin is not None:
@@ -157,7 +157,19 @@ def load_raw_dng(source: Source, device=CARD) -> RawFrame:
         table = np.asarray(lin.as_ints(), np.uint16)
         data = table[np.minimum(data, len(table) - 1)]
     black, white = _black_white_levels(raw_ifd)
-    sensor = _normalize_host(data, black, white)
+    sensor = torch.from_numpy(_normalize_host(data, black, white)).to(device)
+
+    if apply_gain_opcodes:
+        t1 = raw_ifd.get(T.TAG_OPCODE_LIST_1)
+        if t1 is not None:
+            from ..warp.fix_opcodes import heal_bad_pixels_from_opcodes
+
+            sensor = heal_bad_pixels_from_opcodes(sensor, data, t1.as_bytes())
+        t2 = raw_ifd.get(T.TAG_OPCODE_LIST_2)
+        if t2 is not None:
+            from ..warp.gain_opcodes import apply_gain_opcodes as _apply_gains
+
+            sensor = _apply_gains(sensor, t2.as_bytes())
 
     active_area, crop = get_image_area_from_tiff(source)
     sensor = _apply_area_and_crop(sensor, active_area, crop)
@@ -179,7 +191,7 @@ def load_raw_dng(source: Source, device=CARD) -> RawFrame:
 
 
 def frame_from_parts(
-    sensor_scaled: np.ndarray,
+    sensor_scaled,
     pattern: BayerPattern,
     cam_wb: CameraWhiteBalanceController,
     ev: float,
@@ -188,14 +200,14 @@ def frame_from_parts(
     device=CARD,
 ) -> RawFrame:
     """Assemble a canonical-RGGB RawFrame on ``device`` (the card unless the
-    caller asks for another) from decoded parts."""
+    caller asks for another) from decoded parts; ``sensor_scaled`` is a NumPy
+    array or a tensor (the loader's, already on ``device``)."""
     device = resolve_device(device)
-    canonical = reversible_transform_rggb(
-        torch.from_numpy(np.ascontiguousarray(sensor_scaled, np.float32)), pattern
-    )
+    sensor = torch.as_tensor(sensor_scaled, dtype=torch.float32).to(device)
+    canonical = reversible_transform_rggb(sensor, pattern)
     mat = cam_wb.get_matrix()
     return RawFrame.from_numpy(
-        canonical.numpy(),
+        canonical,
         mat.mat,
         mat.xyz,
         cam_wb.get_neutral(),

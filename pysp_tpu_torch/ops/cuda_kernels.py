@@ -5,8 +5,10 @@ function of the JAX package that reaches ``pl.pallas_call``:
 
 - ``ahd.cu``: the whole AHD demosaic plus the optional develop colour tail,
   counterpart of ``pysp_tpu/ops/pallas_kernels.py::ahd_mega_pallas``;
-- ``postprocess.cu``: one AHD chroma-median stage, counterpart of
-  ``pysp_tpu/ops/pallas_kernels.py::postprocess_color_pallas_channels``;
+- ``postprocess.cu``: one AHD chroma-median stage on three planes or on an
+  (H, W, 3) image, counterpart of
+  ``pysp_tpu/ops/pallas_kernels.py::postprocess_color_pallas_channels`` and
+  ``postprocess_color_pallas``;
 - ``rl.cu``: one Richardson-Lucy iteration over every channel, counterpart of
   ``pysp_tpu/ops/pallas_kernels.py::rl_deconv_pallas``;
 - ``remap.cu``: the bilinear / Lanczos4 remap over every channel, counterpart
@@ -168,6 +170,8 @@ def load_library() -> ctypes.CDLL:
     lib.pysp_ahd.restype = i32
     lib.pysp_postprocess_color.argtypes = [ptr] * 6 + [i32, i32, ptr]
     lib.pysp_postprocess_color.restype = i32
+    lib.pysp_postprocess_color_hwc.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.pysp_postprocess_color_hwc.restype = i32
     i64 = ctypes.c_longlong
     lib.pysp_rl_iter.argtypes = [ptr, ptr, ptr, i32, i32, i32, i64, i32,
                                  ctypes.POINTER(ctypes.c_float), i32, ptr]
@@ -339,6 +343,30 @@ def postprocess_color_kernel(r: Tensor, g: Tensor, b: Tensor):
     _raise_on_error(err, "postprocess kernel")
     postprocess_kernel_launches += 1
     return out[0], out[1], out[2]
+
+
+def postprocess_color_image_kernel(image: Tensor) -> Tensor:
+    """One AHD chroma-median stage on a contiguous (H, W, 3) image by the
+    postprocess kernel, which reads and writes the interleaved layout itself;
+    returns (H, W, 3), bit-identical to ``demosaic.ahd.postprocess_color``'s
+    plain stage, which runs instead on a CPU tensor."""
+    global postprocess_kernel_launches
+    if image.device.type == "cpu":
+        from ..demosaic.ahd import postprocess_color
+
+        return postprocess_color(image)
+    if image.ndim != 3 or image.shape[-1] != 3 or image.numel() == 0:
+        raise ValueError(f"image must be a non-empty (H, W, 3), got {tuple(image.shape)}")
+    _check(image, "image")
+    h, w, _ = image.shape
+    out = torch.empty_like(image)
+    lib = load_library()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = lib.pysp_postprocess_color_hwc(image.data_ptr(), out.data_ptr(), h, w, stream)
+    _raise_on_error(err, "postprocess kernel")
+    postprocess_kernel_launches += 1
+    return out
 
 
 def _layout(t: Tensor, channels_last: bool):

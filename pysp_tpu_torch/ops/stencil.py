@@ -114,6 +114,11 @@ def filter2d_hwc(x: Tensor, kernel, border: str = "reflect101") -> Tensor:
     return filter2d(x.movedim(-1, 0), kernel, border).movedim(0, -1)
 
 
+def box_blur3(x: Tensor) -> Tensor:
+    """cv2.blur(src, (3,3)) equivalent (normalized box, reflect101 border)."""
+    return filter2d(x, np.full((3, 3), 1.0 / 9.0, np.float32))
+
+
 def box_sum3(x: Tensor) -> Tensor:
     """Unnormalized 3x3 box sum (reflect101 border). On integer-valued inputs
     (the AHD homogeneity counts) every sum is exact."""
@@ -259,6 +264,24 @@ def median5(x: Tensor) -> Tensor:
     """cv2.medianBlur(src, 5) equivalent for float32 (replicate border)."""
     h, w = x.shape[-2], x.shape[-1]
     return median5_from_padded(pad_replicate(x, 2), h, w)
+
+
+# Paeth's 19-comparator network for the median of nine (Graphics Gems,
+# "Median finding on a 3x3 grid"): a selection, so the value is the one any
+# exact median network returns.
+_MEDIAN9_CE = ((1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5), (7, 8),
+               (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7), (4, 2), (6, 4),
+               (4, 2))
+
+
+def median3(x: Tensor) -> Tensor:
+    """cv2.medianBlur(src, 3) equivalent for float32 (replicate border)."""
+    xp = pad_replicate(x, 1)
+    h, w = x.shape[-2], x.shape[-1]
+    p = [xp[..., dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)]
+    for i, j in _MEDIAN9_CE:
+        p[i], p[j] = torch.minimum(p[i], p[j]), torch.maximum(p[i], p[j])
+    return p[4]
 
 
 def median2(x: Tensor) -> Tensor:

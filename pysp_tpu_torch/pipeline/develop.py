@@ -2,9 +2,11 @@
 
 Counterpart of ``pysp_tpu/pipeline/develop.py``. PyTorch runs eagerly, so
 there is no jit and ``DevelopConfig`` is a plain frozen dataclass with the same
-fields and defaults. The three quality tiers (Draft, Fast, Best) and the
-``"clip"`` highlight mode are ported; ``highlights="reconstruct"`` raises
-``NotImplementedError`` (ROADMAP.md queue A, item A2).
+fields and defaults: the three quality tiers (Draft, Fast, Best) and both
+highlight modes, ``"clip"`` and ``"reconstruct"`` (the clipped channels
+rebuilt from the unclipped ones, ``correct/highlights.py``, then a soft knee
+before gamma). ``develop_with_stats`` adds the sensor and output statistics
+of ``utils/tracing.py``.
 
 ``use_pallas`` keeps its name and meaning: use the hand-written kernels. On a
 CUDA frame, Best then develops in one launch of the AHD kernel, which computes
@@ -12,6 +14,10 @@ the whole frame, border included; more chroma-median stages than that kernel
 takes, and frames under its smallest side, go through the staged AHD route on
 the homogeneity and postprocess kernels. A kernel that cannot build or launch
 raises.
+With ``highlights="reconstruct"`` a CUDA Best frame develops through one
+launch of the AHD kernel in its demosaic-only mode (the (3, H, W) planes, no
+clip, matrix or gamma inside), and the reconstruction and the colour tail
+follow in plain PyTorch.
 On a CPU frame the plain PyTorch path runs, as the JAX package runs XLA off
 the TPU. Draft and Fast are plain PyTorch on every device, as they are plain
 XLA in the JAX package.
@@ -41,16 +47,10 @@ class DevelopConfig:
     gamma_encode: bool = True
     # Use the hand-written CUDA kernels for frames on a CUDA device.
     use_pallas: bool = True
-    # "clip" = saturate at 1.0; "reconstruct" is not ported yet.
+    # "clip" = saturate at 1.0 (blown areas render white); "reconstruct" =
+    # rebuild clipped channels from unclipped ones and compress with a soft
+    # knee (correct/highlights.py), bypassing the AHD kernel's fused tail.
     highlights: str = "clip"
-
-
-def _check_ported(cfg: DevelopConfig) -> None:
-    if cfg.highlights == "reconstruct":
-        raise NotImplementedError(
-            'highlights="reconstruct" is not ported to pysp_tpu_torch yet '
-            "(ROADMAP.md queue A, item A2: correct/highlights.py)"
-        )
 
 
 def _use_kernel(frame: RawFrame, cfg: DevelopConfig) -> bool:
@@ -63,8 +63,8 @@ def _use_kernel(frame: RawFrame, cfg: DevelopConfig) -> bool:
 
 
 def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
-    """Demosaic + un-canonicalize to the source pattern orientation."""
-    _check_ported(cfg)
+    """Demosaic + un-canonicalize to the source pattern orientation. The
+    highlight mode does not enter here, as in the JAX package."""
     dev = demosaic(frame, cfg.quality, cfg.postprocess_stages, cfg.use_pallas)
     if frame.source_pattern != BayerPattern.Rggb:
         dev = dev.replace(
@@ -126,16 +126,22 @@ def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
     With the kernel, Best's colour tail runs inside the AHD kernel and the
     image leaves it in its final layout. A 2-D Draft or Fast frame takes the
     fused polyphase develop (the tail on the phase planes, one full-res
-    assembly per channel), as in the JAX package."""
-    _check_ported(cfg)
+    assembly per channel), as in the JAX package.
+
+    With ``highlights="reconstruct"``: the demosaiced channels (on a CUDA
+    Best frame the AHD kernel's planes), the reconstruction against the
+    frame's WB gains and ``lim_sat``, the cam->lin-sRGB matrix with no clip
+    before it, the soft knee of ``max(c, 0)``, then gamma."""
     out = srgb = None
-    if _use_kernel(frame, cfg):
+    if cfg.highlights == "reconstruct":
+        srgb = _reconstruct_channels(frame, cfg)
+    elif _use_kernel(frame, cfg):
         from ..demosaic.ahd_mega import develop_channels_mega
 
         out = develop_channels_mega(
             frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
         )
-    if out is None and frame.bayer.ndim == 2:
+    if out is None and srgb is None and frame.bayer.ndim == 2:
         if cfg.quality == QualityDemosaic.Draft:
             from ..demosaic.draft import develop_channels_draft
 
@@ -157,9 +163,38 @@ def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
     return out
 
 
+def _reconstruct_channels(frame: RawFrame, cfg: DevelopConfig):
+    """The develop's (r, g, b) with the clipped channels reconstructed."""
+    from ..colorimetry.transforms import lin_srgb_to_srgb
+    from ..correct.highlights import compress_highlights, reconstruct_highlights_channels
+
+    r, g, b = _demosaic_channels(frame, cfg)
+    r, g, b = reconstruct_highlights_channels(r, g, b, frame.wb_reciprocal(), frame.lim_sat)
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    # no pre-matrix clip: super-white survives the matrix, then a soft knee
+    # brings it under 1.0 with tonal separation before gamma
+    srgb = [compress_highlights(torch.clamp(c, min=0.0))
+            for c in _color_tail_channels(r, g, b, mat, False, False)]
+    if cfg.gamma_encode:
+        srgb = [lin_srgb_to_srgb(c) for c in srgb]
+    return srgb
+
+
 def develop_burst(frames: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
     """Develop a burst: every tensor of ``frames`` carries a leading frame axis.
 
     Frames develop one after another, as ``lax.map`` runs them in the JAX
     package; the result is (N, H, W, 3)."""
     return torch.stack([develop(f, cfg) for f in unstack_frames(frames)])
+
+
+def develop_with_stats(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()):
+    """Develop, and the sensor and output statistics beside it:
+    ``(out, {"sensor": bayer_stats(bayer, lim_sat), "output": rgb_stats(out)})``,
+    each statistic a 0-d or (3,) tensor on the frame's device."""
+    from ..utils.tracing import bayer_stats, rgb_stats
+
+    stats = {"sensor": bayer_stats(frame.bayer, frame.lim_sat)}
+    out = develop(frame, cfg)
+    stats["output"] = rgb_stats(out)
+    return out, stats

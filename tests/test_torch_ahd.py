@@ -23,6 +23,7 @@ from pysp_tpu.core.frame import RawFrame as JaxFrame
 from pysp_tpu.demosaic import ahd as jax_ahd_module
 from pysp_tpu.demosaic import homogeneity as jax_homogeneity
 from pysp_tpu.demosaic.ahd import demosaic_ahd_channels as jax_ahd
+from pysp_tpu.demosaic.ahd import postprocess_color as jax_postprocess_image
 from pysp_tpu.demosaic.ahd import postprocess_color_channels as jax_postprocess
 from pysp_tpu.utils.testing import make_scene, mosaic_rggb, psnr
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
@@ -33,6 +34,7 @@ from pysp_tpu_torch.demosaic.ahd import (
     ahd_decision,
     ahd_decision_plain,
     demosaic_ahd_channels,
+    postprocess_color,
     postprocess_color_channels,
 )
 from pysp_tpu_torch.ops.stencil import median5
@@ -75,6 +77,19 @@ def test_postprocess_color_channels_bit_exact():
     got = postprocess_color_channels(*(torch.from_numpy(rgb[..., k].copy()) for k in range(3)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("shape", [(96, 112), (37, 50), (3, 5)])
+def test_postprocess_color_image_bit_exact(shape, use_pallas):
+    """One chroma-median stage of an (H, W, 3) image, the JAX package's
+    ``postprocess_color`` run op by op; on CPU tensors ``use_pallas`` changes
+    nothing (the kernel's entry runs the plain stage)."""
+    rgb = make_scene(*shape, seed=shape[0])
+    want = np.asarray(jax_postprocess_image(jnp.asarray(rgb)))
+    got = postprocess_color(torch.from_numpy(rgb), use_pallas=use_pallas)
+    assert got.shape == (*shape, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("shape", [(160, 192), (96, 160), (8, 12)])
@@ -129,6 +144,9 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu_only():
     chans = [planes[k] for k in range(3)]
     for g, w in zip(K.postprocess_color_kernel(*chans), postprocess_color_channels(*chans)):
         assert torch.equal(g, w)
+    image = planes.permute(1, 2, 0).contiguous()
+    assert torch.equal(K.postprocess_color_image_kernel(image),
+                       torch.stack(postprocess_color_channels(*chans), dim=-1))
     assert torch.equal(K.median5_kernel(chans[0]), median5(chans[0]))
     for vertical in (False, True):
         assert torch.equal(K.homogeneity_kernel(*chans, vertical),
@@ -144,6 +162,8 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu_only():
         K.ahd_kernel(*meta, False, 1)
     with pytest.raises(ValueError, match="CUDA"):
         K.postprocess_color_kernel(*(c.to("meta") for c in chans))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.postprocess_color_image_kernel(image.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         K.median5_kernel(chans[0].to("meta"))
     with pytest.raises(ValueError, match="CUDA"):

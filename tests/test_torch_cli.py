@@ -5,6 +5,7 @@ corrections (``--flat --repair-hot-pixels``, ``--dark --denoise``, ``--hdr``)
 are held against the same chains composed from the JAX package's functions,
 run op by op (``jax.disable_jit()``), on the 16-bit TIFF they write.
 """
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -190,24 +191,69 @@ def test_hdr_output_is_named_after_the_first_input(tmp_path):
     assert _read_rgb16(tmp_path / "b0_hdr.tif").shape == (160, 192, 3)
 
 
+@pytest.fixture(scope="module")
+def blown_dng(tmp_path_factory):
+    """A 160x192 RGGB DNG whose bright blob clips: stored counts reach
+    black + white (256 + 4095), which normalizes to 1.0."""
+    h, w = 160, 192
+    rgb = make_scene(h, w, seed=8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    blob = np.exp(-(((yy - h / 2) / (h / 6)) ** 2 + ((xx - w / 3) / (w / 6)) ** 2))
+    mosaic = mosaic_rggb((rgb * (1 + 1.5 * blob[..., None])).astype(np.float32))
+    u16 = (256 + np.minimum(mosaic, 1.0) * 4095).astype(np.uint16)
+    assert (u16 == 256 + 4095).mean() > 0.01
+    path = tmp_path_factory.mktemp("cli_blown") / "blown.dng"
+    path.write_bytes(T.write_synthetic_dng(u16))
+    return path
+
+
+def test_highlights_reconstruct_and_stats_match_the_jax_chain(blown_dng, tmp_path, capsys):
+    """``develop --highlights reconstruct --stats`` writes the JAX chain's
+    TIFF (op by op, within one 16-bit code) and prints the JAX CLI's stats
+    JSON to stderr: the same keys, the sensor values within 1e-6 relative and
+    the output's within 1e-5."""
+    from pysp_tpu.pipeline.develop import develop_with_stats
+
+    out = tmp_path / "rec.tif"
+    assert main(["develop", str(blown_dng), "-o", str(out), "--device", "cpu",
+                 "--highlights", "reconstruct", "--stats"]) == 0
+    stats = json.loads(capsys.readouterr().err)
+    got = _read_rgb16(out)
+
+    with jax.disable_jit():
+        frame = jax_load_raw_dng(blown_dng.read_bytes())
+        img, want = develop_with_stats(frame, DevelopConfig(highlights="reconstruct"))
+    want_img = to_uint16(np.asarray(img))
+    assert got.shape == want_img.shape == (160, 192, 3)
+    assert np.abs(got.astype(np.int64) - want_img.astype(np.int64)).max() <= 1
+    assert {k: sorted(v) for k, v in stats.items()} == {k: sorted(v) for k, v in want.items()}
+    for k, v in want["sensor"].items():
+        np.testing.assert_allclose(stats["sensor"][k], np.asarray(v), rtol=1e-6, err_msg=k)
+    for k, v in want["output"].items():
+        np.testing.assert_allclose(stats["output"][k], np.asarray(v), atol=1e-5, err_msg=k)
+    assert stats["sensor"]["clip_high_frac"] > 0.01
+
+    # without --stats nothing is printed, and the clip develop differs
+    clip = tmp_path / "clip.tif"
+    assert main(["develop", str(blown_dng), "-o", str(clip), "--device", "cpu"]) == 0
+    assert capsys.readouterr().err == ""
+    assert not np.array_equal(_read_rgb16(clip), got)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--stats"], "A7"),
+    (["{input}"], "item 15"),   # several inputs without --hdr: the streamed develop
 ])
 def test_unported_flags_name_their_roadmap_item(warped_dng, flags, item):
     path, _ = warped_dng
+    flags = [str(path) if f == "{input}" else f for f in flags]
     with pytest.raises(NotImplementedError, match=item):
-        main(["develop", str(path), "--device", "cpu", *flags])
+        main(["develop", str(path), *flags, "--device", "cpu"])
 
 
 def test_unported_outputs_and_subcommands_raise(warped_dng, tmp_path):
     path, _ = warped_dng
     with pytest.raises(NotImplementedError, match="A3"):
         main(["develop", str(path), "--device", "cpu", "-o", str(tmp_path / "x.png")])
-    with pytest.raises(NotImplementedError, match="A2"):
-        main(["develop", str(path), "--device", "cpu", "--quality", "fast",
-              "--highlights", "reconstruct"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(["develop", str(path), str(path), "--device", "cpu"])
     for sub in ("info", "harvest", "verify-decode"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main([sub, str(path)])

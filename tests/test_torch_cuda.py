@@ -699,3 +699,131 @@ def test_centre_pixel_rule_on_the_card(cuda):
     plane = torch.rand(21, 21, device=cuda)
     out = radial_correct_channel(plane, torch.tensor([0.01, -0.004], device=cuda), "poly5")
     assert bool(torch.isfinite(out).all()) and out[10, 10].item() == plane[10, 10].item()
+
+
+# --- the DNG develop surface: opcodes at load, reconstruction, statistics ----------
+
+
+@pytest.mark.parametrize("shape", [
+    (37, 50), (100, 200), (100, 202), (96, 256), (70, 20), (3, 5), (1, 7), (1, 1),
+])
+def test_postprocess_image_entry_bit_exact(cuda, shape):
+    """The (H, W, 3) entry of the postprocess kernel equals the plain stage."""
+    from pysp_tpu_torch.demosaic.ahd import postprocess_color
+
+    image = torch.from_numpy(chroma_case(*shape, seed=shape[1])).to(cuda).permute(1, 2, 0)
+    image = image.contiguous()
+    before = K.postprocess_kernel_launches
+    got = postprocess_color(image, use_pallas=True)
+    assert K.postprocess_kernel_launches == before + 1
+    assert torch.equal(got, postprocess_color(image))
+
+
+def test_postprocess_image_entry_off_the_16_byte_alignment_and_bad_inputs(cuda):
+    from pysp_tpu_torch.demosaic.ahd import postprocess_color
+
+    h, w = 100, 200
+    store = torch.zeros(h * w * 3 + 1, device=cuda)
+    image = store[1:].view(h, w, 3)
+    image.copy_(torch.from_numpy(chroma_case(h, w, seed=7)).to(cuda).permute(1, 2, 0))
+    assert image.data_ptr() % 16 != 0
+    assert torch.equal(K.postprocess_color_image_kernel(image), postprocess_color(image))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.postprocess_color_image_kernel(image.transpose(0, 1))
+    with pytest.raises(ValueError, match="H, W, 3"):
+        K.postprocess_color_image_kernel(image[..., :2].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        K.postprocess_color_image_kernel(image.double())
+
+
+def _opcode_dng_bytes(h, w):
+    from pysp_tpu_torch.io.tiff import write_synthetic_dng
+    from pysp_tpu_torch.warp import fix_opcodes as F
+    from pysp_tpu_torch.warp import gain_opcodes as G
+
+    rng = np.random.default_rng(h + w)
+    stored = (256 + np.minimum(mosaic_rggb(make_scene(h, w, seed=2) * 1.3), 1.0) * 4095)
+    stored = stored.astype(np.uint16)
+    stored.flat[rng.choice(h * w, 20, replace=False)] = 7
+    points = np.stack([rng.integers(0, h, 40), rng.integers(0, w, 40)], 1).astype(np.int32)
+    rects = np.array([[10, 12, 14, 17], [h - 3, w - 4, h + 2, w + 2]], np.int32)
+    block1 = G.encode_opcode_list([
+        (F.OPCODE_FIX_BAD_PIXELS_CONSTANT,
+         F.encode_fix_bad_pixels_constant(F.BadPixelsConstant(7, 0))),
+        (F.OPCODE_FIX_BAD_PIXELS_LIST,
+         F.encode_fix_bad_pixels_list(F.BadPixelsList(0, points, rects))),
+    ])
+    maps = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            gains = rng.uniform(0.8, 1.3, (5, 5, 1)).astype(np.float32)
+            maps.append((G.OPCODE_GAIN_MAP, G.encode_gain_map(G.GainMap(
+                dy, dx, h, w, 0, 1, 2, 2, 5, 5, 0.25, 0.25, 0.0, 0.0, 1, gains))))
+    maps.append((G.OPCODE_FIX_VIGNETTE_RADIAL, G.encode_vignette_radial(
+        G.VignetteRadial((0.2, -0.05, 0.0, 0.0, 0.0), 0.5, 0.5))))
+    return write_synthetic_dng(stored, opcode_list_1=block1,
+                               opcode_list_2=G.encode_opcode_list(maps))
+
+
+def test_load_with_opcode_lists_on_the_card_matches_the_cpu(cuda):
+    from pysp_tpu_torch import load_raw
+
+    blob = _opcode_dng_bytes(130, 190)
+    on_card = load_raw(blob)
+    assert on_card.bayer.device.type == "cuda"
+    on_cpu = load_raw(blob, device="cpu")
+    assert (on_card.bayer.cpu() - on_cpu.bayer).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_reconstruct_develop_is_one_launch_and_matches_plain(cuda, is_hdr):
+    """Best with highlights="reconstruct" on a CUDA frame: one AHD launch in
+    its demosaic-only mode, no homogeneity or postprocess launch, and the
+    plain develop's pixels but for H/V tie flips."""
+    mosaic = mosaic_rggb(make_scene(256, 320, seed=5) * 1.5)
+    lim = 2.0 if is_hdr else 1.0
+    frame = RawFrame.synthetic(np.clip(mosaic * lim, 0, lim).astype(np.float32), cam_mat=CAM,
+                               wb_neutral=WB, lim_sat=lim, is_hdr=is_hdr, device=cuda)
+    cfg = DevelopConfig(highlights="reconstruct")
+    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+              K.postprocess_kernel_launches)
+    got = develop(frame, cfg)
+    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
+            K.postprocess_kernel_launches) == (before[0] + 1, before[1], before[2])
+    want = develop(frame, DevelopConfig(highlights="reconstruct", use_pallas=False))
+    assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0 + 1e-6
+    assert float(((got - want).abs() > 1e-4).any(-1).float().mean()) < 1e-3
+    assert psnr(got.cpu().numpy(), want.cpu().numpy()) >= 50
+
+
+def test_staged_reconstruct_develop_equals_plain(cuda):
+    frame = _frame(256, 320, seed=8, is_hdr=False, device=cuda)
+    frame = frame.replace(bayer=torch.clamp(frame.bayer * 1.6, 0, 1))
+    cfg = DevelopConfig(highlights="reconstruct", postprocess_stages=3)
+    before = K.homogeneity_kernel_launches, K.postprocess_kernel_launches
+    got = develop(frame, cfg)
+    assert (K.homogeneity_kernel_launches, K.postprocess_kernel_launches) == (
+        before[0] + 2, before[1] + 3)
+    want = develop(frame, DevelopConfig(highlights="reconstruct", postprocess_stages=3,
+                                        use_pallas=False))
+    assert torch.equal(got, want)
+
+
+def test_develop_with_stats_on_the_card(cuda):
+    """The statistics of a 4200x4200 mosaic (past torch.quantile's 2**24
+    elements) on the card, against float64 NumPy over the same tensors."""
+    from pysp_tpu_torch.utils.tracing import bayer_stats, rgb_stats
+
+    rng = np.random.default_rng(9)
+    x = (rng.integers(0, 4096, (4200, 4200)) / 4095).astype(np.float32)
+    got = bayer_stats(torch.from_numpy(x).to(cuda), torch.tensor(1.0, device=cuda))
+    assert abs(float(got["p99"]) - float(np.quantile(x, 0.99))) <= 1e-6
+    assert abs(float(got["mean"]) / x.astype(np.float64).mean() - 1) <= 1e-5
+    assert float(got["clip_high_frac"]) == np.float32((x >= 1.0).sum()) / np.float32(x.size)
+    rgb = rng.uniform(-0.1, 1.1, (300, 400, 3)).astype(np.float32)
+    out = rgb_stats(torch.from_numpy(rgb).to(cuda))
+    ref = rgb.reshape(-1, 3).astype(np.float64)
+    np.testing.assert_allclose(out["mean_rgb"].cpu().numpy(), ref.mean(0), rtol=1e-5)
+    np.testing.assert_allclose(out["std_rgb"].cpu().numpy(), ref.std(0), rtol=1e-5)
+    assert float(out["neg_frac"]) == np.float32((rgb <= 0).sum()) / np.float32(rgb.size)

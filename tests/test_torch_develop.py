@@ -21,7 +21,6 @@ from pysp_tpu.utils.testing import make_scene, mosaic_rggb, psnr
 from pysp_tpu_torch import (
     BayerPattern,
     DevelopConfig,
-    QualityDemosaic,
     RawFrame,
     develop,
     develop_burst,
@@ -84,15 +83,3 @@ def test_develop_burst_is_a_loop_of_develops():
     assert got.shape == (2, 64, 80, 3)
     for i, f in enumerate(frames):
         assert torch.equal(got[i], develop(f))
-
-
-@pytest.mark.parametrize("cfg", [
-    DevelopConfig(highlights="reconstruct"),
-    DevelopConfig(quality=QualityDemosaic.Fast, highlights="reconstruct"),
-])
-def test_unported_options_raise(cfg):
-    _, tf = _frames(h=32, w=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        develop(tf, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        develop_to_image(tf, cfg)

@@ -39,6 +39,11 @@ MODULES = [
     "pysp_tpu_torch.correct.ca.gradfit",
     "pysp_tpu_torch.utils.sidecar",
     "pysp_tpu_torch.io.raw_loader",
+    "pysp_tpu_torch.warp.fix_opcodes",
+    "pysp_tpu_torch.warp.gain_opcodes",
+    "pysp_tpu_torch.core.normalization",
+    "pysp_tpu_torch.utils.tracing",
+    "pysp_tpu_torch.correct.highlights",
 ]
 
 
@@ -66,7 +71,7 @@ def test_import_leaves_jax_out(module):
 
 # Names that pysp_tpu exports from a module the port has, where the port's
 # module does not define them yet (ROADMAP.md queue A).
-NOT_PORTED_YET = {"cam_to_clean_xyz", "srgb_to_lin_srgb", "load_burst", "develop_with_stats"}
+NOT_PORTED_YET = {"load_burst"}
 
 
 def _jax_package_exports():
@@ -103,11 +108,11 @@ def test_package_exports_what_the_jax_package_exports(name, module):
 
 
 def test_export_list_is_complete():
-    """At least the 66 names of today, the version, and every name of
+    """At least the 76 names of today, the version, and every name of
     ``__all__`` is an attribute; the names left out are really not defined."""
     import pysp_tpu_torch
 
-    assert len(PORTED_EXPORTS) >= 66
+    assert len(PORTED_EXPORTS) >= 76
     assert pysp_tpu_torch.__version__ == "0.1.0"
     assert all(hasattr(pysp_tpu_torch, name) for name in pysp_tpu_torch.__all__)
     exports = _jax_package_exports()

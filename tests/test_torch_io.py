@@ -77,13 +77,6 @@ def test_lossless_jpeg_dng_not_ported():
         load_raw(blob, device="cpu")
 
 
-def test_opcode_lists_not_ported():
-    for key in ("opcode_list_1", "opcode_list_2"):
-        blob = JT.write_synthetic_dng(_bayer_u16(), **{key: b"\x00\x00\x00\x00"})
-        with pytest.raises(NotImplementedError, match="OpcodeList"):
-            load_raw(blob, device="cpu")
-
-
 def test_non_dng_sources_not_ported(tmp_path):
     rgb_tif = tmp_path / "rgb.tif"
     image_out.save_tiff16(str(rgb_tif), np.zeros((4, 6, 3), np.float32))

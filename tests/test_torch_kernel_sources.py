@@ -208,6 +208,16 @@ void emulate(const float* r, const float* g, const float* b, float* ro, float* g
   a.a = r; a.b = g; a.c = b; a.x = ro; a.y = go; a.z = bo; a.H = H; a.W = W;
   each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_pp, &a);
 }
+static void run_pp_hwc(void* p) {
+  Args* a = (Args*)p;
+  const void* const images[2] = {a->a, a->x};
+  postprocess_hwc_kernel(a->a, a->x, a->H, a->W, (int)rows_aligned(a->W, images, 2));
+}
+void emulate_hwc(const float* img, float* out, int H, int W) {
+  Args a{};
+  a.a = img; a.x = out; a.H = H; a.W = W;
+  each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_pp_hwc, &a);
+}
 #endif
 }
 """
@@ -244,7 +254,10 @@ def ahd_lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def postprocess_lib(tmp_path_factory):
-    return _build(tmp_path_factory, "postprocess.cu", None, n_ptrs=6, n_ints=2)
+    dll = _build(tmp_path_factory, "postprocess.cu", None, n_ptrs=6, n_ints=2)
+    dll.emulate_hwc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    dll.emulate_hwc.restype = None
+    return dll
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -298,6 +311,25 @@ def test_postprocess_source_unaligned_planes(postprocess_lib):
                             *(_ptr(out[k]) for k in range(3)), h, w)
     for got, want in zip(out, postprocess_color_channels(rgb[0], rgb[1], rgb[2])):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("shape", POSTPROCESS_SHAPES)
+def test_postprocess_hwc_source_bit_exact(postprocess_lib, shape, pad):
+    """The (H, W, 3) entry's device code (a pixel stride of 3, a strip of four
+    pixels as three 16-byte accesses) equals the plain stage bit for bit;
+    ``pad`` takes the image off its 16-byte alignment, so that no block takes
+    the 16-byte path. Each of these mutants fails here: the strip's channels
+    split in the wrong order on load, or interleaved in the wrong order on
+    store, and the general path's pixel stride left at 1."""
+    h, w = shape
+    store = torch.zeros(h * w * 3 + pad)
+    image = store[pad:].view(h, w, 3)
+    image.copy_(torch.from_numpy(chroma_case(h, w, seed=h * w)).permute(1, 2, 0))
+    out = torch.full((h, w, 3), float("nan"))
+    postprocess_lib.emulate_hwc(_ptr(image), _ptr(out), h, w)
+    want = postprocess_color_channels(image[..., 0], image[..., 1], image[..., 2])
+    assert torch.equal(out, torch.stack(want, dim=-1))
 
 
 def _ahd_emulated(ahd_lib, frame, stages, tail):

@@ -54,7 +54,8 @@ def test_pad_replicate_of_planes_thinner_than_the_pad(shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("name", ["gaussian_blur3", "box_sum3", "median5"])
+@pytest.mark.parametrize("name", ["gaussian_blur3", "box_sum3", "median5", "box_blur3",
+                                  "median3"])
 def test_filters_bit_exact(name, shape):
     x = _field(shape, seed=3)
     want, got = _both(getattr(J, name), getattr(T, name), x)

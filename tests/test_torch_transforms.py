@@ -9,6 +9,11 @@ Tolerances:
   (1.2e-7) by 500 and 200, so a is held to 1.2e-4 and b to 4.8e-5 (two such
   ulps each); measured 7.6e-6, 6.1e-5 and 3.1e-5 on the sample below.
 - ``lin_srgb_to_srgb``: atol 2e-6 (the gamma ``pow``).
+- ``cam_to_rgb_norm``, ``cam_to_clean_xyz`` and ``srgb_to_lin_srgb``: atol
+  1e-6 (the 3x3 inverse as above; the decode's ``pow``).
+- ``rgb_to_lab``: bit-equal to the port's ``rgb_to_lab_channels`` stacked,
+  and against the JAX package at that function's tolerances (L reaches 100,
+  where one float32 step is 7.6e-6).
 
 torch has no cube root. ``transforms.cbrt`` is ``y = x ** (1/3)`` followed by
 one Newton step ``y + (x / y**2 - y) * (1/3)``: on 1M float32 samples over
@@ -87,3 +92,52 @@ def test_developed_image_to_lin_srgb():
                                   np.asarray(want.wb_apply().wb_undo().image))
     moved = got.to("cpu")
     assert moved.wb_applied is False and torch.equal(moved.image, got.image)
+
+
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("cam", range(len(CAM_MATS)))
+def test_cam_to_rgb_norm_and_clean_xyz(cam, clip):
+    rng = np.random.default_rng(10 + cam)
+    rgb = rng.uniform(-0.1, 1.3, (24, 20, 3)).astype(np.float32)
+    mat, white = CAM_MATS[cam], WHITES[1]
+    base, dest_white = J._REC2020_TO_XYZ.astype(np.float32), J._D65_XYZ.astype(np.float32)
+    want = J.cam_to_rgb_norm(jnp.asarray(rgb), jnp.asarray(mat), jnp.asarray(white),
+                             jnp.asarray(base), jnp.asarray(dest_white), clip)
+    got = T.cam_to_rgb_norm(torch.from_numpy(rgb), torch.from_numpy(mat),
+                            torch.from_numpy(white), torch.from_numpy(base),
+                            torch.from_numpy(dest_white), clip)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    want = J.cam_to_clean_xyz(jnp.asarray(rgb), jnp.asarray(mat), jnp.asarray(white), clip)
+    got = T.cam_to_clean_xyz(torch.from_numpy(rgb), torch.from_numpy(mat),
+                             torch.from_numpy(white), clip)
+    assert got.dtype == torch.float32 and got.shape == (24, 20, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    # cam_to_lin_srgb is cam_to_rgb_norm with the Rec. 709 base, bit for bit
+    lin = T.cam_to_lin_srgb(torch.from_numpy(rgb), torch.from_numpy(mat),
+                            torch.from_numpy(white), clip)
+    assert torch.equal(lin, T.cam_to_rgb_norm(
+        torch.from_numpy(rgb), torch.from_numpy(mat), torch.from_numpy(white),
+        torch.from_numpy(J._REC709_TO_XYZ.astype(np.float32)),
+        torch.from_numpy(dest_white), clip))
+
+
+def test_srgb_to_lin_srgb():
+    x = np.random.default_rng(11).uniform(-0.2, 1.3, (64, 48, 3)).astype(np.float32)
+    want = np.asarray(J.srgb_to_lin_srgb(jnp.asarray(x)))
+    got = T.srgb_to_lin_srgb(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    # and back: the decode inverts the encode on [0, 1]
+    y = np.linspace(0, 1, 1001, dtype=np.float32)
+    back = T.lin_srgb_to_srgb(T.srgb_to_lin_srgb(torch.from_numpy(y))).numpy()
+    np.testing.assert_allclose(back, y, atol=1e-6, rtol=0)
+
+
+def test_rgb_to_lab():
+    x = np.random.default_rng(12).uniform(-0.1, 1.2, (50, 40, 3)).astype(np.float32)
+    got = T.rgb_to_lab(torch.from_numpy(x))
+    assert got.shape == (50, 40, 3)
+    channels = T.rgb_to_lab_channels(*torch.from_numpy(x).unbind(-1))
+    assert torch.equal(got, torch.stack(channels, dim=-1))
+    want = np.asarray(J.rgb_to_lab(jnp.asarray(x)))
+    for k, atol in enumerate((1e-5, 1.2e-4, 4.8e-5)):
+        np.testing.assert_allclose(got[..., k].numpy(), want[..., k], atol=atol, rtol=0)
