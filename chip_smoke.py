@@ -43,7 +43,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
      non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
      ties that ``cbrtf`` flips), the fraction printed.
-3. Six main paths, each driven with every launch count set to 0 just before
+3. Seven main paths, each driven with every launch count set to 0 just before
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
@@ -136,6 +136,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      against plain with the same gates, and ``develop --highlights
      reconstruct --stats`` through the CLI: the same TIFF, and on stderr the
      JAX CLI's stats keys with the in-process values.
+   - formats (every raw format the loaders read): one mosaic of
+     ``make_scene`` written with the port's own writers as an LJ92 DNG
+     (compression 7), CR2, MRW, RAF, ORF, RW2 (the small-step content its v4
+     coder keeps exact, padded to its 14-photosite packets outside the
+     recorded borders) and NEF at 4000x6000, and as ARW, PEF and SRW (whose
+     writers are pure Python) at 1000x1504, each through ``load_raw ->
+     develop(Best) -> save_image`` (.png) ``and save_png16``. Asserts that the
+     native library is the g++ build of ``native/dng_fast.cc`` under
+     ``pysp_tpu_torch/_build/``, that each develop was one AHD launch and
+     nothing else, that each load on the card is ``torch.equal`` to the load
+     on the CPU field by field, that the decoded values are the written ones
+     (ARW2: within its block shift), that each develop is within the flip
+     bound of the plain one, that both PNGs parsed back with ``zlib`` equal
+     ``to_uint8`` / ``to_uint16`` of the image, that ``develop x.cr2
+     --bit-depth 16`` through the CLI writes the same 16-bit PNG to its
+     default ``x.png``, that ``info`` reads every file and that
+     ``verify-decode`` on the directory finds no mismatch and no built-in
+     error; prints each format's write time, the load split on the host clock
+     (decode on the host, to the card) and the develop's time by CUDA
+     events. Before the first load the script points
+     ``PYSP_TPU_MATRIX_CACHE`` at a scratch file (the DNG loads harvest their
+     calibration rows there, which the path checks) and at the end asserts
+     that ``~/.cache/pysp_tpu/harvested_matrices.json`` was neither created
+     nor changed.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
@@ -171,12 +195,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the six main paths
+kernel's ``launches`` there is the sum of its counts over the seven main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import io
 import json
 import os
 import statistics
@@ -184,6 +210,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -246,6 +273,7 @@ from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
 from pysp_tpu_torch.io.metadata import get_opcode_3_block
+from pysp_tpu_torch.io import native
 from pysp_tpu_torch.io import tiff as T
 from pysp_tpu_torch.io.raw_loader import (
     _black_white_levels,
@@ -259,13 +287,19 @@ from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
 from pysp_tpu_torch.utils.testing import (
     HEAL_TILE_KINDS,
+    LOSSY_RAW_FORMATS,
+    RAW_FORMATS,
+    arw2_error_bound,
     chroma_case,
     heal_case,
     heal_tile_case,
     make_scene,
     mosaic_rggb,
     psnr,
+    raw_format_mosaic,
+    read_png,
     ring_chart,
+    write_raw_format,
 )
 from pysp_tpu_torch.warp import fix_opcodes as FO
 from pysp_tpu_torch.warp import gain_opcodes as GO
@@ -2361,11 +2395,235 @@ def surface_at_main_shapes(path: str, frame: RawFrame, out: torch.Tensor, card: 
                             "library_ms": None}}
 
 
+# The formats path: every raw format the built-in decoders read, written with
+# the port's own writers. The pure-Python writers (ARW, PEF, SRW) take about
+# a second a megapixel, so those three files are config 5's frame size.
+FORMATS_FULL = ("dng", "cr2", "mrw", "raf", "orf", "rw2", "nef")
+FORMATS_SMALL = ("arw", "pef", "srw")
+FORMATS_CFG = DevelopConfig(quality=QualityDemosaic.Best)
+# The develop against plain on these full-range mosaics: the flip bound
+# (MAX_FLIP_FRAC, whole frame and border frame) and a PSNR floor. The tie
+# flips are the same class as the develop path's, larger on full-range
+# content (98.41 dB measured on the MRW, 0.00077% of pixels off).
+FORMATS_MIN_PSNR = 90.0
+FORMATS_PLAIN_CFG = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
+HOME_MATRIX_CACHE = os.path.join(os.path.expanduser("~"), ".cache", "pysp_tpu",
+                                 "harvested_matrices.json")
+
+
+def file_state(path: str):
+    """(size, mtime, SHA-256) of a file, or None where there is none."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()
+    st = os.stat(path)
+    return st.st_size, st.st_mtime_ns, digest
+
+
+def check_native_library() -> None:
+    """The native decode library must be the one built from this checkout's
+    ``native/dng_fast.cc`` under ``pysp_tpu_torch/_build/``."""
+    t0 = time.perf_counter()
+    ok = native.available()
+    seconds = time.perf_counter() - t0
+    lib = native.loaded_path
+    want_dir = os.path.join(REPO, "pysp_tpu_torch", "_build")
+    log(f"native decode library: {lib}, loaded in {seconds:.2f} s (g++ build "
+        f"{native.build_seconds:.2f} s of it, from {native.SOURCE})")
+    if (not ok or os.path.dirname(lib) != want_dir
+            or lib != str(native.library_path())
+            or str(native.SOURCE) != os.path.join(REPO, "native", "dng_fast.cc")):
+        raise AssertionError(f"the native library {lib} is not the build of "
+                             f"native/dng_fast.cc under {want_dir}")
+
+
+def check_stored_values(fmt: str, frame: RawFrame, stored: np.ndarray) -> str:
+    """The decoded mosaic against the stored values written: lossless codecs
+    give them back exactly; ARW2 within its block shift, max and min exact."""
+    top = (1 << RAW_FORMATS[fmt][2]) - 1
+    got = torch.round(frame.bayer.double() * top)
+    want = torch.from_numpy(stored.astype(np.float64)).to(DEVICE)
+    err = (got - want).abs()
+    if fmt in LOSSY_RAW_FORMATS:
+        bound_t = torch.from_numpy(arw2_error_bound(stored).astype(np.float64)).to(DEVICE)
+        if not bool((err <= bound_t).all()):
+            raise AssertionError(f"{fmt}: decoded values outside the ARW2 bound")
+        return (f"within the ARW2 block bound (max error {err.max().item():.0f}, "
+                f"{float((err > 0).double().mean()):.2%} of the values shifted)")
+    if err.max().item() != 0.0:
+        raise AssertionError(f"{fmt}: the decoded values are not the written ones")
+    return "equal to the written values"
+
+
+def formats_path(tmp: str, card: str):
+    """Phase 3, formats: one structured mosaic in every raw format the loaders
+    read -> ``load_raw`` (the card) -> ``develop(Best)`` -> ``save_image``
+    (.png) and ``save_png16``; each load against the CPU's and the written
+    values, each develop one AHD launch within the flip bound of plain, both
+    PNGs parsed back; then the CLI's ``develop x.cr2 --bit-depth 16``,
+    ``info`` on every file and ``verify-decode`` on the directory. Returns the
+    launch counts."""
+    from pysp_tpu_torch.cli import main as cli_main
+    from pysp_tpu_torch.io.image_out import save_png16, to_uint16, to_uint8
+
+    check_native_library()
+    # The writers' synthetic bodies have no calibration rows: the loaders
+    # warn once a file and use the generic Rec.709 matrices, as in JAX.
+    warnings.filterwarnings("ignore", message="no color calibration")
+    folder = os.path.join(tmp, "formats")
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    mosaics = {(FULL_H, FULL_W): mosaic_rggb(make_scene(FULL_H, FULL_W, seed=17)),
+               (CA_H, CA_W): mosaic_rggb(make_scene(CA_H, CA_W, seed=17))}
+    log(f"formats scene mosaics {FULL_H}x{FULL_W} and {CA_H}x{CA_W}: "
+        f"{time.perf_counter() - t0:.3f} s host clock")
+    files = {}
+    for fmt in FORMATS_FULL + FORMATS_SMALL:
+        shape = (FULL_H, FULL_W) if fmt in FORMATS_FULL else (CA_H, CA_W)
+        stored = raw_format_mosaic(fmt, mosaics[shape])
+        t0 = time.perf_counter()
+        blob = write_raw_format("pysp_tpu_torch.io", fmt, stored)
+        seconds = time.perf_counter() - t0
+        path = os.path.join(folder, f"shot.{fmt}")
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        files[fmt] = (path, stored)
+        log(f"formats: wrote {fmt.upper()} {shape[0]}x{shape[1]} ({len(blob) / 1e6:.1f} MB) "
+            f"with the port's writer in {seconds:.3f} s host clock")
+    del mosaics
+
+    zero_launch_counts()
+    results = {}
+    t_path = time.perf_counter()
+    for fmt, (path, _) in files.items():
+        before = launch_counts()
+        t0 = time.perf_counter()
+        frame = load_raw(path)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = develop(frame, FORMATS_CFG)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        png, png16 = (os.path.join(folder, f"shot_{fmt}{d}.png") for d in ("", "_16"))
+        save_image(png, out)
+        save_png16(png16, out)
+        t3 = time.perf_counter()
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in COUNTERS}
+        expect_launches(f"formats {fmt} develop", delta, ahd=1)
+        results[fmt] = (frame, out, png, png16, (t1 - t0, t2 - t1, t3 - t2))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_path
+    launches = launch_counts()
+    log(f"formats path ({len(files)} files, load_raw -> develop Best -> save_image .png + "
+        f"save_png16): {seconds:.3f} s host clock, kernel launches {launches}")
+    expect_launches("formats", launches, ahd=len(files))
+
+    rows = {}
+    for fmt, (frame, out, png, png16, (t_load, t_dev, t_save)) in results.items():
+        path, stored = files[fmt]
+        h, w = stored.shape
+        if frame.bayer.device.type != DEVICE:
+            raise AssertionError(f"{fmt}: load_raw did not put the frame on the card")
+        # (a) the card's load against the CPU's, field by field
+        t0 = time.perf_counter()
+        on_cpu = load_raw(path, device="cpu")
+        t1 = time.perf_counter()
+        moved = on_cpu.to(DEVICE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same = all(torch.equal(getattr(frame, k), getattr(moved, k)) for k in
+                   ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat"))
+        if not same or frame.source_pattern != on_cpu.source_pattern:
+            raise AssertionError(f"{fmt}: the card's load differs from the CPU's")
+        # (b) the decoded values against the written ones
+        values = check_stored_values(fmt, frame, stored)
+        # (c) the develop: one AHD launch (above), within the flip bound of plain
+        check_image(f"formats {fmt}", out, h, w)
+        p = develop_stats(f"formats {fmt.upper()} {h}x{w} develop", out,
+                          develop(frame, FORMATS_PLAIN_CFG), FORMATS_MIN_PSNR)
+        # (d) both PNGs parsed back with zlib
+        with open(png, "rb") as fh:
+            png_ok = np.array_equal(read_png(fh.read()), to_uint8(out))
+        with open(png16, "rb") as fh:
+            png16_ok = np.array_equal(read_png(fh.read()), to_uint16(out))
+        if not (png_ok and png16_ok):
+            raise AssertionError(f"{fmt}: a PNG does not read back as the image")
+        dev_ms = median_ms(lambda: develop(frame, FORMATS_CFG), runs=5, warmup=1)
+        rows[fmt] = {"shape": [h, w], "load_raw_s": t_load, "decode_host_s": t1 - t0,
+                     "to_card_s": t2 - t1, "develop_ms": dev_ms, "develop_host_s": t_dev,
+                     "png_8_and_16_s": t_save, "psnr_db": p}
+        log(f"formats {fmt.upper()} {h}x{w}: load on the card equal to the CPU's; decoded "
+            f"values {values}; develop {p:.2f} dB against plain; both PNGs read back equal; "
+            f"load_raw {t_load:.3f} s host clock (decode on the host {t1 - t0:.3f} s, to the "
+            f"card {t2 - t1:.4f} s); develop {dev_ms:.3f} ms by CUDA events (median of 5); "
+            f"PNG 8 + 16 bit {t_save:.3f} s host clock ({card})")
+        del on_cpu, moved
+    del results
+
+    # The CLI: develop x.cr2 --bit-depth 16 to its default x.png beside it.
+    cli_dir = os.path.join(folder, "cli")
+    os.makedirs(cli_dir)
+    src = os.path.join(cli_dir, "x.cr2")
+    with open(files["cr2"][0], "rb") as a, open(src, "wb") as b:
+        b.write(a.read())
+    cmd = [sys.executable, "-m", "pysp_tpu_torch", "develop", src, "--bit-depth", "16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n{proc.stderr}")
+    with open(os.path.join(cli_dir, "x.png"), "rb") as a, \
+            open(os.path.join(folder, "shot_cr2_16.png"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"CLI develop x.cr2 --bit-depth 16: {time.perf_counter() - t0:.3f} s host clock "
+        f"(a new process); {proc.stdout.strip()}; its default x.png identical to the "
+        f"in-process save_png16: {same}")
+    if not same:
+        raise AssertionError("the CLI's 16-bit PNG differs from the in-process one")
+
+    # info on every file, verify-decode on the directory (in this process).
+    for fmt, (path, stored) in files.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["info", path])
+        info = json.loads(buf.getvalue())
+        if rc != 0 or "error" in info or info.get("size") not in (None, list(stored.shape)):
+            raise AssertionError(f"info {fmt}: {info}")
+        log(f"info shot.{fmt}: " + json.dumps(info, separators=(",", ":")))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["verify-decode", folder])
+    lines = buf.getvalue().splitlines()
+    reports = [json.loads(line) for line in lines if line.startswith("{")]
+    verdicts = {r["file"].rsplit(".", 1)[-1]: r["verdict"] for r in reports}
+    table = "\n".join(line for line in lines if not line.startswith("{"))
+    log(f"verify-decode {folder}: exit {rc}, verdicts {verdicts}\n{table}")
+    if (rc != 0 or sorted(verdicts) != sorted(files)
+            or any(v not in ("rawpy-unavailable", "match") for v in verdicts.values())):
+        raise AssertionError("verify-decode found a mismatch or a built-in decode error")
+
+    cache = os.environ["PYSP_TPU_MATRIX_CACHE"]
+    with open(cache) as fh:
+        bodies = sorted(json.load(fh)["bodies"])
+    log(f"camera-matrix cache {cache}: bodies {bodies} (harvested by the DNG loads)")
+    if "synthetic" not in bodies:
+        raise AssertionError("the DNG loads harvested nothing into the matrix cache")
+    log("formats summary: " + json.dumps(rows))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # Every DNG load harvests its calibration rows into the persistent camera-
+    # matrix cache: keep this run's in a scratch file, never in the user's.
+    home_cache = file_state(HOME_MATRIX_CACHE)
+    matrix_cache = tempfile.TemporaryDirectory(prefix="pysp_matrix_cache_")
+    os.environ["PYSP_TPU_MATRIX_CACHE"] = os.path.join(matrix_cache.name,
+                                                       "harvested_matrices.json")
 
     t0 = time.perf_counter()
     K.load_library()
@@ -2385,6 +2643,7 @@ def main() -> int:
         surface_launches, *surface_state = surface_path(tmp, card)
         surface = surface_at_main_shapes(*surface_state, card)
         del surface_state
+        formats_launches = formats_path(tmp, card)
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
@@ -2411,9 +2670,15 @@ def main() -> int:
                    "corrections": corrections_launches[counter],
                    "tiers": tiers_launches[counter],
                    "ca": ca_launches[counter],
-                   "surface": surface_launches[counter]}
+                   "surface": surface_launches[counter],
+                   "formats": formats_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+
+    if file_state(HOME_MATRIX_CACHE) != home_cache:
+        raise AssertionError(f"the run created or changed {HOME_MATRIX_CACHE}")
+    log(f"{HOME_MATRIX_CACHE}: neither created nor changed by the run")
+    matrix_cache.cleanup()
 
     log(json.dumps({"kernels": records}))
     log(card)

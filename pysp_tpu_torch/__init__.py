@@ -11,7 +11,16 @@ Entry points run on the GPU unless the caller asks for another device
     from pysp_tpu_torch import load_raw, develop, save_image, DevelopConfig, QualityDemosaic
     frame = load_raw("shot.dng")  # on the card
     srgb = develop(frame, DevelopConfig(quality=QualityDemosaic.Best))
-    save_image("out.tif", srgb)
+    save_image("out.png", srgb)
+
+``load_raw`` reads DNGs (uncompressed or lossless JPEG) and CR2, MRW, RAF,
+ARW, ORF, RW2, PEF, SRW and NEF files with built-in decoders on the host (the
+native ones compiled with ``g++`` at first use), then rawpy where it imports;
+each format also has its own ``load_raw_<format>``. A dual-illuminant DNG's
+calibration rows are harvested into a persistent camera-matrix cache
+(``$PYSP_TPU_MATRIX_CACHE``, else ``~/.cache/pysp_tpu/``) that the other
+formats' loads of the same body read; ``register_camera_matrices`` adds a body
+by hand.
 
 With sensor corrections (flat field, hot-pixel heal, denoise) and the
 Bayer-domain HDR fuse of a bracketed burst, ``develop_pipeline``:
@@ -34,12 +43,14 @@ apply at load. Highlight reconstruction and per-develop statistics:
     srgb = develop(frame, DevelopConfig(highlights="reconstruct"))
     srgb, stats = develop_with_stats(frame, DevelopConfig())
 
-The command line: ``python -m pysp_tpu_torch develop shot.dng -o out.tif
---deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--highlights reconstruct`` and
+The command line: ``python -m pysp_tpu_torch develop shot.cr2 -o out.png
+--deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--bit-depth 16``;
+``--highlights reconstruct`` and
 ``--stats``; ``--flat``, ``--dark``, ``--repair-hot-pixels``, ``--denoise``
 and ``--hdr`` (several inputs) for the corrections; ``--ca
 template|gradient|refine``, ``--save-params`` / ``--params`` (a JSON sidecar
-of the fitted state) and ``--temperature``.
+of the fitted state) and ``--temperature``; the ``info``, ``harvest`` and
+``verify-decode`` subcommands.
 """
 
 from .colorimetry.transforms import (
@@ -97,6 +108,10 @@ from .filters.sharpen import (
     unsharp_mask_lab,
     unsharp_mask_per_channel,
 )
+from .io.arw import load_raw_arw
+from .io.camera_matrices import register_camera_matrices
+from .io.cr2 import load_raw_cr2
+from .io.cr3 import cr3_info
 from .io.image_out import save_image
 from .io.metadata import (
     compute_ev,
@@ -105,7 +120,14 @@ from .io.metadata import (
     get_opcode_3_block,
     get_opcode_block,
 )
+from .io.mrw import load_raw_mrw
+from .io.nef import load_raw_nef
+from .io.orf import load_raw_orf
+from .io.pef import load_raw_pef
+from .io.raf import load_raw_raf
 from .io.raw_loader import frame_from_parts, load_raw, load_raw_dng
+from .io.rw2 import load_raw_rw2
+from .io.srw import load_raw_srw
 from .ops.resample import bilinear_sample, remap_bilinear, remap_lanczos4
 from .pipeline.develop import (
     DevelopConfig,
@@ -189,6 +211,17 @@ __all__ = [
     "frame_from_parts",
     "load_raw",
     "load_raw_dng",
+    "load_raw_arw",
+    "load_raw_cr2",
+    "load_raw_nef",
+    "load_raw_orf",
+    "cr3_info",
+    "load_raw_mrw",
+    "load_raw_pef",
+    "load_raw_srw",
+    "load_raw_raf",
+    "load_raw_rw2",
+    "register_camera_matrices",
     "save_image",
     "apply_opcode_3_warp",
     "apply_gain_opcodes",

@@ -1,11 +1,11 @@
-"""Command-line develop: ``python -m pysp_tpu_torch develop shot.dng -o out.tif``.
+"""Command-line develop: ``python -m pysp_tpu_torch develop shot.dng -o out.png``.
 
 Counterpart of ``pysp_tpu/cli.py``, in the JAX CLI's order and branches:
 
 - ``--hdr`` with several inputs: load -> stack -> (``--params``: the sidecar's
   WB neutral and CA models applied to every frame before the fuse) ->
   ``develop_pipeline`` (per-frame corrections, then the Bayer-domain fuse,
-  then develop) -> the filters -> save as ``<first input>_hdr.tif``; with
+  then develop) -> the filters -> save as ``<first input>_hdr.png``; with
   ``--repair-hot-pixels`` the masks are the burst's consensus
   (``hot_pixel_shared_ratio=0.5``);
 - otherwise: load (``--temperature``: the frame rebuilt with the WB solved for
@@ -16,7 +16,8 @@ Counterpart of ``pysp_tpu/cli.py``, in the JAX CLI's order and branches:
   (``--denoise``) -> develop (``--stats``: the sensor and output statistics
   printed to stderr as JSON) -> the linear-light filters (``--deconv``,
   ``--unsharp``, ``--blur``) -> clip and sRGB gamma -> the DNG OpcodeList3
-  warp (``--warp``) -> save.
+  warp (``--warp``) -> save, by default as ``<input stem>.png`` beside the
+  input (``--bit-depth 16``: a 16-bit PNG; a ``.tif`` output is always 16-bit).
 
 ``--highlights reconstruct`` rebuilds clipped channels before the colour
 tail; a DNG's OpcodeList1 / OpcodeList2 apply at load.
@@ -24,12 +25,15 @@ tail; a DNG's OpcodeList1 / OpcodeList2 apply at load.
 A sidecar's temperature replays through the ``--temperature`` branch, as in
 the JAX CLI. The image stays on the device from the load to the save.
 
-The JAX CLI takes its device from JAX's backend; this one takes ``--device``,
-``cuda`` unless asked otherwise, and raises without a GPU. Every flag and
-subcommand that is not ported yet (several inputs without ``--hdr``,
-``info``, ``harvest``, ``verify-decode``) parses as in the JAX CLI and raises
-``NotImplementedError`` naming its ROADMAP.md item; so does an output format
-other than TIFF (through ``save_image``).
+``info`` prints a raw file's metadata as JSON, ``harvest`` pulls DNGs' real
+ColorMatrix1/2 rows into the persistent camera-matrix cache, and
+``verify-decode`` cross-decodes files with the built-in codecs and rawpy.
+
+The JAX CLI takes its device from JAX's backend; this one takes ``--device``
+(``develop``, ``info`` and ``verify-decode``), ``cuda`` unless asked otherwise,
+and raises without a GPU. Several inputs without ``--hdr`` (the streamed
+develop) parse as in the JAX CLI and raise ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -52,8 +56,9 @@ def _build_parser() -> argparse.ArgumentParser:
 
     dev = sub.add_parser("develop", help="develop a raw file to an sRGB image")
     dev.add_argument("inputs", nargs="+",
-                     help="raw file path (uncompressed DNG); several with --hdr")
-    dev.add_argument("-o", "--output", help="output path (.tif) or directory")
+                     help="raw file path (DNG/CR2/NEF/ARW/RW2/ORF/RAF/PEF/MRW/SRW "
+                          "built in; others via rawpy); several with --hdr")
+    dev.add_argument("-o", "--output", help="output path (.png, .tif, .jpg) or directory")
     dev.add_argument("--device", default="cuda",
                      help="torch device to develop on (default: cuda)")
     dev.add_argument("--quality", choices=["draft", "fast", "best"], default="best")
@@ -83,23 +88,39 @@ def _build_parser() -> argparse.ArgumentParser:
     dev.add_argument("--dark")
     dev.add_argument("--stats", action="store_true")
     dev.add_argument("--bit-depth", type=int, choices=[8, 16], default=8,
-                     help="PNG sample depth (TIFF output is always 16-bit)")
+                     help="output sample depth: 16 writes 16-bit PNGs via the "
+                          "native fast writer (TIFF output is always 16-bit)")
     dev.add_argument("--save-params", metavar="FILE")
     dev.add_argument("--params", metavar="FILE")
 
-    info = sub.add_parser("info", help="print raw metadata (not ported yet)")
+    info = sub.add_parser("info", help="print raw metadata")
     info.add_argument("input")
-    for name in ("harvest", "verify-decode"):
-        sub.add_parser(name, help="not ported yet").add_argument("inputs", nargs="+")
+    info.add_argument("--device", default="cuda",
+                      help="torch device of the loads some formats need (default: cuda)")
+
+    hv = sub.add_parser(
+        "harvest",
+        help="pull REAL per-body ColorMatrix1/2 calibration out of DNG file(s) "
+             "or directory tree(s) into the persistent registry cache, so "
+             "native-format loads (CR2/NEF/ARW/...) of the same bodies stop "
+             "using estimated StdA matrices; prints estimate-vs-real deltas",
+    )
+    hv.add_argument("inputs", nargs="+", help="DNG file(s) and/or directories")
+
+    vd = sub.add_parser(
+        "verify-decode",
+        help="cross-decode file(s) with the built-in codec AND rawpy/libraw "
+             "and report bit/PSNR parity + metadata diffs (first-contact "
+             "codec validation; exits 1 on any mismatch)",
+    )
+    vd.add_argument("inputs", nargs="+",
+                    help="raw file path(s) and/or directories (directories are "
+                         "swept recursively for known raw extensions; sweep "
+                         "mode prints one JSON line per file plus a per-format "
+                         "summary table)")
+    vd.add_argument("--device", default="cuda",
+                    help="torch device to decode onto (default: cuda)")
     return p
-
-
-# Subcommands that are not ported, with the ROADMAP.md item that ports them.
-_SUBCOMMAND_ITEMS = {
-    "info": "queue A, item 15 (the host-only subcommands)",
-    "harvest": "queue A, item A5 (the camera-matrix autoharvest)",
-    "verify-decode": "queue A, item A6 (the other-format decoders)",
-}
 
 
 def _refuse_unported(args) -> None:
@@ -117,12 +138,20 @@ def _split_spec(spec, default_second):
 
 
 def _dst_for(args, src: str) -> str:
-    name = os.path.splitext(os.path.basename(src))[0] + ".tif"
     if args.output is None:
-        return os.path.join(os.path.dirname(src), name)
+        return os.path.splitext(src)[0] + ".png"
     if os.path.isdir(args.output):
-        return os.path.join(args.output, name)
+        return os.path.join(args.output, os.path.splitext(os.path.basename(src))[0] + ".png")
     return args.output
+
+
+def _save_output(args, dst: str, img) -> None:
+    from .io.image_out import save_image, save_png16
+
+    if args.bit_depth == 16 and dst.lower().endswith(".png"):
+        save_png16(dst, img)
+    else:
+        save_image(dst, img)
 
 
 def _apply_filters(args, out: torch.Tensor) -> torch.Tensor:
@@ -159,8 +188,6 @@ def _finish(args, out: torch.Tensor, filtering: bool, device, t0: float, dst: st
             label: str, warp_src=None) -> int:
     """The filters, the warp of ``warp_src``'s OpcodeList3 (the HDR path has
     none), save and report."""
-    from . import save_image
-
     if filtering:
         out = _apply_filters(args, out)
     if warp_src is not None and args.warp:
@@ -168,7 +195,7 @@ def _finish(args, out: torch.Tensor, filtering: bool, device, t0: float, dst: st
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
-    save_image(dst, out)
+    _save_output(args, dst, out)
     mp = out.shape[0] * out.shape[1] / 1e6
     print(f"{label} -> {dst}  ({mp:.1f} MP, {dt * 1e3:.0f} ms)")
     return 0
@@ -237,7 +264,7 @@ def _develop(args) -> int:
                     batch.wb_neutral).contiguous())
             batch = remove_ca_from_raw(batch, sidecar["ca_model_r"], sidecar["ca_model_b"])
         out = develop_pipeline(batch, pcfg, **aux)
-        dst = args.output or os.path.splitext(args.inputs[0])[0] + "_hdr.tif"
+        dst = args.output or os.path.splitext(args.inputs[0])[0] + "_hdr.png"
         return _finish(args, out, filtering, device, t0, dst,
                        f"{len(args.inputs)} frames (HDR)")
 
@@ -330,14 +357,225 @@ def _remove_ca(args, src: str, frame, sidecar):
     return remove_ca_from_raw(frame, *models), models
 
 
+def _info(args) -> int:
+    import struct
+
+    from .io import tiff as T
+    from .io.arw import is_arw
+    from .io.cr2 import _find_raw_ifd, is_cr2
+    from .io.cr3 import cr3_info, is_cr3
+    from .io.metadata import (
+        compute_ev_from_tiff,
+        exif_get_as_shot_neutral,
+        exif_get_color_mat_sources,
+        get_image_area_from_tiff,
+        get_opcode_3_block,
+    )
+    from .io.mrw import BLOCK_PRD, BLOCK_TTW, _parse_blocks, _Prd, is_mrw, load_raw_mrw
+    from .io.mrw import _read_source as _mrw_read
+    from .io.nef import is_nef
+    from .io.orf import is_orf
+    from .io.pef import is_pef
+    from .io.raf import _read_source, is_raf, load_raw_raf
+    from .io.raw_loader import load_raw
+    from .io.rw2 import is_rw2
+    from .io.srw import is_srw
+
+    # metadata needs no device: only the formats whose neutral comes from a
+    # decode load a frame (onto --device)
+    device = args.device
+
+    def neutral(frame):
+        return frame.wb_neutral.cpu().numpy().tolist()
+
+    if is_cr3(args.input):
+        # metadata-only: the CRX payload needs libraw (see io/cr3.py)
+        out = cr3_info(args.input)
+        out["raw_decode"] = "rawpy/libraw required (CRX codec)"
+        print(json.dumps(out, indent=2))
+        return 0
+
+    if is_mrw(args.input):
+        # MRW is a block directory, not a TIFF: report from the PRD block
+        # + loader-extracted metadata
+        data = _mrw_read(args.input)
+        out = {"format": "MRW"}
+        try:
+            blocks, _ = _parse_blocks(data)
+            prd = _Prd(blocks[BLOCK_PRD]) if BLOCK_PRD in blocks else None
+            if prd is not None:
+                out["size"] = [prd.ccd_h, prd.ccd_w]
+            ttw = blocks.get(BLOCK_TTW)
+            if ttw is not None:
+                tf = T.read_tiff(ttw)
+                model = tf.ifds[0].get(T.TAG_MODEL) if tf.ifds else None
+                if model is not None:
+                    out["model"] = (
+                        model.as_bytes().split(b"\x00")[0].decode("ascii", "replace")
+                    )
+            frame = load_raw_mrw(args.input, device=device)
+            out["as_shot_neutral"] = neutral(frame)
+            out["ev"] = float(frame.ev)
+        except ValueError as e:
+            out["error"] = str(e)
+        print(json.dumps(out, indent=2))
+        return 0
+
+    if is_raf(args.input):
+        # RAF is a proprietary directory, not a TIFF: report from its
+        # embedded TIFF + loader-extracted metadata
+        data = _read_source(args.input)
+        out = {"format": "RAF"}
+        out["model"] = data[0x1C:0x3C].split(b"\x00")[0].decode("ascii", "replace").strip()
+        off, ln = struct.unpack_from(">LL", data, 100)
+        try:
+            frame = load_raw_raf(args.input, device=device)
+            out["size"] = list(frame.bayer.shape)
+            out["as_shot_neutral"] = neutral(frame)
+            out["ev"] = float(frame.ev)
+        except ValueError as e:
+            out["error"] = str(e)
+            out["ev"] = compute_ev_from_tiff(bytes(data[off : off + ln]))
+        print(json.dumps(out, indent=2))
+        return 0
+
+    tf = T.read_tiff(args.input)
+    out = {}
+    if is_cr2(args.input):
+        out["format"] = "CR2"
+        raw = _find_raw_ifd(tf)
+    else:
+        out["format"] = (
+            "NEF" if is_nef(args.input)
+            else "ARW" if is_arw(args.input)
+            else "RW2" if is_rw2(args.input)
+            else "ORF" if is_orf(args.input)
+            else "PEF" if is_pef(args.input)
+            else "SRW" if is_srw(args.input)
+            else "DNG/TIFF"
+        )
+        raw = tf.find_raw_ifd()
+    model = tf.ifds[0].get(T.TAG_MODEL) if tf.ifds else None
+    if model is not None:
+        out["model"] = model.as_bytes().split(b"\x00")[0].decode("ascii", "replace")
+    if raw is not None and raw.get(T.TAG_IMAGE_LENGTH) is not None:
+        out["size"] = [
+            raw.get(T.TAG_IMAGE_LENGTH).as_ints()[0],
+            raw.get(T.TAG_IMAGE_WIDTH).as_ints()[0],
+        ]
+        cfa = raw.get(T.TAG_CFA_PATTERN)
+        if cfa is not None:
+            out["cfa"] = list(cfa.as_bytes() if isinstance(cfa.values, bytes)
+                              else cfa.as_ints())[:4]
+    out["ev"] = compute_ev_from_tiff(args.input)
+    active, crop = get_image_area_from_tiff(args.input)
+    out["active_area"] = active
+    out["crop"] = crop
+    try:
+        out["as_shot_neutral"] = np.asarray(exif_get_as_shot_neutral(tf)).tolist()
+    except KeyError:
+        out["as_shot_neutral"] = None
+    if out["as_shot_neutral"] is None and out["format"] in (
+        "CR2", "NEF", "ARW", "RW2", "ORF", "PEF", "SRW"
+    ):
+        # MakerNote formats carry WB outside the DNG EXIF tags; the format
+        # loaders extract it: decode and report the frame's neutral
+        try:
+            out["as_shot_neutral"] = neutral(load_raw(args.input, device=device))
+        except (ValueError, KeyError):
+            pass
+    out["n_color_matrices"] = len(exif_get_color_mat_sources(tf))
+    out["has_opcode_list_3"] = get_opcode_3_block(args.input) is not None
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _verify_decode(args) -> int:
+    from .core.device import resolve_device
+    from .io.verify_decode import (
+        BAD_VERDICTS,
+        iter_raw_files,
+        summary_table,
+        sweep_decode,
+        verify_decode,
+    )
+
+    device = resolve_device(args.device)
+    # directories expand recursively (first-contact sweep: point this at a
+    # photo tree the day rawpy + real files exist and read the table)
+    if any(os.path.isdir(p) for p in args.inputs):
+        paths = []
+        for p in args.inputs:
+            paths.extend(iter_raw_files(p) if os.path.isdir(p) else [p])
+        reports, summary = sweep_decode(paths, device=device)
+        for report in reports:
+            print(json.dumps(report, separators=(",", ":")))
+        print()
+        print(summary_table(summary))
+        # mismatch AND builtin decode failures flip the exit code (intentional
+        # rawpy fall-throughs are classified "no-builtin" and stay green)
+        return 1 if any(r["verdict"] in BAD_VERDICTS for r in reports) else 0
+
+    reports = [verify_decode(path, name=path, device=device) for path in args.inputs]
+    print(json.dumps(reports if len(reports) > 1 else reports[0], indent=2))
+    return 1 if any(r["verdict"] in BAD_VERDICTS for r in reports) else 0
+
+
+def _harvest(args) -> int:
+    from .io.camera_matrices import harvest_camera_matrices_from_dng
+    from .io.matrix_cache import _read_cache_file, cache_path
+    from .io.verify_decode import iter_raw_files
+
+    dng_exts = (".dng", ".tif", ".tiff")
+    paths = []
+    for p in args.inputs:
+        if os.path.isdir(p):
+            paths.extend(
+                f for f in iter_raw_files(p)
+                if os.path.splitext(f)[1].lower() in dng_exts
+            )
+        else:
+            paths.append(p)
+
+    results = []
+    harvested_models = set()
+    for path in paths:
+        row = {"file": path}
+        try:
+            model, mats = harvest_camera_matrices_from_dng(path, source_name=path)
+            row["model"] = model
+            row["n_matrices"] = len(mats)
+            harvested_models.add(model)
+        except (ValueError, KeyError, OSError) as e:
+            row["skipped"] = f"{type(e).__name__}: {e}"
+        results.append(row)
+        print(json.dumps(row, separators=(",", ":")))
+
+    # deltas come back off the persisted cache: the evidence the harvest left
+    bodies = _read_cache_file(cache_path())
+    for model in sorted(harvested_models):
+        deltas = bodies.get(model, {}).get("estimate_vs_real")
+        if deltas:
+            print(json.dumps({"model": model, "estimate_vs_real": deltas}))
+    print(
+        f"harvested {len(harvested_models)} bodies from "
+        f"{sum('model' in r for r in results)}/{len(results)} files "
+        f"-> {cache_path()}"
+    )
+    return 0 if harvested_models or not paths else 1
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.command == "develop":
         return _develop(args)
-    raise NotImplementedError(
-        f"the {args.command!r} subcommand is not ported to pysp_tpu_torch yet "
-        f"(ROADMAP.md {_SUBCOMMAND_ITEMS[args.command]})"
-    )
+    if args.command == "info":
+        return _info(args)
+    if args.command == "verify-decode":
+        return _verify_decode(args)
+    if args.command == "harvest":
+        return _harvest(args)
+    return 2
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Raw file -> RawFrame: the host-side DNG decode path.
+"""Raw file -> RawFrame: the host-side decode path (L0).
 
-Counterpart of ``pysp_tpu/io/raw_loader.py`` for uncompressed DNGs: decode the
-CFA data with the built-in TIFF parser, read per-channel black/white levels,
+Counterpart of ``pysp_tpu/io/raw_loader.py``: decode the CFA data (DNGs with
+the built-in TIFF parser, uncompressed or lossless JPEG; CR2, MRW, RAF, ARW,
+ORF, RW2, PEF, SRW and NEF with their modules in ``io/``; anything else through
+rawpy/libraw where it imports), read per-channel black/white levels,
 normalize, decode and validate the 2x2 CFA pattern, apply DNG ActiveArea and
-DefaultCrop with CFA-alignment checks, build the WB controller from the embedded
-calibration matrices, compute EV, and canonicalize the mosaic to RGGB.
+DefaultCrop with CFA-alignment checks, build the WB controller from the
+embedded calibration matrices (or the camera-matrix registry), compute EV, and
+canonicalize the mosaic to RGGB on the load device.
 
 The DNG's OpcodeList1 (FixBadPixelsConstant / FixBadPixelsList: the listed
 photosites healed) and OpcodeList2 (GainMap / FixVignetteRadial: the shading
@@ -14,8 +17,9 @@ the load device, as in the JAX package.
 ``controller_for_source`` rebuilds a decoded frame's WB controller, for WB
 from a colour temperature (``frame_from_parts`` then builds the frame anew).
 
-Not ported yet (ROADMAP.md queue A, items A3, A5 and A6): lossless-JPEG DNGs,
-the persistent camera-matrix harvest and every non-DNG format.
+A dual-illuminant DNG's calibration rows are harvested into the persistent
+camera-matrix registry as a side effect of its load (``io/camera_matrices.py``),
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from ..core.bayer import reversible_transform_rggb
 from ..core.device import CARD, resolve_device
 from ..core.frame import RawFrame
 from . import tiff as T
+from .tiff import check_decode_dims  # noqa: F401  (format modules import it here)
 from .metadata import (
     compute_ev_from_tiff,
     exif_get_as_shot_neutral,
@@ -126,7 +131,7 @@ def _black_white_levels(raw_ifd: T.Ifd, n: int = 4) -> Tuple[np.ndarray, np.ndar
 
 
 def load_raw_dng(source: Source, apply_gain_opcodes: bool = True, device=CARD) -> RawFrame:
-    """Load an uncompressed DNG through the built-in parser onto ``device``
+    """Load a DNG through the built-in parser onto ``device``
     (the card unless the caller asks for another; see ``core.device``).
 
     With ``apply_gain_opcodes`` (the JAX package's switch, for both lists) the
@@ -180,6 +185,14 @@ def load_raw_dng(source: Source, apply_gain_opcodes: bool = True, device=CARD) -
             "EXIF ColorMatrix tags or illuminant tags missing, could not create "
             "white balance controller!"
         )
+    # first-contact upgrade: any dual-illuminant DNG donates its body's REAL
+    # calibration rows to the persistent registry, so native-format loads
+    # (CR2/NEF/...) of the same body stop using estimated StdA matrices
+    from .camera_matrices import autoharvest_from_tiff
+
+    autoharvest_from_tiff(
+        tf, mats, source_name=source if isinstance(source, str) else None
+    )
     neutral = exif_get_as_shot_neutral(tf)
     cam_wb = CameraWhiteBalanceController(mats, neutral)
 
@@ -223,58 +236,213 @@ def controller_for_source(source: Source, frame: RawFrame) -> CameraWhiteBalance
     """Rebuild a WB controller for a decoded frame so ``update_by_*`` calls work
     (counterpart of ``pysp_tpu/io/raw_loader.py``'s).
 
-    A DNG carries its calibration matrices in EXIF (ColorMatrix1/2/3) and its
-    as-shot neutral: the controller is built from them. Without EXIF matrices
-    (a non-TIFF container, or a TIFF without them) it falls through to the
-    single matrix the frame already holds, with the frame's neutral. The JAX
-    package first looks the EXIF model up in its camera-matrix registry there;
-    the port has no registry yet (ROADMAP.md queue A, item A5: the
-    camera-matrix registry and autoharvest)."""
+    DNGs carry their calibration matrices in EXIF (ColorMatrix1/2/3); MakerNote
+    formats (CR2/NEF/ARW/RW2) embed none, so the controller re-resolves the
+    per-model registry (dual-illuminant rows when available: estimated StdA +
+    D65, or harvested Adobe data) and only then falls back to the single matrix
+    the loader already resolved, with the frame's as-shot neutral.
+    """
     import struct
 
-    from ..colorimetry.illuminants import StandardIlluminantSeries
-    from ..colorimetry.spaces import MatXyzToCamera
+    from .camera_matrices import lookup_camera_matrices
 
     try:
         tf = T.read_tiff(source)
         mats = exif_get_color_mat_sources(tf)
     except (ValueError, struct.error):
-        # non-TIFF containers carry no EXIF color matrices at all
+        # non-TIFF containers (RAF) carry no EXIF color matrices at all
         tf, mats = None, []
     if mats:
         neutral = exif_get_as_shot_neutral(tf)
-    else:
+    elif tf is not None and tf.ifds:
+        # no EXIF matrices: registry by EXIF model (dual rows when known)
+        model_tag = tf.ifds[0].get(T.TAG_MODEL)
+        if model_tag is not None:
+            model = model_tag.as_bytes().split(b"\x00")[0].decode("ascii", "replace")
+            mats = lookup_camera_matrices(model) or []
+            neutral = _host64(frame.wb_neutral)
+    if not mats:
+        from ..colorimetry.illuminants import StandardIlluminantSeries
+        from ..colorimetry.spaces import MatXyzToCamera
+
         mats = [
             MatXyzToCamera(
-                frame.cam_mat.cpu().numpy().astype(np.float64),
-                frame.cam_white.cpu().numpy().astype(np.float64),
+                _host64(frame.cam_mat),
+                _host64(frame.cam_white),
                 StandardIlluminantSeries.SERIES_DAYLIGHT,
             )
         ]
-        neutral = frame.wb_neutral.cpu().numpy().astype(np.float64)
+        neutral = _host64(frame.wb_neutral)
     return CameraWhiteBalanceController(mats, neutral)
 
 
-def _is_dng(source: Source) -> bool:
-    if isinstance(source, str):
-        with open(source, "rb") as f:
-            head = f.read(4)
-    else:
-        head = bytes(source[:4])
-    if head not in (b"II*\x00", b"MM\x00*"):
-        return False
-    ifds = T.read_tiff(source).ifds
-    return bool(ifds) and ifds[0].get(T.TAG_DNG_VERSION) is not None
+def _host64(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.float64)
 
 
 def load_raw(source: Source, device=CARD) -> RawFrame:
-    """Load a raw file onto ``device``: the card unless the caller asks for
-    another, such as ``device="cpu"``. Without a GPU the default raises. Only
-    DNGs are ported: any other format raises ``NotImplementedError``."""
+    """Load any supported raw onto ``device`` (the card unless the caller asks
+    for another, such as ``device="cpu"``; without a GPU the default raises):
+    the built-in DNG/CR2/NEF/ARW/RW2/ORF/RAF/PEF/MRW/SRW decoders, then rawpy,
+    in the JAX package's order."""
     device = resolve_device(device)
-    if not _is_dng(source):
-        raise NotImplementedError(
-            "pysp_tpu_torch decodes DNG only; the other raw formats are not "
-            "ported yet (ROADMAP.md queue A, item A6: the other-format decoders)"
-        )
-    return load_raw_dng(source, device=device)
+    from .cr2 import is_cr2, load_raw_cr2
+
+    if is_cr2(source):
+        return load_raw_cr2(source, device=device)
+
+    from .mrw import is_mrw, load_raw_mrw
+
+    if is_mrw(source):
+        return load_raw_mrw(source, device=device)
+
+    from .cr3 import is_cr3, load_raw_cr3_rawpy
+
+    if is_cr3(source):
+        # CRX decode has no built-in path: pixels via libraw (the reference's
+        # own route), metadata from the container's CMT blocks
+        return load_raw_cr3_rawpy(source, device=device)
+
+    from .raf import is_raf, load_raw_raf
+
+    if is_raf(source):
+        # X-Trans / Super-CCD layouts fall through to rawpy below
+        try:
+            return load_raw_raf(source, device=device)
+        except ValueError as e:
+            if "not supported" not in str(e):
+                raise
+
+    from .arw import is_arw, load_raw_arw
+
+    if is_arw(source):
+        # Sony lossless (compression 7) falls through to rawpy below
+        try:
+            return load_raw_arw(source, device=device)
+        except ValueError as e:
+            if "unsupported compression" not in str(e):
+                raise
+
+    from .orf import is_orf, load_raw_orf
+
+    if is_orf(source):
+        return load_raw_orf(source, device=device)
+
+    from .rw2 import is_rw2, load_raw_rw2
+
+    if is_rw2(source):
+        # v5+ payloads (unsupported RawFormat) fall through to rawpy below
+        try:
+            return load_raw_rw2(source, device=device)
+        except ValueError as e:
+            if "unsupported RawFormat" not in str(e):
+                raise
+
+    from .pef import is_pef, load_raw_pef
+
+    if is_pef(source):
+        return load_raw_pef(source, device=device)
+
+    from .srw import is_srw, load_raw_srw
+
+    if is_srw(source):
+        # samsung2/3 generations (other compression values) fall through to rawpy
+        try:
+            return load_raw_srw(source, device=device)
+        except ValueError as e:
+            if "unsupported compression" not in str(e):
+                raise
+
+    try:
+        return load_raw_dng(source, device=device)
+    except (ValueError, KeyError, NotImplementedError):
+        pass
+
+    from .nef import is_nef, load_raw_nef
+
+    if is_nef(source):
+        return load_raw_nef(source, device=device)
+
+    try:
+        import rawpy  # type: ignore  # noqa: F401
+    except ImportError as e:
+        raise ValueError(
+            "Raw couldn't be read by the built-in DNG/CR2/NEF/ARW/RW2/ORF/RAF/PEF/"
+            "MRW/SRW decoders and rawpy is not installed for other formats."
+        ) from e
+
+    return load_raw_rawpy(source, device=device)
+
+
+def load_raw_rawpy(source: Source, strict: bool = True, device=CARD) -> RawFrame:
+    """Decode via rawpy/libraw only: the reference's own decode route,
+    bypassing every built-in codec.
+
+    ``strict=True`` (the load_raw fall-through contract) requires EXIF color
+    matrices + EV from the TIFF container. ``strict=False`` (the verify-decode
+    cross-check path) degrades gracefully for containers libraw reads but the
+    TIFF metadata layer cannot: color matrices fall back to the per-model
+    registry / Rec.709, the neutral to libraw's camera_whitebalance, EV to 0.
+    """
+    import rawpy  # type: ignore
+
+    from io import BytesIO
+
+    reader = source if isinstance(source, str) else BytesIO(source)
+    with rawpy.imread(reader) as raw:
+        chan_sat = np.asarray(raw.camera_white_level_per_channel, np.float64)
+        chan_black = np.asarray(raw.black_level_per_channel, np.float64)
+        sensor = _normalize_host(raw.raw_image, chan_black, chan_sat)
+        if raw.raw_pattern.shape != (2, 2):
+            raise ValueError("Raw has unsupported Bayer pattern, cannot continue!")
+        desc = raw.color_desc.decode("ascii")
+        pattern_str = "".join(desc[i] for i in raw.raw_pattern.flatten())
+        pattern = _PATTERN_FROM_STRING[pattern_str.upper()]
+        cam_mult = getattr(raw, "camera_whitebalance", None)
+
+    if strict:
+        tf_area = get_image_area_from_tiff(source)
+        sensor = _apply_area_and_crop(sensor, tf_area[0], tf_area[1])
+        tf = T.read_tiff(source)
+        mats = exif_get_color_mat_sources(tf)
+        neutral = exif_get_as_shot_neutral(tf)
+        cam_wb = CameraWhiteBalanceController(mats, neutral)
+        ev = compute_ev_from_tiff(source)
+        return frame_from_parts(sensor, pattern, cam_wb, ev, device=device)
+
+    import struct as _struct
+
+    try:
+        tf_area = get_image_area_from_tiff(source)
+        sensor = _apply_area_and_crop(sensor, tf_area[0], tf_area[1])
+    except (ValueError, _struct.error):
+        pass
+    mats, neutral, model = [], None, None
+    try:
+        tf = T.read_tiff(source)
+        mats = exif_get_color_mat_sources(tf)
+        if mats:
+            neutral = exif_get_as_shot_neutral(tf)
+        model_tag = tf.ifds[0].get(T.TAG_MODEL) if tf.ifds else None
+        if model_tag is not None:
+            model = model_tag.as_bytes().split(b"\x00")[0].decode("ascii", "replace")
+    except (ValueError, _struct.error):
+        pass
+    if not mats:
+        from .camera_matrices import resolve_camera_matrices
+
+        mats = resolve_camera_matrices(model)
+    if neutral is None:
+        if cam_mult is not None and np.all(np.asarray(cam_mult[:3], float) > 0):
+            m = np.asarray(cam_mult[:3], np.float64)
+            neutral = m[1] / m  # gains -> camera response to neutral, G=1
+        else:
+            neutral = np.array([0.5, 1.0, 0.5], np.float64)
+    cam_wb = CameraWhiteBalanceController(mats, neutral)
+    try:
+        ev = compute_ev_from_tiff(source)
+    except (ValueError, _struct.error):
+        ev = float("nan")
+    if not np.isfinite(ev):
+        ev = 0.0
+    return frame_from_parts(sensor, pattern, cam_wb, ev, device=device)

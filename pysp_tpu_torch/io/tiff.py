@@ -271,10 +271,35 @@ class TiffFile:
             return _assemble_tiles(arr, height, width, tile_h, tile_w, len(offsets))
 
         if compression == 7:  # lossless JPEG (DNG)
-            raise NotImplementedError(
-                "Lossless-JPEG DNG decode needs the native LJ92 binding, which "
-                "pysp_tpu_torch does not have yet (ROADMAP.md queue A, item A3: LJ92 and PNG native bindings)"
-            )
+            from . import native
+
+            if not native.available():
+                raise ValueError(
+                    "Lossless-JPEG DNG needs the native decoder, which did not build "
+                    "(see the warning)"
+                )
+            if len(offsets) > 1 and native.has_ljpeg_tiles():
+                # independent entropy streams -> host-thread-parallel decode in
+                # ONE native call (byte-identical to the loop below, which
+                # remains as the single-stream / old-library path)
+                return native.ljpeg_decode_tiles(
+                    bytes(self.data), offsets, counts, height, width,
+                    tile_h, tile_w,
+                )
+            out = np.zeros((height, width), np.uint16)
+            tiles_x = max(1, -(-width // tile_w))
+            for idx, (o, c) in enumerate(zip(offsets, counts)):
+                piece = native.ljpeg_decode(bytes(self.data[o : o + c]))
+                if piece.ndim == 3:
+                    # N-component scan spans N adjacent columns per sample
+                    ph, pw, pc = piece.shape
+                    piece = piece.reshape(ph, pw * pc)
+                ty, tx = divmod(idx, tiles_x)
+                y0, x0 = ty * tile_h, tx * tile_w
+                h_eff = min(tile_h, height - y0)
+                w_eff = min(tile_w, width - x0)
+                out[y0 : y0 + h_eff, x0 : x0 + w_eff] = piece[:h_eff, :w_eff]
+            return out
 
         raise ValueError(f"Unsupported TIFF compression {compression}")
 
@@ -597,10 +622,9 @@ def write_synthetic_dng(
 
     def encode_band(band: np.ndarray) -> bytes:
         if compression == 7:
-            raise NotImplementedError(
-                "Lossless-JPEG DNG encode needs the native LJ92 binding, which "
-                "pysp_tpu_torch does not have yet (ROADMAP.md queue A, item A3: LJ92 and PNG native bindings)"
-            )
+            from . import native
+
+            return native.ljpeg_encode(band.astype(np.uint16), precision=16)
         if bits_per_sample == 16:
             return np.ascontiguousarray(band.astype("<u2")).tobytes()
         if bits_per_sample in (10, 12, 14):

@@ -3,9 +3,14 @@
 Copied from ``pysp_tpu/utils/testing.py`` (the functions the port's smoke run
 and tests use, ``ring_chart`` the CA scene among them), so that they import
 without JAX, plus the test cases of the heal and postprocess kernels, which the smoke run, ``tools/time_kernels.py``
-and the tests share.
+and the tests share, and the synthetic raw files of every format the loaders
+read (``raw_format_case``) with a reader for the PNGs the port writes
+(``read_png``).
 """
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -123,3 +128,108 @@ def chroma_case(h: int, w: int, seed: int) -> np.ndarray:
         for (y, x), v in zip(corners, values):
             planes[k, y, x] = v
     return planes
+
+
+# The raw formats the built-in decoders read, each with its synthetic writer:
+# (module under io/, writer, bits of the stored values, writer keywords). The
+# blacks are 0 and the CFA RGGB, so a decode of stored values v gives
+# v / (2**bits - 1). ARW2 is lossy (a block's spread past 7 bits is shifted);
+# the RW2 v4 coder is exact on the small-step content it gets here.
+RAW_FORMATS = {
+    "dng": ("tiff", "write_synthetic_dng", 12, {"compression": 7, "black_level": 0}),
+    "cr2": ("cr2", "write_synthetic_cr2", 14, {}),
+    "mrw": ("mrw", "write_synthetic_mrw", 12, {}),
+    "raf": ("raf", "write_synthetic_raf", 14, {}),
+    "orf": ("orf", "write_synthetic_orf", 12, {"black_rggb": (0, 0, 0, 0)}),
+    "rw2": ("rw2", "write_synthetic_rw2", 12, {"black_rgb": (0, 0, 0)}),
+    "nef": ("nef", "write_synthetic_nef", 14, {}),
+    "arw": ("arw", "write_synthetic_arw", 11, {}),
+    "pef": ("pef", "write_synthetic_pef", 12, {"black_rggb": (0, 0, 0, 0)}),
+    "srw": ("srw", "write_synthetic_srw", 12, {"black_rggb": (0, 0, 0, 0), "cfa": (0, 1, 1, 2)}),
+}
+LOSSY_RAW_FORMATS = ("arw",)
+# Largest RW2 v4 step between photosites of one colour that the coder keeps
+# exact (an 8-bit code at shift 0).
+RW2_MAX_STEP = 100
+
+
+def raw_format_mosaic(fmt: str, mosaic: np.ndarray) -> np.ndarray:
+    """The stored values (h, w) uint16 written for ``fmt``: ``mosaic`` (an
+    RGGB mosaic in [0, 1], such as ``mosaic_rggb(make_scene(h, w))``) scaled to
+    the format's bits; for RW2, with every step from the photosite two
+    columns left limited to RW2_MAX_STEP."""
+    bits = RAW_FORMATS[fmt][2]
+    target = np.round(mosaic * ((1 << bits) - 1)).astype(np.int64)
+    if fmt != "rw2":
+        return target.astype(np.uint16)
+    out = target.copy()
+    for x in range(2, out.shape[1]):
+        out[:, x] = out[:, x - 2] + np.clip(target[:, x] - out[:, x - 2], -RW2_MAX_STEP,
+                                            RW2_MAX_STEP)
+    return out.astype(np.uint16)
+
+
+def write_raw_format(io_package, fmt: str, stored: np.ndarray) -> bytes:
+    """File bytes of ``stored`` in ``fmt``, written by ``io_package``'s
+    writer (the port's ``"pysp_tpu_torch.io"``, or another package with the
+    same modules). The RW2 v4 coder packs 14 photosites at a time: a width
+    that is not a multiple of 14 is padded on the right with copies of the
+    last two columns, outside the sensor borders the file records, so the
+    decode is ``stored`` again."""
+    import importlib
+
+    module, writer, _, kwargs = RAW_FORMATS[fmt]
+    write = getattr(importlib.import_module(f"{io_package}.{module}"), writer)
+    if fmt != "rw2":
+        return write(stored, **kwargs)
+    h, w = stored.shape
+    pad = -w % 14
+    cols = np.arange(w + pad)
+    cols[w:] = w - 2 + (cols[w:] - w) % 2
+    return write(np.ascontiguousarray(stored[:, cols]), borders=(0, 0, h, w), **kwargs)[0]
+
+
+def arw2_error_bound(stored: np.ndarray) -> np.ndarray:
+    """Per photosite, the ARW2 coder's largest error on ``stored`` (11-bit,
+    width a multiple of 32): a block is the 16 photosites of one column parity
+    in a 32-column span; with spread s it shifts by the least k <= 4 with
+    s < 0x80 << k, and each value comes back within (1 << k) of the written
+    one, the block's max and min exactly (tests/test_arw.py's bound)."""
+    h, w = stored.shape
+    v = stored.astype(np.int64).reshape(h, w // 32, 16, 2)
+    spread = v.max(axis=2) - v.min(axis=2)                 # (h, w // 32, 2)
+    shift = np.zeros_like(spread)
+    for _ in range(4):
+        shift += (shift < 4) & ((0x80 << shift) <= spread)
+    bound = np.broadcast_to((1 << shift)[:, :, None, :], v.shape)
+    return bound.reshape(h, w)
+
+
+def read_png(blob: bytes) -> np.ndarray:
+    """Pixels of an 8- or 16-bit grey or RGB PNG whose rows are unfiltered
+    (the native writer's): (H, W, C) uint8 or uint16, C 3 (or (H, W) grey)."""
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(blob):
+        (n,) = struct.unpack(">L", blob[pos:pos + 4])
+        kind, body = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) != struct.unpack(">L", blob[pos + 8 + n:pos + 12 + n])[0]:
+            raise ValueError(f"PNG chunk {kind!r}: bad CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">LLBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, colour, _, _, interlace = header
+    channels = {0: 1, 2: 3}[colour]
+    if depth not in (8, 16) or interlace:
+        raise ValueError(f"unsupported PNG: depth {depth}, interlace {interlace}")
+    row = w * channels * depth // 8
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + row)
+    if np.any(raw[:, 0]):
+        raise ValueError("PNG rows are filtered; only unfiltered rows are read")
+    pixels = raw[:, 1:].copy()
+    if depth == 16:
+        pixels = pixels.view(">u2").astype(np.uint16)
+    return pixels.reshape(h, w, channels) if channels == 3 else pixels.reshape(h, w)

@@ -25,7 +25,7 @@ from pysp_tpu.warp.opcodes import apply_opcode_3_warp
 from pysp_tpu_torch.cli import main
 from pysp_tpu_torch.io import tiff as T
 from pysp_tpu_torch.io.image_out import to_uint16
-from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr
+from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb, psnr, read_png
 from pysp_tpu_torch.warp.opcodes import encode_warp_rectilinear
 
 torch.set_num_threads(1)
@@ -188,7 +188,7 @@ def test_hdr_output_is_named_after_the_first_input(tmp_path):
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr
-    assert _read_rgb16(tmp_path / "b0_hdr.tif").shape == (160, 192, 3)
+    assert read_png((tmp_path / "b0_hdr.png").read_bytes()).shape == (160, 192, 3)
 
 
 @pytest.fixture(scope="module")
@@ -248,12 +248,3 @@ def test_unported_flags_name_their_roadmap_item(warped_dng, flags, item):
     flags = [str(path) if f == "{input}" else f for f in flags]
     with pytest.raises(NotImplementedError, match=item):
         main(["develop", str(path), *flags, "--device", "cpu"])
-
-
-def test_unported_outputs_and_subcommands_raise(warped_dng, tmp_path):
-    path, _ = warped_dng
-    with pytest.raises(NotImplementedError, match="A3"):
-        main(["develop", str(path), "--device", "cpu", "-o", str(tmp_path / "x.png")])
-    for sub in ("info", "harvest", "verify-decode"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([sub, str(path)])

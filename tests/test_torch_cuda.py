@@ -18,12 +18,16 @@ from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.utils.testing import (
     HEAL_TILE_KINDS,
+    RAW_FORMATS,
     chroma_case,
     heal_case,
     heal_tile_case,
     make_scene,
     mosaic_rggb,
     psnr,
+    raw_format_mosaic,
+    read_png,
+    write_raw_format,
 )
 
 pytestmark = pytest.mark.cuda
@@ -31,6 +35,18 @@ torch.set_num_threads(1)
 
 CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
 WB = np.array([0.45, 1.0, 0.62], np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def scratch_matrix_cache(tmp_path_factory):
+    """DNG loads harvest their calibration rows into the persistent camera-
+    matrix cache: point it at a file of this module's own (the module runs
+    without tests/conftest.py, which does that for the other tests)."""
+    patch = pytest.MonkeyPatch()
+    patch.setenv("PYSP_TPU_MATRIX_CACHE",
+                 str(tmp_path_factory.mktemp("matrix_cache") / "harvested_matrices.json"))
+    yield
+    patch.undo()
 
 
 @pytest.fixture
@@ -827,3 +843,22 @@ def test_develop_with_stats_on_the_card(cuda):
     np.testing.assert_allclose(out["mean_rgb"].cpu().numpy(), ref.mean(0), rtol=1e-5)
     np.testing.assert_allclose(out["std_rgb"].cpu().numpy(), ref.std(0), rtol=1e-5)
     assert float(out["neg_frac"]) == np.float32((rgb <= 0).sum()) / np.float32(rgb.size)
+
+
+@pytest.mark.parametrize("fmt", sorted(RAW_FORMATS))
+def test_each_format_loads_on_the_card_as_on_the_cpu(cuda, fmt, tmp_path):
+    """``load_raw`` with its default device puts the frame on the card, equal
+    to the CPU load field by field; the PNG of a card image is the CPU's."""
+    from pysp_tpu_torch import load_raw
+    from pysp_tpu_torch.io.image_out import save_image, to_uint8
+
+    stored = raw_format_mosaic(fmt, mosaic_rggb(make_scene(64, 224, seed=4)))
+    blob = write_raw_format("pysp_tpu_torch.io", fmt, stored)
+    got, want = load_raw(blob), load_raw(blob, device="cpu")
+    assert got.device.type == "cuda" and got.source_pattern == want.source_pattern
+    for k in ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    if fmt == "cr2":
+        img = develop(got)
+        save_image(str(tmp_path / "x.png"), img)
+        assert np.array_equal(read_png((tmp_path / "x.png").read_bytes()), to_uint8(img.cpu()))

@@ -62,29 +62,6 @@ def test_load_raw_defaults_to_the_card(tmp_path):
         load_raw(str(path))
 
 
-def _with_compression(blob: bytes, compression: int) -> bytes:
-    """The DNG with its raw IFD's Compression entry (SHORT, 1 value: 1)
-    rewritten to ``compression``."""
-    entry = (259).to_bytes(2, "little") + (3).to_bytes(2, "little") + (1).to_bytes(4, "little")
-    old = entry + (1).to_bytes(2, "little")
-    assert blob.count(old) == 1
-    return blob.replace(old, entry + compression.to_bytes(2, "little"))
-
-
-def test_lossless_jpeg_dng_not_ported():
-    blob = _with_compression(JT.write_synthetic_dng(_bayer_u16()), 7)
-    with pytest.raises(NotImplementedError, match="LJ92"):
-        load_raw(blob, device="cpu")
-
-
-def test_non_dng_sources_not_ported(tmp_path):
-    rgb_tif = tmp_path / "rgb.tif"
-    image_out.save_tiff16(str(rgb_tif), np.zeros((4, 6, 3), np.float32))
-    for source in (b"not a raw file at all", str(rgb_tif)):
-        with pytest.raises(NotImplementedError, match="DNG only"):
-            load_raw(source, device="cpu")
-
-
 def test_save_image_tiff_matches_jax_writer(tmp_path):
     from pysp_tpu.io.image_out import save_tiff16 as jax_save_tiff16
 
@@ -94,5 +71,3 @@ def test_save_image_tiff_matches_jax_writer(tmp_path):
     jax_save_tiff16(str(tmp_path / "jax.tif"), srgb)
     assert (tmp_path / "port.tif").read_bytes() == (tmp_path / "jax.tif").read_bytes()
     np.testing.assert_array_equal(image_out.to_uint8(srgb), image_out.to_uint8(torch.from_numpy(srgb)))
-    with pytest.raises(NotImplementedError, match="PNG"):
-        save_image(str(tmp_path / "out.png"), srgb)
