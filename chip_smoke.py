@@ -43,7 +43,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
      non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
      ties that ``cbrtf`` flips), the fraction printed.
-3. Seven main paths, each driven with every launch count set to 0 just before
+3. Eight main paths, each driven with every launch count set to 0 just before
    it and read just after it:
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
@@ -160,6 +160,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      calibration rows there, which the path checks) and at the end asserts
      that ``~/.cache/pysp_tpu/harvested_matrices.json`` was neither created
      nor changed.
+   - drivers (the several-file drivers): eight 4000x6000 RGGB DNGs of
+     ``make_scene`` (seeds 30-37; every other one LJ92) first through the
+     sequential loop ``load_raw -> develop(Best) -> save_image`` (.png), then
+     through ``develop_files`` (the stream: host decode in a thread pool,
+     copies on their own CUDA streams, develop, saves in a writer pool) and
+     ``develop_stream``; 16 DNGs of 1000x1504 through ``load_burst ->
+     develop_burst``; ``compat.RawBayerDataFromRaw`` of the first 24 MP
+     DNG ``-> demosaic(Best) -> to_lin_srgb -> lin_srgb_to_srgb``; and the
+     ``main`` of ``examples/differentiable_isp_torch.py`` and of
+     ``examples/full_pipeline_torch.py`` on the card. Before it, how far four
+     threads overlap a 24 MP uncompressed load, an LJ92 load and an 8-bit
+     PNG save (their rate against one thread's). Asserts the launches (8 AHD
+     in each of the three develops of the files, 16 in the burst, none in
+     the class API and the differentiable fit; in the full pipeline 3 heals,
+     the staged Best route's 2 homogeneity and 1 postprocess launches, and
+     3 remaps), that the stream yields the files in input order,
+     each image equal to the sequential develop (``np.array_equal``), that
+     the sequential, streamed and CLI (``develop <8 files> -o DIR``, in a
+     subprocess) PNGs are byte-equal, that the streamed run is faster than
+     the sequential one on the host clock, that ``load_burst`` is
+     ``torch.equal`` to ``stack_frames`` of the frames loaded one by one, that
+     the class API's image is within the flip bound of ``develop`` with the
+     kernel (>= 100 dB), that the differentiable fit recovers the neutral and
+     the gain within ``tests/test_differentiable_isp.py``'s bounds and that
+     the full pipeline writes its 256x256 PNG; prints files/s, both runs'
+     host clock and the device's busy share under ``torch.profiler``.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
@@ -195,7 +221,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the seven main paths
+kernel's ``launches`` there is the sum of its counts over the eight main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
@@ -2613,6 +2639,295 @@ def formats_path(tmp: str, card: str):
     return launches
 
 
+DRIVERS_FILES = 8                  # 24 MP DNGs through the stream: 4 uncompressed, 4 LJ92
+DRIVERS_CFG = DevelopConfig(quality=QualityDemosaic.Best)
+DRIVERS_BURST = 16                 # load_burst of config 5's shape
+FULL_PIPELINE_LAUNCHES = {"heal": 3, "homogeneity": 2, "postprocess": 1, "remap": 3}
+# The differentiable example's recovery gates (tests/test_differentiable_isp.py).
+ISP_LOSS_SHARE, ISP_NEUTRAL_TOL, ISP_EXPOSURE_TOL = 0.05, 0.08, 0.05
+
+
+def busy_run(fn):
+    """(result, host seconds, device busy seconds) of one call of ``fn`` under
+    ``torch.profiler``: busy is the union of the intervals in which a kernel
+    or a copy ran on the device. The profiler slows the host a little."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    busy, end = 0, spans[0][0]
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return result, host, busy / 1e6
+
+
+def gil_probe(name: str, fn, copies: int = 4) -> dict:
+    """How far ``copies`` runs of a host function in as many threads overlap:
+    their rate against one run alone (``copies`` x: the work releases the
+    interpreter lock; 1 x: it holds it)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    one = time.perf_counter() - t0
+    with ThreadPoolExecutor(copies) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda _: fn(), range(copies)))
+        many = time.perf_counter() - t0
+    log(f"drivers GIL probe, {name}: one run {one:.3f} s, {copies} runs in {copies} threads "
+        f"{many:.3f} s: {copies * one / many:.2f}x one thread's rate (host clock)")
+    return {"one_s": one, "threads": copies, "all_s": many, "speedup": copies * one / many}
+
+
+def drivers_path(tmp: str, card: str):
+    """Phase 3, drivers: eight 24 MP DNGs (four uncompressed, four LJ92)
+    through ``develop_files`` (the stream: host decode, copies, develop and
+    save overlapped), the sequential ``load_raw -> develop -> save_image``
+    loop, ``develop_stream`` and the CLI with eight inputs; ``load_burst`` of
+    16 DNGs of 1000x1504 and ``develop_burst``; the class API
+    (``RawBayerDataFromRaw``) on a 24 MP DNG; both examples' ``main`` on the
+    card. Returns the launch counts."""
+    from examples import differentiable_isp_torch, full_pipeline_torch
+    from pysp_tpu_torch import develop_burst, develop_files, develop_stream, load_burst
+    from pysp_tpu_torch.compat import RawBayerDataFromRaw
+
+    folder = os.path.join(tmp, "drivers")
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    paths = []
+    for i in range(DRIVERS_FILES):
+        path = os.path.join(folder, f"d{i}.dng")
+        with open(path, "wb") as fh:
+            fh.write(synthetic_dng(FULL_H, FULL_W, seed=30 + i, bggr=False,
+                                   compression=7 if i % 2 else 1))
+        paths.append(path)
+    burst_paths = []
+    for i in range(DRIVERS_BURST):
+        path = os.path.join(folder, f"b{i:02d}.dng")
+        with open(path, "wb") as fh:
+            fh.write(synthetic_dng(CA_H, CA_W, seed=50 + i, bggr=False))
+        burst_paths.append(path)
+    log(f"drivers: wrote {DRIVERS_FILES} DNGs of {FULL_H}x{FULL_W} (every other one LJ92) "
+        f"and {DRIVERS_BURST} of {CA_H}x{CA_W} in {time.perf_counter() - t0:.3f} s host clock")
+
+    # Which host work overlaps in threads: measured, not assumed.
+    gil = {"load_raw uncompressed DNG": gil_probe(
+               "load_raw of a 24 MP uncompressed DNG to the host",
+               lambda: load_raw(paths[0], device="cpu")),
+           "load_raw LJ92 DNG": gil_probe(
+               "load_raw of a 24 MP LJ92 DNG to the host",
+               lambda: load_raw(paths[1], device="cpu"))}
+    probe_img = develop(load_raw(paths[0]), DRIVERS_CFG).cpu().numpy()
+    probe_png = os.path.join(folder, "probe.png")
+    gil["save_image 8-bit PNG"] = gil_probe("save_image of a 24 MP 8-bit PNG",
+                                            lambda: save_image(probe_png, probe_img))
+    del probe_img
+
+    zero_launch_counts()
+    t_path = time.perf_counter()
+
+    def delta_since(before):
+        after = launch_counts()
+        return {k: after[k] - before[k] for k in COUNTERS}
+
+    # the sequential loop, one file after another on the default stream
+    seq_dir = os.path.join(folder, "sequential")
+    os.makedirs(seq_dir)
+    seq_images = []
+
+    def sequential():
+        for path in paths:
+            out = develop(load_raw(path), DRIVERS_CFG).cpu().numpy()
+            save_image(os.path.join(seq_dir, os.path.basename(path)[:-4] + ".png"), out)
+            seq_images.append(out)
+
+    before = launch_counts()
+    _, seq_s, seq_busy = busy_run(sequential)
+    expect_launches("drivers sequential loop", delta_since(before), ahd=DRIVERS_FILES)
+
+    # the stream: develop_files with the default workers
+    stream_dir = os.path.join(folder, "streamed")
+    before = launch_counts()
+    written, stream_s, stream_busy = busy_run(
+        lambda: develop_files(paths, stream_dir, DRIVERS_CFG))
+    expect_launches("drivers develop_files", delta_since(before), ahd=DRIVERS_FILES)
+    want_written = [os.path.join(stream_dir, f"d{i}.png") for i in range(DRIVERS_FILES)]
+    if written != want_written:
+        raise AssertionError(f"develop_files wrote {written}, expected {want_written}")
+
+    # develop_stream: the images themselves, in input order
+    before = launch_counts()
+    t0 = time.perf_counter()
+    order = []
+    for (src, img), want in zip(develop_stream(paths, DRIVERS_CFG), seq_images):
+        order.append(src)
+        if not np.array_equal(img, want):
+            raise AssertionError(f"develop_stream's image of {src} differs from the "
+                                 f"sequential develop")
+    stream_only_s = time.perf_counter() - t0
+    if order != paths:
+        raise AssertionError(f"develop_stream yielded {order}, expected {paths}")
+    expect_launches("drivers develop_stream", delta_since(before), ahd=DRIVERS_FILES)
+    log(f"drivers develop_stream: {DRIVERS_FILES} images in input order, each equal to the "
+        f"sequential develop (np.array_equal); {stream_only_s:.3f} s host clock without saves")
+    del seq_images
+
+    # load_burst and develop_burst
+    before = launch_counts()
+    t0 = time.perf_counter()
+    burst = load_burst(burst_paths)
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    developed = develop_burst(burst, DRIVERS_CFG)
+    torch.cuda.synchronize()
+    burst_dev_s = time.perf_counter() - t0
+    expect_launches("drivers load_burst + develop_burst", delta_since(before),
+                    ahd=DRIVERS_BURST)
+    if tuple(developed.shape) != (DRIVERS_BURST, CA_H, CA_W, 3):
+        raise AssertionError(f"develop_burst gave {tuple(developed.shape)}")
+    del developed
+
+    # the reference-name class API on the first 24 MP file (its plain AHD)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    classic = lin_srgb_to_srgb(
+        RawBayerDataFromRaw(paths[0]).demosaic(QualityDemosaic.Best).to_lin_srgb())
+    torch.cuda.synchronize()
+    classic_s = time.perf_counter() - t0
+    expect_launches("drivers class API", delta_since(before))
+
+    # the examples
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as isp_out:
+        isp = differentiable_isp_torch.main()
+    isp_s = time.perf_counter() - t0
+    expect_launches("drivers differentiable example", delta_since(before))
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as full_out:
+        full_png = full_pipeline_torch.main(os.path.join(folder, "full_pipeline"))
+    full_s = time.perf_counter() - t0
+    full_launches = delta_since(before)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_path
+    launches = launch_counts()
+    log(f"drivers path (sequential loop, develop_files, develop_stream of {DRIVERS_FILES} "
+        f"24 MP DNGs; load_burst + develop_burst of {DRIVERS_BURST}; the class API; both "
+        f"examples): {seconds:.3f} s host clock, kernel launches {launches}")
+    log(f"drivers full-pipeline example: kernel launches {full_launches}")
+    # The example heals each of its three brackets, develops the fused frame
+    # through develop_to_image, whose Best demosaic is the staged route as in
+    # the JAX package (two homogeneity counts, one chroma-median stage), and
+    # resamples R's CA (two remaps) and the lens warp (one).
+    expect_launches("drivers full-pipeline example", full_launches, **FULL_PIPELINE_LAUNCHES)
+    expect_launches("drivers", launches, ahd=3 * DRIVERS_FILES + DRIVERS_BURST,
+                    **FULL_PIPELINE_LAUNCHES)
+
+    # -- checks and comparisons (after the counts) --
+    for label, a_dir in (("sequential", seq_dir), ("streamed", stream_dir)):
+        for i in range(DRIVERS_FILES):
+            with open(os.path.join(a_dir, f"d{i}.png"), "rb") as fh:
+                blob = fh.read()
+            if i == 0 and read_png(blob).shape != (FULL_H, FULL_W, 3):
+                raise AssertionError(f"{label}: d0.png is not {FULL_H}x{FULL_W}x3")
+    cli_dir = os.path.join(folder, "cli")
+    cmd = [sys.executable, "-m", "pysp_tpu_torch", "develop", *paths, "-o", cli_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n{proc.stderr}")
+    cli_lines = proc.stdout.strip().splitlines()
+    if (cli_lines[:DRIVERS_FILES] != [f"{p} -> {os.path.join(cli_dir, os.path.basename(p)[:-4])}.png"
+                                      for p in paths]
+            or not cli_lines[-1].endswith("(streamed)")):
+        raise AssertionError(f"the CLI printed {cli_lines}")
+    for i in range(DRIVERS_FILES):
+        blobs = []
+        for a_dir in (seq_dir, stream_dir, cli_dir):
+            with open(os.path.join(a_dir, f"d{i}.png"), "rb") as fh:
+                blobs.append(fh.read())
+        if not blobs[0] == blobs[1] == blobs[2]:
+            raise AssertionError(f"d{i}.png: the sequential, streamed and CLI PNGs differ")
+    log(f"drivers: the sequential, streamed and CLI PNGs of all {DRIVERS_FILES} files are "
+        f"byte-equal; CLI develop <{DRIVERS_FILES} files> -o DIR {cli_s:.3f} s host clock "
+        f"(a new process; its own clock: {cli_lines[-1]})")
+
+    ref = [load_raw(p) for p in burst_paths]
+    stacked = stack_frames(ref)
+    for k in ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat"):
+        if not torch.equal(getattr(burst, k), getattr(stacked, k)):
+            raise AssertionError(f"load_burst's {k} differs from the frames loaded one by one")
+    if burst.source_pattern != stacked.source_pattern or burst.is_hdr != stacked.is_hdr:
+        raise AssertionError("load_burst's pattern or HDR flag differs")
+    t0 = time.perf_counter()
+    stack_frames([load_raw(p) for p in burst_paths])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    log(f"drivers load_burst of {DRIVERS_BURST} DNGs of {CA_H}x{CA_W}: torch.equal to "
+        f"stack_frames of the frames loaded one by one on every tensor; {burst_s:.3f} s host "
+        f"clock against {loop_s:.3f} s for the loop; develop_burst {burst_dev_s:.3f} s "
+        f"({DRIVERS_BURST} AHD launches)")
+    del burst, stacked, ref
+
+    want_img = develop(load_raw(paths[0]), DRIVERS_CFG)
+    check_image("drivers class API", classic, FULL_H, FULL_W)
+    p = develop_stats(f"drivers class API (RawBayerDataFromRaw -> demosaic Best -> "
+                      f"to_lin_srgb -> lin_srgb_to_srgb, the plain AHD) {FULL_H}x{FULL_W}, "
+                      f"against develop with the kernel", want_img, classic, MIN_PSNR_FULL)
+    del classic, want_img
+
+    neutral_r = float(isp["params"]["neutral_rb"][0])
+    with torch.no_grad():
+        exposure = float(torch.mean(differentiable_isp_torch.develop_with_params(
+            isp["params"], isp["frame"])[8:-8, 8:-8]))
+    log(f"drivers differentiable example on the card ({isp_s:.3f} s host clock): "
+        + " ".join(isp_out.getvalue().split()) + f"; developed mean {exposure:.4f}")
+    if not (isp["loss"] < ISP_LOSS_SHARE * isp["loss_initial"]
+            and abs(neutral_r - isp["neutral_true"][0]) < ISP_NEUTRAL_TOL
+            and abs(exposure - 0.5) < ISP_EXPOSURE_TOL):
+        raise AssertionError("the differentiable example did not recover the neutral and gain")
+    with open(full_png, "rb") as fh:
+        full_img = read_png(fh.read())
+    log(f"drivers full-pipeline example on the card ({full_s:.3f} s host clock): "
+        + "; ".join(full_out.getvalue().strip().splitlines()))
+    if full_img.shape != (256, 256, 3):
+        raise AssertionError(f"the full-pipeline example wrote {full_img.shape}")
+
+    rows = {"files": DRIVERS_FILES, "shape": [FULL_H, FULL_W],
+            "sequential_s": seq_s, "streamed_s": stream_s,
+            "sequential_files_per_s": DRIVERS_FILES / seq_s,
+            "streamed_files_per_s": DRIVERS_FILES / stream_s,
+            "sequential_device_busy_s": seq_busy, "streamed_device_busy_s": stream_busy,
+            "sequential_busy_share": seq_busy / seq_s, "streamed_busy_share": stream_busy / stream_s,
+            "develop_stream_s": stream_only_s, "cli_s": cli_s, "load_burst_s": burst_s,
+            "load_loop_s": loop_s, "class_api_s": classic_s, "class_api_psnr_db": p,
+            "differentiable_s": isp_s, "full_pipeline_s": full_s, "gil": gil,
+            "path_s": seconds}
+    log(f"drivers: streamed {DRIVERS_FILES / stream_s:.3f} files/s ({stream_s:.3f} s host "
+        f"clock, device busy {stream_busy:.3f} s, {stream_busy / stream_s:.2%}) against "
+        f"sequential {DRIVERS_FILES / seq_s:.3f} files/s ({seq_s:.3f} s, device busy "
+        f"{seq_busy:.3f} s, {seq_busy / seq_s:.2%}), both under torch.profiler ({card})")
+    if not stream_s < seq_s:
+        raise AssertionError(f"the stream ({stream_s:.3f} s) is not faster than the "
+                             f"sequential loop ({seq_s:.3f} s)")
+    log("drivers summary: " + json.dumps(rows))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -2644,6 +2959,9 @@ def main() -> int:
         surface = surface_at_main_shapes(*surface_state, card)
         del surface_state
         formats_launches = formats_path(tmp, card)
+        t0 = time.perf_counter()
+        drivers_launches = drivers_path(tmp, card)
+        log(f"drivers path with its checks: {time.perf_counter() - t0:.3f} s host clock")
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
@@ -2671,7 +2989,8 @@ def main() -> int:
                    "tiers": tiers_launches[counter],
                    "ca": ca_launches[counter],
                    "surface": surface_launches[counter],
-                   "formats": formats_launches[counter]}
+                   "formats": formats_launches[counter],
+                   "drivers": drivers_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
 

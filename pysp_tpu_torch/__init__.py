@@ -43,11 +43,19 @@ apply at load. Highlight reconstruction and per-develop statistics:
     srgb = develop(frame, DevelopConfig(highlights="reconstruct"))
     srgb, stats = develop_with_stats(frame, DevelopConfig())
 
+Many files: ``develop_files(paths, out_dir)`` (or ``develop_stream(paths)``,
+which yields the images) overlaps the host decode, the copies to and from the
+card and the develop on their own CUDA streams, and the saves;
+``load_burst(paths)`` decodes a burst in threads and stacks it.
+``pysp_tpu_torch.compat`` has the reference's class API
+(``RawBayerDataFromRaw(path).demosaic(QualityDemosaic.Best).to_lin_srgb()``).
+
 The command line: ``python -m pysp_tpu_torch develop shot.cr2 -o out.png
 --deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--bit-depth 16``;
 ``--highlights reconstruct`` and
-``--stats``; ``--flat``, ``--dark``, ``--repair-hot-pixels``, ``--denoise``
-and ``--hdr`` (several inputs) for the corrections; ``--ca
+``--stats``; several inputs (streamed into ``-o DIR``); ``--flat``,
+``--dark``, ``--repair-hot-pixels``, ``--denoise`` and ``--hdr`` (several
+inputs fused) for the corrections; ``--ca
 template|gradient|refine``, ``--save-params`` / ``--params`` (a JSON sidecar
 of the fitted state) and ``--temperature``; the ``info``, ``harvest`` and
 ``verify-decode`` subcommands.
@@ -125,7 +133,7 @@ from .io.nef import load_raw_nef
 from .io.orf import load_raw_orf
 from .io.pef import load_raw_pef
 from .io.raf import load_raw_raf
-from .io.raw_loader import frame_from_parts, load_raw, load_raw_dng
+from .io.raw_loader import frame_from_parts, load_burst, load_raw, load_raw_dng
 from .io.rw2 import load_raw_rw2
 from .io.srw import load_raw_srw
 from .ops.resample import bilinear_sample, remap_bilinear, remap_lanczos4
@@ -137,6 +145,7 @@ from .pipeline.develop import (
     develop_with_stats,
 )
 from .pipeline.pipeline import PipelineConfig, develop_pipeline
+from .pipeline.stream import develop_files, develop_stream
 from .warp.gain_opcodes import (
     GainMap,
     VignetteRadial,
@@ -208,7 +217,10 @@ __all__ = [
     "develop_burst",
     "develop_to_image",
     "develop_with_stats",
+    "develop_files",
+    "develop_stream",
     "frame_from_parts",
+    "load_burst",
     "load_raw",
     "load_raw_dng",
     "load_raw_arw",

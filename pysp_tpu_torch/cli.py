@@ -29,11 +29,18 @@ the JAX CLI. The image stays on the device from the load to the save.
 ColorMatrix1/2 rows into the persistent camera-matrix cache, and
 ``verify-decode`` cross-decodes files with the built-in codecs and rawpy.
 
+Several inputs without ``--hdr``: a plain call (no option beyond the
+develop's own: quality, stages, gamma, highlights) streams through
+``pipeline.stream.develop_files`` into ``-o DIR`` (or the first input's
+directory), decode, copies, develop and save overlapped; any other call
+develops the files one by one, each into ``-o DIR`` (created) as
+``<stem>.png``. The JAX CLI streams a ``--bit-depth 16`` call too, and its
+stream writes 8-bit PNGs; here such a call is not plain, so each file gets
+its 16-bit PNG.
+
 The JAX CLI takes its device from JAX's backend; this one takes ``--device``
 (``develop``, ``info`` and ``verify-decode``), ``cuda`` unless asked otherwise,
-and raises without a GPU. Several inputs without ``--hdr`` (the streamed
-develop) parse as in the JAX CLI and raise ``NotImplementedError`` naming its
-ROADMAP.md item.
+and raises without a GPU.
 """
 from __future__ import annotations
 
@@ -54,11 +61,12 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pysp_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
 
-    dev = sub.add_parser("develop", help="develop a raw file to an sRGB image")
+    dev = sub.add_parser("develop", help="develop raw file(s) to sRGB images")
     dev.add_argument("inputs", nargs="+",
-                     help="raw file path (DNG/CR2/NEF/ARW/RW2/ORF/RAF/PEF/MRW/SRW "
-                          "built in; others via rawpy); several with --hdr")
-    dev.add_argument("-o", "--output", help="output path (.png, .tif, .jpg) or directory")
+                     help="raw file path(s) (DNG/CR2/NEF/ARW/RW2/ORF/RAF/PEF/MRW/SRW "
+                          "built in; others via rawpy)")
+    dev.add_argument("-o", "--output",
+                     help="output path (single input: .png, .tif, .jpg) or directory")
     dev.add_argument("--device", default="cuda",
                      help="torch device to develop on (default: cuda)")
     dev.add_argument("--quality", choices=["draft", "fast", "best"], default="best")
@@ -123,15 +131,6 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` for a develop flag that is not ported."""
-    if len(args.inputs) > 1 and not args.hdr:
-        raise NotImplementedError(
-            "several inputs (the streamed develop) is not ported to pysp_tpu_torch "
-            "yet (ROADMAP.md queue A, item 15: pipeline/stream.py)"
-        )
-
-
 def _split_spec(spec, default_second):
     parts = str(spec).split(":")
     return float(parts[0]), (float(parts[1]) if len(parts) > 1 else default_second)
@@ -140,7 +139,8 @@ def _split_spec(spec, default_second):
 def _dst_for(args, src: str) -> str:
     if args.output is None:
         return os.path.splitext(src)[0] + ".png"
-    if os.path.isdir(args.output):
+    if len(args.inputs) > 1 or os.path.isdir(args.output):
+        os.makedirs(args.output, exist_ok=True)
         return os.path.join(args.output, os.path.splitext(os.path.basename(src))[0] + ".png")
     return args.output
 
@@ -206,17 +206,12 @@ def _develop(args) -> int:
         DevelopConfig,
         PipelineConfig,
         QualityDemosaic,
-        develop,
         develop_pipeline,
-        develop_with_stats,
-        find_erroneous_pixels_median,
         load_raw,
-        repair_bad_pixels,
         stack_frames,
     )
     from .core.device import resolve_device
 
-    _refuse_unported(args)
     device = resolve_device(args.device)
     quality = {
         "draft": QualityDemosaic.Draft,
@@ -232,7 +227,7 @@ def _develop(args) -> int:
         highlights=args.highlights,
     )
 
-    aux = {}
+    aux, pcfg = {}, None
     if args.flat or args.dark or args.hdr:
         if args.flat:
             aux["flat"] = load_raw(args.flat, device=device)
@@ -268,11 +263,46 @@ def _develop(args) -> int:
         return _finish(args, out, filtering, device, t0, dst,
                        f"{len(args.inputs)} frames (HDR)")
 
-    src = args.inputs[0]
-    t0 = time.time()
     sidecar = load_sidecar(args.params) if args.params else None
     if args.temperature is None and sidecar is not None:
         args.temperature = sidecar["temperature_k"]
+    plain = not (args.flat or args.dark or args.temperature is not None
+                 or args.repair_hot_pixels or args.stats or args.ca or args.warp
+                 or args.denoise > 0.0 or filtering or sidecar is not None
+                 or args.save_params or args.bit_depth != 8)
+    if plain and len(args.inputs) > 1:
+        from .pipeline.stream import develop_files
+
+        out_dir = args.output or os.path.dirname(args.inputs[0]) or "."
+        t0 = time.time()
+        written = develop_files(args.inputs, out_dir, cfg, device=device)
+        dt = time.time() - t0
+        for src, dst in zip(args.inputs, written):
+            print(f"{src} -> {dst}")
+        print(f"{len(written)} files in {dt * 1e3:.0f} ms (streamed)")
+        return 0
+
+    for src in args.inputs:
+        _develop_one(args, src, cfg, pcfg, aux, sidecar, filtering, device)
+        args.save_params = None  # the fit state comes from the first input
+    return 0
+
+
+def _develop_one(args, src: str, cfg, pcfg, aux: dict, sidecar, filtering: bool,
+                 device) -> None:
+    """One input of a looped call: load, correct, develop (through
+    ``develop_pipeline`` with ``pcfg`` where ``--flat`` or ``--dark`` set
+    one), finish and save."""
+    from . import (
+        develop,
+        develop_pipeline,
+        develop_with_stats,
+        find_erroneous_pixels_median,
+        load_raw,
+        repair_bad_pixels,
+    )
+
+    t0 = time.time()
     frame = load_raw(src, device=device)
     if args.temperature is not None:
         frame = _frame_at_temperature(src, frame, args.temperature, device)
@@ -287,7 +317,7 @@ def _develop(args) -> int:
                      temperature=args.temperature)
         print(f"develop parameters -> {args.save_params}", file=sys.stderr)
 
-    if args.flat or args.dark:
+    if pcfg is not None:
         out = develop_pipeline(frame, pcfg, **aux)
     else:
         if args.repair_hot_pixels:
@@ -303,7 +333,7 @@ def _develop(args) -> int:
             print(json.dumps(host_stats, indent=2), file=sys.stderr)
         else:
             out = develop(frame, cfg)
-    return _finish(args, out, filtering, device, t0, _dst_for(args, src), src, warp_src=src)
+    _finish(args, out, filtering, device, t0, _dst_for(args, src), src, warp_src=src)
 
 
 def _neutral(sidecar, device) -> torch.Tensor:

@@ -17,6 +17,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -31,6 +32,9 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+# Decode threads (``load_burst``, ``develop_stream``) may make the first call
+# at once: one builds and binds, the others wait for its result.
+_LOAD_LOCK = threading.Lock()
 # Path of the library this process loaded (None until a load succeeded), and
 # the seconds its build took in this process (0.0 if it was built before).
 loaded_path: Optional[str] = None
@@ -74,10 +78,16 @@ def build_library() -> Path:
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    if _TRIED:
+        return _LIB
+    with _LOAD_LOCK:
+        return _load_locked()
+
+
+def _load_locked() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED, loaded_path
     if _TRIED:
         return _LIB
-    _TRIED = True
     try:
         path = str(build_library())
         lib = ctypes.CDLL(path)
@@ -86,8 +96,9 @@ def _load() -> Optional[ctypes.CDLL]:
             f"pysp_tpu_torch: the native decode library did not build or load, "
             f"so the formats that need it are unavailable: {e}",
             RuntimeWarning,
-            stacklevel=2,
+            stacklevel=3,
         )
+        _TRIED = True
         return None
     loaded_path = path
 
@@ -246,7 +257,9 @@ def _load() -> Optional[ctypes.CDLL]:
         ]
     except AttributeError:
         pass
+    # _TRIED last: a caller outside the lock that sees it finds _LIB bound
     _LIB = lib
+    _TRIED = True
     return _LIB
 
 

@@ -446,3 +446,34 @@ def load_raw_rawpy(source: Source, strict: bool = True, device=CARD) -> RawFrame
     if not np.isfinite(ev):
         ev = 0.0
     return frame_from_parts(sensor, pattern, cam_wb, ev, device=device)
+
+
+def load_burst(sources, max_workers: int = 8, device=CARD) -> RawFrame:
+    """Load a burst of raw files concurrently into one batched RawFrame on
+    ``device`` (the card unless the caller asks for another).
+
+    The files decode on the host in a thread pool; all frames must share
+    sensor shape and CFA pattern. The burst is stacked on the host and copied
+    to ``device`` once, every tensor with a leading frame axis: ready for
+    ``develop_burst`` and ``develop_pipeline``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..core.frame import stack_frames
+
+    if len(sources) == 0:
+        raise ValueError("load_burst needs at least one source")
+    device = resolve_device(device)
+
+    def load_on_host(source):
+        return load_raw(source, device="cpu")
+
+    with ThreadPoolExecutor(max_workers=min(max_workers, len(sources))) as pool:
+        frames = list(pool.map(load_on_host, sources))
+
+    shapes = {tuple(f.bayer.shape) for f in frames}
+    patterns = {f.source_pattern for f in frames}
+    if len(shapes) != 1 or len(patterns) != 1:
+        raise ValueError(
+            f"burst frames disagree: shapes={shapes}, patterns={patterns}"
+        )
+    return stack_frames(frames, device="cpu").to(device)

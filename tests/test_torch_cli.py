@@ -240,11 +240,83 @@ def test_highlights_reconstruct_and_stats_match_the_jax_chain(blown_dng, tmp_pat
     assert not np.array_equal(_read_rgb16(clip), got)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["{input}"], "item 15"),   # several inputs without --hdr: the streamed develop
-])
-def test_unported_flags_name_their_roadmap_item(warped_dng, flags, item):
-    path, _ = warped_dng
-    flags = [str(path) if f == "{input}" else f for f in flags]
-    with pytest.raises(NotImplementedError, match=item):
-        main(["develop", str(path), *flags, "--device", "cpu"])
+def _shots(folder, n=3):
+    """``n`` 48x64 RGGB DNGs of the test scene (every other one LJ92)."""
+    folder.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for k in range(n):
+        u16 = (200 + mosaic_rggb(make_scene(48, 64, seed=60 + k)) * 3800).astype(np.uint16)
+        path = folder / f"s{k}.dng"
+        path.write_bytes(T.write_synthetic_dng(u16, compression=7 if k % 2 else 1))
+        paths.append(path)
+    return paths
+
+
+def test_several_inputs_stream_into_a_directory(tmp_path, capsys):
+    """A plain call with three inputs streams into ``-o DIR`` (created), with
+    the JAX CLI's lines, and writes the PNGs that three single calls write."""
+    shots = _shots(tmp_path / "in")
+    out = tmp_path / "out"
+    assert main(["develop", *map(str, shots), "-o", str(out), "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:3] == [f"{p} -> {out / p.stem}.png" for p in shots]
+    assert lines[3].startswith("3 files in ") and lines[3].endswith(" ms (streamed)")
+    for p in shots:
+        single = tmp_path / f"single_{p.stem}.png"
+        assert main(["develop", str(p), "-o", str(single), "--device", "cpu"]) == 0
+        assert (out / f"{p.stem}.png").read_bytes() == single.read_bytes()
+
+
+def test_several_inputs_stream_beside_the_first_input_like_the_jax_cli(tmp_path):
+    """Without ``-o`` the stream writes into the first input's directory;
+    the PNGs are the JAX CLI's (run op by op) within one 8-bit code."""
+    from pysp_tpu.cli import main as jax_main
+
+    shots = _shots(tmp_path / "in")
+    assert main(["develop", *map(str, shots), "--device", "cpu"]) == 0
+    jax_dir = tmp_path / "jax"
+    with jax.disable_jit():
+        assert jax_main(["develop", *map(str, shots), "-o", str(jax_dir)]) == 0
+    for p in shots:
+        got = read_png((tmp_path / "in" / f"{p.stem}.png").read_bytes())
+        want = read_png((jax_dir / f"{p.stem}.png").read_bytes())
+        assert got.shape == want.shape == (48, 64, 3) and got.dtype == want.dtype == np.uint8
+        assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 1
+
+
+def test_several_inputs_with_options_develop_one_by_one(tmp_path, capsys):
+    """``--unsharp`` makes the call not plain: each input develops on its own
+    into a new ``-o`` directory, as a single call with that option would."""
+    shots = _shots(tmp_path / "in")
+    out = tmp_path / "new" / "dir"
+    assert main(["develop", *map(str, shots), "-o", str(out), "--device", "cpu",
+                 "--unsharp", "0.5:1"]) == 0
+    assert "(streamed)" not in capsys.readouterr().out
+    assert sorted(f.name for f in out.iterdir()) == [f"{p.stem}.png" for p in shots]
+    for p in shots:
+        single = tmp_path / f"single_{p.stem}.png"
+        assert main(["develop", str(p), "-o", str(single), "--device", "cpu",
+                     "--unsharp", "0.5:1"]) == 0
+        assert (out / f"{p.stem}.png").read_bytes() == single.read_bytes()
+
+
+def test_bit_depth_16_with_several_inputs_writes_16_bit_pngs(tmp_path):
+    """C5: the JAX CLI streams ``--bit-depth 16`` with several inputs and its
+    stream writes 8-bit PNGs; the port develops such a call file by file and
+    writes each file's 16-bit PNG, the one a single call writes."""
+    from pysp_tpu.cli import main as jax_main
+
+    shots = _shots(tmp_path / "in", n=2)
+    out, jax_out = tmp_path / "out", tmp_path / "jax"
+    assert main(["develop", *map(str, shots), "-o", str(out), "--device", "cpu",
+                 "--bit-depth", "16"]) == 0
+    assert jax_main(["develop", *map(str, shots), "-o", str(jax_out),
+                     "--bit-depth", "16"]) == 0
+    for p in shots:
+        got = read_png((out / f"{p.stem}.png").read_bytes())
+        assert got.shape == (48, 64, 3) and got.dtype == np.uint16
+        single = tmp_path / f"single_{p.stem}.png"
+        assert main(["develop", str(p), "-o", str(single), "--device", "cpu",
+                     "--bit-depth", "16"]) == 0
+        assert (out / f"{p.stem}.png").read_bytes() == single.read_bytes()
+        assert read_png((jax_out / f"{p.stem}.png").read_bytes()).dtype == np.uint8

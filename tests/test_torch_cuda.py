@@ -862,3 +862,68 @@ def test_each_format_loads_on_the_card_as_on_the_cpu(cuda, fmt, tmp_path):
         img = develop(got)
         save_image(str(tmp_path / "x.png"), img)
         assert np.array_equal(read_png((tmp_path / "x.png").read_bytes()), to_uint8(img.cpu()))
+
+
+def _stream_dngs(folder, n, h=96, w=128):
+    """``n`` small RGGB DNGs of the test scene, every third one LJ92."""
+    from pysp_tpu_torch.io.tiff import write_synthetic_dng
+
+    paths = []
+    for i in range(n):
+        u16 = (200 + mosaic_rggb(make_scene(h, w, seed=70 + i)) * 3800).astype(np.uint16)
+        path = folder / f"f{i:02d}.dng"
+        path.write_bytes(write_synthetic_dng(u16, compression=7 if i % 3 == 1 else 1))
+        paths.append(str(path))
+    return paths
+
+
+@pytest.mark.parametrize("prefetch", [1, 4])
+def test_stream_on_the_card_equals_the_sequential_develop(cuda, tmp_path, prefetch):
+    """32 files through the card's stream (upload, compute and download
+    streams): each image the card's own develop of that file, bit for bit, in
+    input order; one AHD launch a file."""
+    from pysp_tpu_torch import develop_stream, load_raw
+
+    paths = _stream_dngs(tmp_path, 32)
+    cfg = DevelopConfig()
+    before = K.ahd_kernel_launches
+    got = list(develop_stream(paths, cfg, prefetch=prefetch))
+    assert K.ahd_kernel_launches == before + 32
+    assert [s for s, _ in got] == paths
+    for src, img in got:
+        want = develop(load_raw(src), cfg).cpu().numpy()
+        np.testing.assert_array_equal(img, want)
+
+
+def test_load_burst_on_the_card_equals_the_cpu(cuda, tmp_path):
+    from pysp_tpu_torch import load_burst
+
+    paths = _stream_dngs(tmp_path, 5)
+    got = load_burst(paths)
+    want = load_burst(paths, device="cpu")
+    for k in ("bayer", "cam_mat", "cam_white", "wb_neutral", "ev", "lim_sat"):
+        assert getattr(got, k).is_cuda
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+
+
+def test_develop_files_on_the_card_writes_the_cpu_pngs(cuda, tmp_path):
+    """At Fast (plain PyTorch on both devices) the card's stream writes the
+    PNG bytes of the card's own develop saved one by one, and within one
+    8-bit code of the CPU stream's PNGs: the two devices' develops differ by
+    up to 2.3e-6 (the float32 cam->lin-sRGB inverse, PERF.md), which moves a
+    sample that sits that close to a rounding boundary by one code."""
+    from pysp_tpu_torch import QualityDemosaic, develop_files, load_raw, save_image
+
+    paths = _stream_dngs(tmp_path, 6)
+    cfg = DevelopConfig(quality=QualityDemosaic.Fast)
+    card = develop_files(paths, str(tmp_path / "card"), cfg)
+    host = develop_files(paths, str(tmp_path / "host"), cfg, device="cpu")
+    assert len(card) == len(host) == 6
+    for src, a, b in zip(paths, card, host):
+        one = str(tmp_path / "one.png")
+        save_image(one, develop(load_raw(src), cfg))
+        with open(a, "rb") as fa, open(b, "rb") as fb, open(one, "rb") as fo:
+            got, cpu, want = fa.read(), fb.read(), fo.read()
+        assert got == want, a
+        diff = read_png(got).astype(np.int64) - read_png(cpu).astype(np.int64)
+        assert np.abs(diff).max() <= 1, a

@@ -60,6 +60,10 @@ MODULES = [
     "pysp_tpu_torch.io.pef",
     "pysp_tpu_torch.io.srw",
     "pysp_tpu_torch.io.nef",
+    "pysp_tpu_torch.pipeline.stream",
+    "pysp_tpu_torch.compat",
+    "examples.differentiable_isp_torch",
+    "examples.full_pipeline_torch",
 ]
 
 
@@ -86,8 +90,8 @@ def test_import_leaves_jax_out(module):
 # --- the package's exported names against the JAX package's ---------------------------
 
 # Names that pysp_tpu exports from a module the port has, where the port's
-# module does not define them yet (ROADMAP.md queue A).
-NOT_PORTED_YET = {"load_burst"}
+# module does not define them yet (ROADMAP.md queue A): none since the drivers.
+NOT_PORTED_YET = set()
 
 
 def _jax_package_exports():
@@ -124,11 +128,11 @@ def test_package_exports_what_the_jax_package_exports(name, module):
 
 
 def test_export_list_is_complete():
-    """At least the 87 names of today, the version, and every name of
+    """At least the 90 names of today, the version, and every name of
     ``__all__`` is an attribute; the names left out are really not defined."""
     import pysp_tpu_torch
 
-    assert len(PORTED_EXPORTS) >= 87
+    assert len(PORTED_EXPORTS) >= 90
     assert pysp_tpu_torch.__version__ == "0.1.0"
     assert all(hasattr(pysp_tpu_torch, name) for name in pysp_tpu_torch.__all__)
     exports = _jax_package_exports()
