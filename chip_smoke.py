@@ -43,8 +43,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    - decision kernel against ``ahd_decision_plain``: 512x768 and 510x762,
      non-HDR and HDR: picks equal except on at most 0.05% of pixels (exact
      ties that ``cbrtf`` flips), the fraction printed.
-3. Eight main paths, each driven with every launch count set to 0 just before
-   it and read just after it:
+3. Nine main paths, each driven with every launch count set to 0 just before
+   it and read just after it (the ninth, parallel, phase by phase, after
+   phase 4's measurements of the ca path, whose burst and 102 MP scene it
+   takes):
    - develop: a 4000x6000 RGGB synthetic DNG through ``load_raw`` (default
      device, the card) ``-> develop(Best) -> save_image``, then a 1500x2000
      BGGR DNG the same way. Asserts that each develop was one launch of the
@@ -186,6 +188,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the gain within ``tests/test_differentiable_isp.py``'s bounds and that
      the full pipeline writes its 256x256 PNG; prints files/s, both runs'
      host clock and the device's busy share under ``torch.profiler``.
+   - parallel (``pysp_tpu_torch.parallel``: the mesh, one thread a shard, on
+     meshes whose every position is card 0, so the shards share the card,
+     each on its own stream): (a) config 5 batch-sharded: the ca path's 16
+     frames with 500 hot sites (60 in every frame, 40 in frames 0-7, 25 in
+     each frame alone) through ``develop_pipeline_sharded`` on a (4, 1) mesh
+     (consensus heal at 0.5, both CA models, Best with one stage, the ca
+     path's Lanczos4 warp), each frame against the unsharded composition
+     (``develop_pipeline``'s masks and heal, ``remove_ca_from_raw``,
+     ``develop``, ``apply_opcode_3_warp``); (b) the 102 MP scene with the
+     chain's hot sites through ``develop_frame_spatial`` on a (1, 4) mesh,
+     with the chain's CA and warp at half strength (the full ones are
+     refused on the host, as in JAX: Poly3(0.01) is 31 px of static
+     displacement at 102 MP, beyond the 24 px cap, and the warp beyond
+     ``displacement_bounds``' cap), against the unsharded chain, its peak
+     device memory printed; a 4000x6000 Best ``develop_spatial`` on (1, 4);
+     (c) config 4: ``develop_hdr_sharded`` of the corrections path's five
+     brackets on a (5, 2) mesh against ``develop_pipeline(fuse_hdr)``; (d)
+     ``develop_burst_sharded`` on (4, 1) and ``develop_burst_spatial`` on
+     (2, 2) of the 16 frames at Best against ``develop_burst``; (e) both
+     sharded examples' ``main`` on the card. Asserts each phase's launches
+     of the AHD, heal and remap kernels and none of the others; (a) and (d)
+     every frame (for ``develop_burst_spatial`` every row farther than the
+     halo from the frame's top and bottom) within 3e-5 of its counterpart,
+     (b) and (c) those rows within 3e-5 and >= 40 dB over the whole frame,
+     the maxima printed; times each sharded call beside its counterpart by
+     CUDA events (median of 3 after 1) with both device-busy shares.
 4. Each kernel's wrapper against its plain version at the shapes the main
    paths give it, and times (CUDA events, median of 10 runs after 2 warm-ups;
    the plain finishing path and the plain corrections pipelines median of 3
@@ -199,7 +227,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    shared maps against its plain version, its bound and ``grid_sample``; the
    AHD kernel on one 1.5 MP frame; config 5's CA stage, 16 develops, 16 warps
    and the whole composition with the kernels and plain (median of 3 after 1),
-   with its idle share; then the composed 102 MP chain with the kernels
+   with its idle share, and the bilinear launch at the shard-stack shape of
+   the parallel path's (4, 1) mesh (4 x 1000x1504) against plain, its bound
+   and ``grid_sample``; then the composed 102 MP chain with the kernels
    (8736x11648: hot-pixel detection and heal -> CA -> Best -> Lanczos4 warp),
    each stage and the whole chain median of 3 after 1, the CA stage equal to
    its plain version, the image finite and in range. The Best
@@ -221,7 +251,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
-kernel's ``launches`` there is the sum of its counts over the eight main paths
+kernel's ``launches`` there is the sum of its counts over the nine main paths
 and ``launches_by_path`` gives each path's own.
 """
 from __future__ import annotations
@@ -263,6 +293,7 @@ from pysp_tpu_torch import (
     fit_ca_models_gradient,
     frame_from_parts,
     load_raw,
+    make_mesh,
     remove_ca_from_raw,
     save_image,
     stack_frames,
@@ -2026,13 +2057,14 @@ def ca_at_main_shapes(burst: RawFrame, block: bytes):
                              "plain_ms": t["ahd_frame_plain"]}}
 
 
-def chain_102mp() -> dict:
+def chain_102mp(rgb: np.ndarray):
     """The composed 102 MP chain with the kernels: hot-pixel detection and
     heal -> CA removal -> Best develop (1 stage) -> lens warp (Lanczos4), on an
-    8736x11648 RGGB frame on the card with planted hot sites and Poly3(0.01)
-    CA. Each stage timed apart (median of 3 after 1) and the whole chain."""
+    8736x11648 RGGB frame on the card (``rgb``, the 102 MP scene) with planted
+    hot sites and Poly3(0.01) CA. Each stage timed apart (median of 3 after
+    1) and the whole chain. Returns the times and the hot sites."""
     t0 = time.perf_counter()
-    mosaic = ca_mosaic(make_scene(CHAIN_H, CHAIN_W, seed=31), CA_K1, CA_K1)
+    mosaic = ca_mosaic(rgb, CA_K1, CA_K1)
     hot = plant_hot_sites(mosaic)
     mosaic[hot[:, 0], hot[:, 1]] = 1.0
     frame = RawFrame.synthetic(mosaic, cam_mat=CAM, wb_neutral=WB, device=DEVICE)
@@ -2069,7 +2101,7 @@ def chain_102mp() -> dict:
         + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items() if k != "peak_gb")
         + f"; {CHAIN_H * CHAIN_W / 1e6 / (t['chain'] / 1e3):.1f} MP/s; peak device memory "
         f"{t['peak_gb']:.2f} GB")
-    return t
+    return t, hot
 
 
 # --- the surface path: OpcodeList1/2 at load, highlight reconstruction, statistics ----
@@ -2928,6 +2960,315 @@ def drivers_path(tmp: str, card: str):
     return launches
 
 
+# --- the parallel path: the mesh (parallel/) with its shards on one card ---------------
+
+PAR_ATOL = 3e-5                    # the JAX tests' gate for a sharded frame
+PAR_MIN_PSNR = 40.0                # a row-sharded frame as a whole, edges included
+PAR_HOT = (60, 40, 25)             # hot sites in all 16 frames, in frames 0-7, in one frame each
+# (b): the chain's CA and warp at half strength. The sharded path takes a CA
+# model only within 24 px of static displacement (Poly3(0.01) is 31 px at
+# 102 MP) and a warp only within displacement_bounds' cap, as in JAX.
+PAR_CA_K1 = CA_K1 / 2
+PAR_WARP = [(1.0025, -0.005, 0.001, 0.0, 0.00015, -0.0001)] * 3
+PAR_CFG5 = PipelineConfig(develop=CA_CFG, repair_hot_pixels=True, hot_pixel_shared_ratio=0.5)
+PAR_CFG102 = PipelineConfig(develop=CA_CFG, repair_hot_pixels=True)
+PAR_TIMING = {"runs": 3, "warmup": 1}
+
+
+def card_mesh(shape):
+    """A mesh whose every position is card 0: the shards share the card, each
+    on its own stream."""
+    return make_mesh(shape, [torch.device(DEVICE, 0)] * (shape[0] * shape[1]))
+
+
+def hot_burst(burst: RawFrame):
+    """``burst`` with 500 hot sites at full scale on a 16-px grid: 60 in every
+    frame, 40 in frames 0-7 only (half the burst: kept by a 0.5 consensus
+    only when shards' counts add up) and 25 in each frame alone. At most
+    31 a plane in a frame, under the detector's 1e-4 quantile share of a
+    1000x1504 frame's 376 k sites a plane (37)."""
+    n, h, w = burst.bayer.shape
+    persistent, semi, single = PAR_HOT
+    grid = [(y, x) for y in range(16, h - 16, 16) for x in range(16, w - 16, 16)]
+    rng = np.random.default_rng(23)
+    picks = rng.choice(len(grid), persistent + semi + single * n, replace=False)
+    frames, ys, xs = [], [], []
+    for k, i in enumerate(picks):
+        y, x = grid[i][0] + k % 2, grid[i][1] + (k // 2) % 2   # every CFA plane in turn
+        if k < persistent:
+            which = range(n)
+        elif k < persistent + semi:
+            which = range(n // 2)
+        else:
+            which = [(k - persistent - semi) // single]
+        for f in which:
+            frames.append(f)
+            ys.append(y)
+            xs.append(x)
+    bayer = burst.bayer.clone()
+    bayer[torch.tensor(frames, device=DEVICE), torch.tensor(ys, device=DEVICE),
+          torch.tensor(xs, device=DEVICE)] = 1.0
+    return burst.replace(bayer=bayer), len(picks)
+
+
+def config5_unsharded(burst: RawFrame, block: bytes):
+    """(a)'s counterpart: ``develop_pipeline``'s consensus masks and heal
+    frame by frame, ``remove_ca_from_raw`` over the burst, then each frame's
+    ``develop`` and ``apply_opcode_3_warp``, unsharded on the card. Returns
+    the (N, H, W, 3) images and the consensus masks."""
+    from pysp_tpu_torch.pipeline.pipeline import _correct_one
+
+    model = Poly3CorrectionModel(CA_K1)
+    frames = unstack_frames(burst)
+    need = float(np.ceil(np.float32(len(frames) * PAR_CFG5.hot_pixel_shared_ratio)))
+    shared = sum(find_erroneous_pixels_median(f).to(torch.int32) for f in frames) >= need
+    healed = [_correct_one(f, PAR_CFG5, None, None, shared) for f in frames]
+    corrected = remove_ca_from_raw(stack_frames(healed, device=DEVICE), model, model)
+    return torch.stack([apply_opcode_3_warp(develop(f, CA_CFG), block)
+                        for f in unstack_frames(corrected)]), shared
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def sharded_beside(name: str, sharded, unsharded) -> dict:
+    """CUDA-event times (median of 3 after 1) of a sharded call and its
+    unsharded counterpart, and each one's device-busy share under
+    ``torch.profiler`` (one run)."""
+    t = {"sharded_ms": median_ms(sharded, **PAR_TIMING),
+         "unsharded_ms": median_ms(unsharded, **PAR_TIMING)}
+    for key, fn in (("sharded", sharded), ("unsharded", unsharded)):
+        _, host, dev = busy_run(fn)
+        t[f"{key}_busy"] = dev / host
+    log(f"parallel {name}: sharded {t['sharded_ms']:.3f} ms, unsharded "
+        f"{t['unsharded_ms']:.3f} ms by CUDA events (median of 3); device busy "
+        f"{t['sharded_busy']:.1%} sharded, {t['unsharded_busy']:.1%} unsharded "
+        f"(torch.profiler, one run)")
+    return t
+
+
+def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
+                  rgb102: np.ndarray, hot102: np.ndarray):
+    """The ninth main path, parallel: ``pysp_tpu_torch.parallel`` on meshes
+    whose positions all name card 0, each phase's launches counted alone:
+    (a) config 5 batch-sharded, (b) the 102 MP chain row-sharded and a 24 MP
+    Best develop row-sharded, (c) config 4 as a collective fuse, (d) the burst
+    develops, (e) both sharded examples. Returns the path's launch counts
+    (the phases' sum) and what the records and PERF.md take."""
+    from examples import burst_production_torch, large_frame_sharded_torch
+    from pysp_tpu_torch import develop_burst
+    from pysp_tpu_torch.parallel.pipeline_sharded import (develop_hdr_sharded,
+                                                          develop_pipeline_sharded)
+    from pysp_tpu_torch.parallel.spatial import (develop_burst_sharded,
+                                                 develop_burst_spatial, develop_spatial)
+    from pysp_tpu_torch.parallel.spatial_pipeline import (_ca_setup, _warp_setup,
+                                                          develop_frame_spatial,
+                                                          required_spatial_halo)
+
+    t_path = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    out = {"times": {}}
+
+    def counted(phase: str, fn, **expected):
+        zero_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        log(f"parallel ({phase}) kernel launches {got}")
+        expect_launches(f"parallel ({phase})", got, **expected)
+        for k in COUNTERS:
+            total[k] += got[k]
+        return result
+
+    # (a) Config 5, batch-sharded over four shards of the card.
+    model = Poly3CorrectionModel(CA_K1)
+    hot5, n_sites = hot_burst(burst5)
+    mesh_a = card_mesh((4, 1))
+
+    def sharded_a():
+        return develop_pipeline_sharded(hot5, mesh_a, PAR_CFG5, ca_model_r=model,
+                                        ca_model_b=model, warp_block=block5)
+
+    got = counted("a", sharded_a, heal=CA_FRAMES, remap=4 * 4 + CA_FRAMES, ahd=CA_FRAMES)
+    want, shared = config5_unsharded(hot5, block5)
+    errs = [max_abs(g, w_) for g, w_ in zip(got, want)]
+    log(f"parallel (a): config 5 with {n_sites} hot sites ({int(shared.sum())} sites in the "
+        f"consensus masks) through develop_pipeline_sharded on a (4, 1) mesh of one card; "
+        f"each frame against the unsharded composition: max abs {max(errs):.3g} "
+        f"(gate {PAR_ATOL:g})")
+    if max(errs) > PAR_ATOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError("a batch-sharded config 5 frame differs from the unsharded one")
+    out["a_max_abs"] = max(errs)
+    del got, want
+    out["times"]["config5"] = sharded_beside(
+        f"(a) config 5, {CA_FRAMES} x {CA_H}x{CA_W}, (4, 1) mesh", sharded_a,
+        lambda: config5_unsharded(hot5, block5))
+
+    # (b) The 102 MP frame, row-sharded over four shards; the full CA and warp
+    # are refused on the host, as in JAX, before any launch.
+    mesh_b = card_mesh((1, 4))
+    full_block = encode_warp_rectilinear(CA_WARP, (0.5, 0.5))
+    pblock = encode_warp_rectilinear(PAR_WARP, (0.5, 0.5))
+    mosaic = ca_mosaic(rgb102, PAR_CA_K1, PAR_CA_K1)
+    mosaic[hot102[:, 0], hot102[:, 1]] = 1.0
+    frame = RawFrame.synthetic(mosaic, cam_mat=CAM, wb_neutral=WB, device=DEVICE)
+    del mosaic
+    pmodel = Poly3CorrectionModel(PAR_CA_K1)
+    for label, kw in (("Poly3(0.01)", dict(ca_model_r=model, ca_model_b=model,
+                                            warp_block=pblock)),
+                      ("the chain's warp", dict(ca_model_r=pmodel, ca_model_b=pmodel,
+                                                 warp_block=full_block))):
+        try:
+            develop_frame_spatial(frame, mesh_b, PAR_CFG102, **kw)
+        except ValueError as err:
+            log(f"parallel (b): {label} at 102 MP refused as in JAX: {err}")
+        else:
+            raise AssertionError(f"the sharded path took {label} at 102 MP")
+    halo = required_spatial_halo(
+        PAR_CFG102, (_ca_setup(pmodel, CHAIN_H, CHAIN_W),) * 2,
+        _warp_setup(pblock, CHAIN_H, CHAIN_W, 1.0, "lanczos4"), "lanczos4")
+
+    def sharded_b():
+        return develop_frame_spatial(frame, mesh_b, PAR_CFG102, ca_model_r=pmodel,
+                                     ca_model_b=pmodel, warp_block=pblock)
+
+    def unsharded_b():
+        healed = repair_bad_pixels(frame, find_erroneous_pixels_median(frame))
+        return apply_opcode_3_warp(develop(remove_ca_from_raw(healed, pmodel, pmodel),
+                                           CA_CFG), pblock)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = counted("b, 102 MP", sharded_b, heal=4, remap=4 * 5, ahd=4)
+    out["peak_gb_102mp"] = torch.cuda.max_memory_allocated() / 1e9
+    want = unsharded_b()
+    err = max_abs(got[halo:-halo], want[halo:-halo])
+    p = psnr(got.double().cpu().numpy(), want.double().cpu().numpy())
+    off = ((got - want).abs().amax(dim=-1) > PAR_ATOL)[halo:-halo].nonzero()
+    if len(off):
+        rows = sorted({int(r) + halo for r in off[:, 0]})
+        log(f"parallel (b): {len(off)} pixels beyond the halo off by > {PAR_ATOL:g}, in "
+            f"{len(rows)} rows (first {rows[:12]}; shard boundaries every "
+            f"{CHAIN_H // 4} rows); the unsharded detector flags "
+            f"{int(find_erroneous_pixels_median(frame).sum())} sites")
+    log(f"parallel (b): {CHAIN_H}x{CHAIN_W} with {len(hot102)} hot sites, Poly3({PAR_CA_K1}) "
+        f"CA and the warp {PAR_WARP[0]} (Lanczos4) through develop_frame_spatial on a (1, 4) "
+        f"mesh, halo {halo} rows; against the unsharded chain: rows beyond the halo max abs "
+        f"{err:.3g} (gate {PAR_ATOL:g}), whole frame {p:.2f} dB (gate {PAR_MIN_PSNR:g}); "
+        f"peak device memory {out['peak_gb_102mp']:.2f} GB")
+    if err > PAR_ATOL or p < PAR_MIN_PSNR or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the row-sharded 102 MP chain is outside its gates")
+    out["b_max_abs"], out["b_psnr"], out["b_halo"] = err, p, halo
+    del got, want
+    out["times"]["chain_102mp"] = sharded_beside(
+        "(b) 102 MP chain, (1, 4) mesh", sharded_b, unsharded_b)
+    del frame
+
+    frame24 = frame_on_card(FULL_H, FULL_W, seed=41, is_hdr=False)
+    got = counted("b, 24 MP Best", lambda: develop_spatial(frame24, CA_CFG, mesh_b), ahd=4)
+    want = develop(frame24, CA_CFG)
+    err = max_abs(got[16:-16], want[16:-16])
+    p = psnr(got.double().cpu().numpy(), want.double().cpu().numpy())
+    log(f"parallel (b): {FULL_H}x{FULL_W} Best through develop_spatial on a (1, 4) mesh "
+        f"(halo 16): rows beyond the halo max abs {err:.3g} (gate {PAR_ATOL:g}), whole "
+        f"frame {p:.2f} dB")
+    if err > PAR_ATOL or p < PAR_MIN_PSNR:
+        raise AssertionError("the row-sharded 24 MP develop is outside its gates")
+    out["b24_max_abs"] = err
+    del got, want
+    out["times"]["develop_24mp"] = sharded_beside(
+        "(b) 24 MP Best develop, (1, 4) mesh", lambda: develop_spatial(frame24, CA_CFG, mesh_b),
+        lambda: develop(frame24, CA_CFG))
+    del frame24
+
+    # (c) Config 4: the fuse as a collective over five shards, the develop
+    # over two.
+    mesh_c = card_mesh((BRACKETS, 2))
+    got = counted("c", lambda: develop_hdr_sharded(burst4, mesh_c, CFG4),
+                  heal=BRACKETS * 2, ahd=BRACKETS * 2)
+    want = develop_pipeline(burst4, CFG4)
+    err = max_abs(got[16:-16], want[16:-16])
+    p = psnr(got.double().cpu().numpy(), want.double().cpu().numpy())
+    log(f"parallel (c): config 4 ({BRACKETS}x{FULL_H}x{FULL_W}) through develop_hdr_sharded "
+        f"on a ({BRACKETS}, 2) mesh against develop_pipeline(fuse_hdr): rows beyond the halo "
+        f"max abs {err:.3g} (gate {PAR_ATOL:g}), whole frame {p:.2f} dB")
+    if err > PAR_ATOL or p < PAR_MIN_PSNR:
+        raise AssertionError("the sharded config 4 is outside its gates")
+    out["c_max_abs"], out["c_psnr"] = err, p
+    del got, want
+    out["times"]["config4"] = sharded_beside(
+        f"(c) config 4, ({BRACKETS}, 2) mesh", lambda: develop_hdr_sharded(burst4, mesh_c, CFG4),
+        lambda: develop_pipeline(burst4, CFG4))
+
+    # (d) The burst develops.
+    mesh_d1, mesh_d2 = card_mesh((4, 1)), card_mesh((2, 2))
+    got1 = counted("d, batch", lambda: develop_burst_sharded(burst5, CA_CFG, mesh_d1),
+                   ahd=CA_FRAMES)
+    got2 = counted("d, batch x spatial",
+                   lambda: develop_burst_spatial(burst5, CA_CFG, mesh_d2), ahd=2 * CA_FRAMES)
+    want = develop_burst(burst5, CA_CFG)
+    e1, e2 = max_abs(got1, want), max_abs(got2[:, 16:-16], want[:, 16:-16])
+    log(f"parallel (d): develop_burst_sharded on (4, 1), every frame against develop_burst: "
+        f"max abs {e1:.3g}; develop_burst_spatial on (2, 2), rows beyond the halo (16): max "
+        f"abs {e2:.3g} (gate {PAR_ATOL:g})")
+    if max(e1, e2) > PAR_ATOL or got1.device.type != DEVICE:
+        raise AssertionError("a sharded burst develop differs from develop_burst")
+    out["d_max_abs"] = [e1, e2]
+    del got1, got2, want
+    out["times"]["burst_sharded"] = sharded_beside(
+        "(d) develop_burst_sharded, (4, 1) mesh",
+        lambda: develop_burst_sharded(burst5, CA_CFG, mesh_d1),
+        lambda: develop_burst(burst5, CA_CFG))
+    out["times"]["burst_spatial"] = sharded_beside(
+        "(d) develop_burst_spatial, (2, 2) mesh",
+        lambda: develop_burst_spatial(burst5, CA_CFG, mesh_d2),
+        lambda: develop_burst(burst5, CA_CFG))
+
+    # (e) Both sharded examples' main on the card (one card: (1, 1) meshes).
+    with tempfile.TemporaryDirectory() as tmp:
+        imgs = counted("e, burst example", lambda: burst_production_torch.main(tmp), remap=4)
+        pngs = [f for f in os.listdir(tmp) if f.startswith("out_")]
+        if imgs.device.type != DEVICE or len(pngs) != 4:
+            raise AssertionError("the burst example did not develop on the card and write 4 PNGs")
+    img, err = counted("e, large-frame example", large_frame_sharded_torch.main,
+                       heal=2, remap=10, ahd=2)
+    log(f"parallel (e): both examples' main on the card: 4 PNGs; the large frame "
+        f"{tuple(img.shape)}, interior {err:.3g} from its monolithic pipeline")
+    out["seconds"] = time.perf_counter() - t_path
+    log(f"parallel path with its checks and times: {out['seconds']:.3f} s host clock; "
+        f"kernel launches {total}")
+    return total, out
+
+
+def shard_stack_bilinear(burst: RawFrame) -> dict:
+    """B4's bilinear kind at the shape each (4, 1) shard of config 5 gives it:
+    the four frames' upsampled greens (4, 1000, 1504) with shared maps,
+    against its plain version, its bound and ``grid_sample``."""
+    model = Poly3CorrectionModel(CA_K1)
+    _, g1, _, g2 = bayer_to_rgbg(burst.bayer[:4])
+    g = resample_g_to_full_resolution(g1, g2)
+    n, h, w = g.shape
+    mx, my = ca_removal._maps_from_offsets(model.get_undistorted_coordinates(g[0]), h, w)
+    if not torch.equal(K.remap_kernel(g, mx, my, "bilinear"), K.remap_plain(g, mx, my, "bilinear")):
+        raise AssertionError("the bilinear remap at the shard-stack shape differs from plain")
+    grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], dim=-1)[None]
+    nbytes = n * h * w * 4 * 2 + h * w * 8
+    b = bound(nbytes, float_ops(lambda: K.remap_plain(g, mx, my, "bilinear")))
+    rec = {"shape": [n, h, w], "max_abs_err": 0.0,
+           "ms": median_ms(lambda: K.remap_kernel(g, mx, my, "bilinear")),
+           "plain_ms": median_ms(lambda: K.remap_plain(g, mx, my, "bilinear")),
+           "bound_ms": b[0], "bound_by": b[1],
+           "library_ms": median_ms(lambda: F.grid_sample(g[None], grid, mode="bilinear",
+                                                         padding_mode="border",
+                                                         align_corners=True)),
+           "library": "torch.nn.functional.grid_sample"}
+    log(f"bilinear CA remap at the shard-stack shape {n}x{h}x{w}, maps shared: bit-exact "
+        f"against plain; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{b[0]:.4f} ms by {b[1]}, grid_sample {rec['library_ms']:.4f} ms")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -2965,12 +3306,16 @@ def main() -> int:
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
+    burst4 = corrections_state[2]
     del corrections_state
     records.extend(tiers_at_main_shapes(*tiers_state))
     del tiers_state
     ca = ca_at_main_shapes(burst5, block5)
-    del burst5
-    chain_102mp()
+    ca["shard_stack_bilinear"] = shard_stack_bilinear(burst5)
+    rgb102 = make_scene(CHAIN_H, CHAIN_W, seed=31)
+    _, hot102 = chain_102mp(rgb102)
+    parallel_launches, parallel = parallel_path(card, burst5, block5, burst4, rgb102, hot102)
+    del burst5, burst4, rgb102
     for rec in records:
         if rec["name"] == "ahd":
             rec["ca_frame"] = ca["ahd_ca_frame"]
@@ -2979,6 +3324,7 @@ def main() -> int:
             rec["image_entry"] = surface["image_entry"]
         elif rec["name"] == "remap_lanczos4":
             rec["ca_bilinear"] = ca["ca_bilinear"]
+            rec["shard_stack_bilinear"] = ca["shard_stack_bilinear"]
     # Each path's counts were set to 0 just before it and read just after it;
     # "launches" is their sum, "launches_by_path" each path's own.
     for rec in records:
@@ -2990,7 +3336,8 @@ def main() -> int:
                    "ca": ca_launches[counter],
                    "surface": surface_launches[counter],
                    "formats": formats_launches[counter],
-                   "drivers": drivers_launches[counter]}
+                   "drivers": drivers_launches[counter],
+                   "parallel": parallel_launches[counter]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
 
@@ -2999,6 +3346,7 @@ def main() -> int:
     log(f"{HOME_MATRIX_CACHE}: neither created nor changed by the run")
     matrix_cache.cleanup()
 
+    log("parallel path results: " + json.dumps(parallel))
     log(json.dumps({"kernels": records}))
     log(card)
     log(json.dumps({"ok": True, "device": {

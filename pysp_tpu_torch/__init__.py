@@ -50,6 +50,17 @@ card and the develop on their own CUDA streams, and the saves;
 ``pysp_tpu_torch.compat`` has the reference's class API
 (``RawBayerDataFromRaw(path).demosaic(QualityDemosaic.Best).to_lin_srgb()``).
 
+Several devices, or several shards on one card: a ('batch', 'spatial') mesh
+driven from one process, one thread a shard. ``develop_burst_sharded``
+splits a burst's frames over 'batch', ``develop_spatial`` one frame's rows
+over 'spatial' with a halo exchange, ``develop_burst_spatial`` both;
+``parallel.pipeline_sharded`` and ``parallel.spatial_pipeline`` run the
+corrections, CA and warp under the mesh too:
+
+    mesh = make_mesh((1, 4))                   # the visible cards; raises without one
+    mesh = make_mesh((1, 4), ["cuda:0"] * 4)   # four shards on one card
+    srgb = develop_spatial(frame, DevelopConfig(), mesh)
+
 The command line: ``python -m pysp_tpu_torch develop shot.cr2 -o out.png
 --deconv 1.0:20 --unsharp 0.5:2 --warp``; ``--bit-depth 16``;
 ``--highlights reconstruct`` and
@@ -137,6 +148,12 @@ from .io.raw_loader import frame_from_parts, load_burst, load_raw, load_raw_dng
 from .io.rw2 import load_raw_rw2
 from .io.srw import load_raw_srw
 from .ops.resample import bilinear_sample, remap_bilinear, remap_lanczos4
+from .parallel.mesh import make_mesh
+from .parallel.spatial import (
+    develop_burst_sharded,
+    develop_burst_spatial,
+    develop_spatial,
+)
 from .pipeline.develop import (
     DevelopConfig,
     develop,
@@ -219,6 +236,10 @@ __all__ = [
     "develop_with_stats",
     "develop_files",
     "develop_stream",
+    "make_mesh",
+    "develop_spatial",
+    "develop_burst_sharded",
+    "develop_burst_spatial",
     "frame_from_parts",
     "load_burst",
     "load_raw",

@@ -4,11 +4,12 @@ Counterpart of ``pysp_tpu/correct/bad_pixels.py``: threshold detection against
 the 8 neighbours, median-delta detection with a quantile threshold, burst
 consensus, and repair by a masked normalized-convolution fill per CFA plane.
 
-The JAX functions' ``axis_name`` / ``core_rows`` arguments exist only for
-spatial sharding and are left out here (ROADMAP.md item 16). The compacted
-sparse fill (``compact_mask_indices``, ``masked_fill_inpaint_sparse``) works
-around the TPU's scatter cost, is bit-identical to the dense fill, and is not
-carried.
+Under a row-sharded mesh (``parallel/``) the median detector takes the JAX
+function's ``axis_name`` / ``core_rows``: its statistics are the whole
+frame's, reduced over the shards. The heal stays local to the shard, as in
+the JAX package. The compacted sparse fill (``compact_mask_indices``,
+``masked_fill_inpaint_sparse``) works around the TPU's scatter cost, is
+bit-identical to the dense fill, and is not carried.
 """
 from __future__ import annotations
 
@@ -49,31 +50,61 @@ def find_erroneous_pixels_threshold(
 
 
 def find_erroneous_pixels_median(
-    frame: RawFrame, multiplier: float = 1.5, quantile: float = 0.9999
+    frame: RawFrame,
+    multiplier: float = 1.5,
+    quantile: float = 0.9999,
+    axis_name=None,
+    core_rows=None,
 ) -> Tensor:
     """Hot-pixel masks from the delta against a 2x2 median, noise floor
     subtracted, thresholded at ``multiplier`` times the per-plane
     ``quantile`` of the delta (the upper order statistic, see
-    :func:`_bisect_quantile`). Returns (4, H/2, W/2) bool. The JAX function's
-    ``axis_name`` / ``core_rows`` (spatial sharding, ROADMAP.md item 16) are
-    left out."""
+    :func:`_bisect_quantile`). Returns (4, H/2, W/2) bool.
+
+    On a halo-extended row shard (``parallel/``): ``core_rows`` (mosaic rows
+    [lo, hi)) restricts the noise floor and the quantile to the shard's own
+    rows, and ``axis_name`` reduces them over the shards (the floor by
+    ``pmean``, the quantile's counts by ``psum``), so the threshold is the
+    whole frame's; the masks cover the whole extended block."""
     planes = bayer_to_planes(frame.bayer)
     delta = torch.abs(planes - median2(planes))
-    noise_floor = delta.mean(dim=(-2, -1), keepdim=True)
+
+    def core(x):
+        return x if core_rows is None else x[..., core_rows[0] // 2 : core_rows[1] // 2, :]
+
+    noise_floor = core(delta).mean(dim=(-2, -1), keepdim=True)
+    if axis_name is not None:
+        from ..parallel.shard import pmean
+
+        # equal-size shards: the frame's mean is the mean of the shards' means
+        noise_floor = pmean(noise_floor, axis_name)
     delta = torch.abs(delta - noise_floor)
-    strong = _bisect_quantile(delta, quantile).reshape(4, 1, 1) * multiplier
-    return delta > strong
+    strong = _bisect_quantile(core(delta), quantile, axis_name=axis_name).reshape(4, 1, 1)
+    return delta > strong * multiplier
 
 
-def _bisect_quantile(delta: Tensor, q: float, iters: int = 4, branches: int = 16) -> Tensor:
+def _bisect_quantile(delta: Tensor, q: float, iters: int = 4, branches: int = 16,
+                     axis_name=None) -> Tensor:
     """Per-plane upper-order-statistic quantile of ``delta`` (P, H, W) by count
     multisection: each of ``iters`` passes splits the bracket at ``branches``
     interior points, counts the samples at or below each, and narrows the
     bracket to the first point that reaches rank ``q * (n - 1)``. Not
-    ``torch.quantile``, which interpolates between order statistics."""
+    ``torch.quantile``, which interpolates between order statistics.
+
+    With ``axis_name`` the bracket's ends are ``pmin`` / ``pmax``ed and the
+    counts ``psum``med over the shards, so row shards of one frame find the
+    frame's quantile exactly: counting rank is associative. The counts are
+    summed as integers and rounded to float32 once, as the whole frame's
+    count is: above 2**24 samples a plane (67 MP frames) a float32 sum of the
+    shards' counts would round differently from it."""
     n = delta.shape[-2] * delta.shape[-1]
     lo = delta.amin(dim=(-2, -1))
     hi = delta.amax(dim=(-2, -1))
+    if axis_name is not None:
+        from ..parallel.shard import pmax, pmin, psum
+
+        n = n * psum(1, axis_name)
+        lo, hi = pmin(lo, axis_name), pmax(hi, axis_name)
     # float32 comparisons throughout, as in the JAX package: the counts are
     # exact integers below 2**24 and the target is rounded to float32. The
     # constants are filled on the device (no host copy, no synchronisation).
@@ -83,8 +114,10 @@ def _bisect_quantile(delta: Tensor, q: float, iters: int = 4, branches: int = 16
     for _ in range(iters):
         mids = lo[:, None] + (hi - lo)[:, None] * fr[None, :]          # (P, B)
         # the rank of every mid in one pass over delta: (P, B, H, W) compares
-        cnt = (delta[:, None] <= mids[:, :, None, None]).sum(dim=(-2, -1)).to(torch.float32)
-        ok = (cnt - 1.0) >= target
+        cnt = (delta[:, None] <= mids[:, :, None, None]).sum(dim=(-2, -1))
+        if axis_name is not None:
+            cnt = psum(cnt, axis_name)
+        ok = (cnt.to(torch.float32) - 1.0) >= target
         hi = torch.where(ok, mids, hi[:, None]).amin(dim=1)
         lo = torch.where(ok, lo[:, None], mids).amax(dim=1)
     return hi

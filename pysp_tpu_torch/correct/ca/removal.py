@@ -18,19 +18,22 @@ burst with the map shared by its frames: four launches for two models, two
 for one, whatever the burst's length. On CPU tensors the wrapper runs its
 plain version, ``remap_plain``.
 
-Not carried: the JAX package's static displacement bound
-(``_model_bound_px``), its row, rectangle and grid zones, the separable
-kinds and the VMEM gates. They serve Mosaic's select-chain remap, which has
-no gather. Hopper gathers natively, and the kernel's unbounded bilinear is
-bit-identical to ``remap_plain``'s gather. Within the bound that
-``_model_bound_px`` guarantees, that gather equals the JAX package's bounded
-CPU path, which ``remap_bilinear_bounded`` holds bit-identical to the gather
-(``pysp_tpu/ops/resample.py``).
+``_model_bound_px`` is the static displacement bound of a model's maps (a
+host sweep of the radial maps). The row-sharded pipeline
+(``parallel/spatial_pipeline.py``) sizes its halo with it; the removal here
+does not need it. Not carried: the JAX package's row, rectangle and grid
+zones, the separable kinds and the VMEM gates. They serve Mosaic's
+select-chain remap, which has no gather. Hopper gathers natively, and the
+kernel's unbounded bilinear is bit-identical to ``remap_plain``'s gather.
+Within the bound that ``_model_bound_px`` guarantees, that gather equals the
+JAX package's bounded CPU path, which ``remap_bilinear_bounded`` holds
+bit-identical to the gather (``pysp_tpu/ops/resample.py``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...core.bayer import bayer_to_rgbg, rgbg_to_bayer
@@ -82,6 +85,28 @@ def _maps_from_offsets(coords: Tensor, h: int, w: int):
     map_x = torch.clamp(coords[..., 1] + (w - 1) / 2.0, 0, w - 1)
     map_y = torch.clamp(coords[..., 0] + (h - 1) / 2.0, 0, h - 1)
     return map_x.contiguous(), map_y.contiguous()
+
+
+def _model_bound_px(model, h: int, w: int, cap: int = 12) -> Optional[int]:
+    """Static per-axis displacement bound of a radial model's remaps on an
+    (h, w) frame, in pixels, or None.
+
+    |dy| = |y| |f(r)/r - 1| <= r_corner max_r |f(r) - r| for both the
+    forward and the Newton-inverted map, taken on a sweep of 4096 radii in
+    (0, 1] on the host, plus 2. None when the model has no inverse, its maps
+    are not finite, or the bound exceeds ``cap``."""
+    if not isinstance(model, ReversibleModelMixin):
+        return None
+    rs = torch.from_numpy(np.linspace(1e-4, 1.0, 4096).astype(np.float32))
+    fwd = model.get_distorted(rs).double().numpy()
+    inv = model.estimate_undistorted(rs).double().numpy()
+    rs64 = rs.double().numpy()
+    dev = max(np.abs(fwd - rs64).max(), np.abs(inv - rs64).max())
+    if not np.isfinite(dev):
+        return None
+    r_corner = float(np.hypot((h - 1) / 2.0, (w - 1) / 2.0))
+    bound = int(np.ceil(dev * r_corner)) + 2
+    return bound if bound <= cap else None
 
 
 def remove_ca_from_raw(

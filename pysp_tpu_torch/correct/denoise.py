@@ -10,9 +10,10 @@ Counterpart of ``pysp_tpu/correct/denoise.py``. Per plane:
 
 with a symmetric (cv2.BORDER_REFLECT) border. The noise scale comes from the
 finest band, sigma = E|d_0| * sqrt(pi / 2), and the thresholds follow the B3
-a-trous noise decay per level. The JAX function's ``axis_name`` /
-``core_rows`` exist only for spatial sharding and are left out here
-(ROADMAP.md item 16).
+a-trous noise decay per level. On a row shard of a mesh (``parallel/``) the
+noise scale is the whole frame's: taken on the shard's own rows and
+``pmean``ed over the shards (``axis_name`` / ``core_rows``, as in the JAX
+function).
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def _b3_smooth(x: Tensor, dilation: int) -> Tensor:
     return pass1(pass1(x, 0), 1)
 
 
-def _denoise_plane(plane: Tensor, strength: float, levels: int) -> Tensor:
+def _denoise_plane(plane: Tensor, strength: float, levels: int, axis_name=None,
+                   core_rows=None) -> Tensor:
     smooth = plane
     details = []
     for lvl in range(levels):
@@ -55,7 +57,14 @@ def _denoise_plane(plane: Tensor, strength: float, levels: int) -> Tensor:
         details.append(smooth - nxt)
         smooth = nxt
 
-    sigma = torch.abs(details[0]).mean() * math.sqrt(math.pi / 2.0)
+    d0 = torch.abs(details[0])
+    if core_rows is not None:
+        d0 = d0[core_rows[0] : core_rows[1]]
+    sigma = d0.mean() * math.sqrt(math.pi / 2.0)
+    if axis_name is not None:
+        from ..parallel.shard import pmean
+
+        sigma = pmean(sigma, axis_name)
     sigma = div_const(sigma, _LEVEL_SIGMA[0])
 
     out = smooth
@@ -65,15 +74,23 @@ def _denoise_plane(plane: Tensor, strength: float, levels: int) -> Tensor:
     return out
 
 
-def denoise_bayer_wavelet(frame: RawFrame, strength: float = 1.0, levels: int = 3) -> RawFrame:
+def denoise_bayer_wavelet(
+    frame: RawFrame,
+    strength: float = 1.0,
+    levels: int = 3,
+    axis_name=None,
+    core_rows=None,
+) -> RawFrame:
     """Edge-preserving Bayer-domain noise reduction on the CFA phase planes.
 
     ``strength`` scales the shrinkage thresholds (0 disables; about 1 targets
     the estimated noise floor); ``levels`` is the number of a-trous scales.
-    The JAX function's ``axis_name`` / ``core_rows`` (spatial sharding,
-    ROADMAP.md item 16) are left out."""
+    On a halo-extended row shard, ``core_rows`` (mosaic rows [lo, hi)) and
+    ``axis_name`` make the noise scale the whole frame's."""
     if strength <= 0.0 or levels <= 0:
         return frame
-    planes = [_denoise_plane(p, float(strength), int(levels)) for p in bayer_to_rgbg(frame.bayer)]
+    cr = None if core_rows is None else (core_rows[0] // 2, core_rows[1] // 2)
+    planes = [_denoise_plane(p, float(strength), int(levels), axis_name, cr)
+              for p in bayer_to_rgbg(frame.bayer)]
     out = rgbg_to_bayer(*planes)
     return frame.replace(bayer=torch.clamp(out, min=0.0).to(frame.bayer.dtype))

@@ -35,7 +35,8 @@ launches in a module-level integer (``ahd_kernel_launches``,
 ``postprocess_kernel_launches``, ``rl_kernel_launches``,
 ``remap_kernel_launches``, ``heal_kernel_launches``,
 ``median5_kernel_launches``, ``homogeneity_kernel_launches``,
-``decision_kernel_launches``), incremented only where the kernel launches.
+``decision_kernel_launches``), incremented only where the kernel launches,
+under a lock: the shards of ``parallel/`` launch from several threads.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -89,6 +91,19 @@ heal_kernel_launches = 0
 median5_kernel_launches = 0
 homogeneity_kernel_launches = 0
 decision_kernel_launches = 0
+
+# Shard threads (``parallel/shard.py``) launch at once: the counts and the
+# first build are taken under these locks.
+_count_lock = threading.Lock()
+_load_lock = threading.Lock()
+
+
+def _count_launch(kernel: str) -> None:
+    """One more launch in ``<kernel>_kernel_launches``."""
+    name = f"{kernel}_kernel_launches"
+    with _count_lock:
+        globals()[name] += 1
+
 
 # The loaded library and what its build printed; set by load_library().
 _lib = None
@@ -161,33 +176,36 @@ def load_library() -> ctypes.CDLL:
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
-    path, log, seconds = build_library()
-    if log:
-        build_log, build_seconds = log, seconds
-    lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pysp_ahd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.pysp_ahd.restype = i32
-    lib.pysp_postprocess_color.argtypes = [ptr] * 6 + [i32, i32, ptr]
-    lib.pysp_postprocess_color.restype = i32
-    lib.pysp_postprocess_color_hwc.argtypes = [ptr, ptr, i32, i32, ptr]
-    lib.pysp_postprocess_color_hwc.restype = i32
-    i64 = ctypes.c_longlong
-    lib.pysp_rl_iter.argtypes = [ptr, ptr, ptr, i32, i32, i32, i64, i32,
-                                 ctypes.POINTER(ctypes.c_float), i32, ptr]
-    lib.pysp_rl_iter.restype = i32
-    lib.pysp_remap.argtypes = [ptr] * 4 + [i32] * 3 + [i64, i32, i64] + [i32] * 6 + [ptr]
-    lib.pysp_remap.restype = i32
-    lib.pysp_heal.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.pysp_heal.restype = i32
-    lib.pysp_median5.argtypes = [ptr, ptr, i32, i32, ptr]
-    lib.pysp_median5.restype = i32
-    lib.pysp_homogeneity.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-    lib.pysp_homogeneity.restype = i32
-    lib.pysp_ahd_decision.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
-    lib.pysp_ahd_decision.restype = i32
-    _lib = lib
-    return lib
+    with _load_lock:
+        if _lib is not None:
+            return _lib
+        path, log, seconds = build_library()
+        if log:
+            build_log, build_seconds = log, seconds
+        lib = ctypes.CDLL(str(path))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.pysp_ahd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.pysp_ahd.restype = i32
+        lib.pysp_postprocess_color.argtypes = [ptr] * 6 + [i32, i32, ptr]
+        lib.pysp_postprocess_color.restype = i32
+        lib.pysp_postprocess_color_hwc.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.pysp_postprocess_color_hwc.restype = i32
+        i64 = ctypes.c_longlong
+        lib.pysp_rl_iter.argtypes = [ptr, ptr, ptr, i32, i32, i32, i64, i32,
+                                     ctypes.POINTER(ctypes.c_float), i32, ptr]
+        lib.pysp_rl_iter.restype = i32
+        lib.pysp_remap.argtypes = [ptr] * 4 + [i32] * 3 + [i64, i32, i64] + [i32] * 6 + [ptr]
+        lib.pysp_remap.restype = i32
+        lib.pysp_heal.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.pysp_heal.restype = i32
+        lib.pysp_median5.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.pysp_median5.restype = i32
+        lib.pysp_homogeneity.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.pysp_homogeneity.restype = i32
+        lib.pysp_ahd_decision.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+        lib.pysp_ahd_decision.restype = i32
+        _lib = lib
+        return lib
 
 
 def _check(t: Tensor, name: str, shape=None, device=None) -> None:
@@ -262,7 +280,6 @@ def ahd_kernel(
     H/V pick at an exact tie of the homogeneity sums. On CPU tensors the plain
     version runs instead. Raises for a mosaic outside
     :func:`ahd_kernel_admits`."""
-    global ahd_kernel_launches
     stages = max(int(postprocess_stages), 0)
     if bayer.device.type == "cpu":
         return ahd_plain(bayer, mat, wb, is_hdr, stages, tail)
@@ -296,7 +313,7 @@ def ahd_kernel(
             int(bool(is_hdr)), flags, stream,
         )
     _raise_on_error(err, "AHD kernel")
-    ahd_kernel_launches += 1
+    _count_launch("ahd")
     return out
 
 
@@ -321,7 +338,6 @@ def postprocess_color_kernel(r: Tensor, g: Tensor, b: Tensor):
     """One AHD chroma-median stage on (H, W) channels by the postprocess kernel;
     bit-identical to ``demosaic.ahd.postprocess_color_channels``, which runs
     instead on CPU tensors."""
-    global postprocess_kernel_launches
     if r.device.type == "cpu":
         from ..demosaic.ahd import postprocess_color_channels
 
@@ -341,7 +357,7 @@ def postprocess_color_kernel(r: Tensor, g: Tensor, b: Tensor):
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), h, w, stream,
         )
     _raise_on_error(err, "postprocess kernel")
-    postprocess_kernel_launches += 1
+    _count_launch("postprocess")
     return out[0], out[1], out[2]
 
 
@@ -350,7 +366,6 @@ def postprocess_color_image_kernel(image: Tensor) -> Tensor:
     postprocess kernel, which reads and writes the interleaved layout itself;
     returns (H, W, 3), bit-identical to ``demosaic.ahd.postprocess_color``'s
     plain stage, which runs instead on a CPU tensor."""
-    global postprocess_kernel_launches
     if image.device.type == "cpu":
         from ..demosaic.ahd import postprocess_color
 
@@ -365,7 +380,7 @@ def postprocess_color_image_kernel(image: Tensor) -> Tensor:
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = lib.pysp_postprocess_color_hwc(image.data_ptr(), out.data_ptr(), h, w, stream)
     _raise_on_error(err, "postprocess kernel")
-    postprocess_kernel_launches += 1
+    _count_launch("postprocess")
     return out
 
 
@@ -407,7 +422,6 @@ def rl_kernel(image: Tensor, taps, iterations: int) -> Tensor:
     estimate in two buffers that take turns. Equal to :func:`rl_plain`, which
     runs instead on CPU tensors. Raises for an image outside
     :func:`rl_kernel_admits`."""
-    global rl_kernel_launches
     taps = np.asarray(taps, np.float32).reshape(-1)
     if image.device.type == "cpu":
         return rl_plain(image, taps, iterations)
@@ -432,7 +446,7 @@ def rl_kernel(image: Tensor, taps, iterations: int) -> Tensor:
                 host_taps, len(taps), stream,
             )
             _raise_on_error(err, "RL kernel")
-            rl_kernel_launches += 1
+            _count_launch("rl")
             est = out
     return est
 
@@ -491,7 +505,6 @@ def remap_kernel(
     :func:`remap_plain`, which runs instead on CPU tensors; Lanczos4 takes an
     axis's weights from one ``sinf`` and one ``sincosf`` (``csrc/remap.cu``)
     and is within 5e-6 of it on images in [0, 1]."""
-    global remap_kernel_launches
     _check_remap_args(img, map_x, map_y, kind, bounds, channels_last)
     if img.device.type == "cpu":
         return remap_plain(img, map_x, map_y, kind, bounds, channels_last)
@@ -512,7 +525,7 @@ def remap_kernel(
             int(bounds is not None), int(dy0), int(dy1), int(dx0), int(dx1), stream,
         )
     _raise_on_error(err, "remap kernel")
-    remap_kernel_launches += 1
+    _count_launch("remap")
     return out
 
 
@@ -558,7 +571,6 @@ def heal_kernel(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
     bool of the same shape. Bit-identical to :func:`heal_plain`, which runs
     instead on CPU tensors. Raises for sweep counts outside
     :func:`heal_kernel_admits`."""
-    global heal_kernel_launches
     if planes.device.type == "cpu":
         return heal_plain(planes, masks, fill_iterations, smooth_iterations)
     if not heal_kernel_admits(fill_iterations, smooth_iterations):
@@ -590,7 +602,7 @@ def heal_kernel(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
             h, w, int(fill_iterations), int(smooth_iterations), stream,
         )
     _raise_on_error(err, "heal kernel")
-    heal_kernel_launches += 1
+    _count_launch("heal")
     return out
 
 
@@ -610,7 +622,6 @@ def median5_kernel(x: Tensor) -> Tensor:
     (``cv2.medianBlur(src, 5)``) by the median kernel; bit-identical to
     ``ops.stencil.median5``, which runs instead on a CPU tensor. Any H and W of
     at least 1 go."""
-    global median5_kernel_launches
     if x.device.type == "cpu":
         from .stencil import median5
 
@@ -625,7 +636,7 @@ def median5_kernel(x: Tensor) -> Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pysp_median5(x.data_ptr(), out.data_ptr(), h, w, stream)
     _raise_on_error(err, "median5 kernel")
-    median5_kernel_launches += 1
+    _count_launch("median5")
     return out
 
 
@@ -634,7 +645,6 @@ def homogeneity_kernel(lum: Tensor, a: Tensor, b: Tensor, is_vertical: bool) -> 
     values 3..9) on (H, W) float32 L, a, b planes by the homogeneity kernel;
     bit-identical to ``demosaic.homogeneity.homogeneity_map_channels``, which
     runs instead on CPU tensors."""
-    global homogeneity_kernel_launches
     if lum.device.type == "cpu":
         from ..demosaic.homogeneity import homogeneity_map_channels
 
@@ -654,7 +664,7 @@ def homogeneity_kernel(lum: Tensor, a: Tensor, b: Tensor, is_vertical: bool) -> 
             int(bool(is_vertical)), stream,
         )
     _raise_on_error(err, "homogeneity kernel")
-    homogeneity_kernel_launches += 1
+    _count_launch("homogeneity")
     return out
 
 
@@ -671,7 +681,6 @@ def decision_kernel(
     to ``demosaic.ahd.ahd_decision_plain``, which runs instead on CPU tensors,
     except where the two sums tie and ``cbrtf`` rounds CIELAB differently from
     the plain cube root."""
-    global decision_kernel_launches
     fields = (r_h, g_h, b_h, r_v, g_v, b_v)
     if r_h.device.type == "cpu":
         from ..demosaic.ahd import ahd_decision_plain
@@ -695,5 +704,5 @@ def decision_kernel(
             int(bool(is_hdr)), stream,
         )
     _raise_on_error(err, "decision kernel")
-    decision_kernel_launches += 1
+    _count_launch("decision")
     return out

@@ -75,26 +75,34 @@ def _correct_one(
     flat: Optional[RawFrame],
     dark: Optional[RawFrame],
     masks: Optional[Tensor],
+    axis_name=None,
+    core_rows=None,
 ) -> RawFrame:
     # Keep PipelineConfig.enables_per_frame_corrections in sync with the flags
     # consulted here.
+    # ``axis_name`` / ``core_rows``: on a halo-extended row shard of a mesh
+    # (parallel/spatial_pipeline.py), every global statistic (flat means,
+    # hot-pixel quantile, denoise sigma) reduces over the shards' core rows.
     from ..correct.bad_pixels import find_erroneous_pixels_median, repair_bad_pixels
     from ..correct.flat_field import dark_frame_subtraction, flat_frame_correction
 
     if cfg.dark_frame:
         frame = dark_frame_subtraction(frame, dark)
     if cfg.flat_field:
-        frame = flat_frame_correction(frame, flat, clamp_high=cfg.flat_clamp_high)
+        frame = flat_frame_correction(frame, flat, clamp_high=cfg.flat_clamp_high,
+                                      axis_name=axis_name, core_rows=core_rows)
     if cfg.repair_hot_pixels:
         if masks is None:
             masks = find_erroneous_pixels_median(
-                frame, cfg.hot_pixel_multiplier, cfg.hot_pixel_quantile
+                frame, cfg.hot_pixel_multiplier, cfg.hot_pixel_quantile,
+                axis_name=axis_name, core_rows=core_rows,
             )
         frame = repair_bad_pixels(frame, masks, cfg.hot_pixel_iterations)
     if cfg.denoise_strength > 0.0:
         from ..correct.denoise import denoise_bayer_wavelet
 
-        frame = denoise_bayer_wavelet(frame, cfg.denoise_strength, cfg.denoise_levels)
+        frame = denoise_bayer_wavelet(frame, cfg.denoise_strength, cfg.denoise_levels,
+                                      axis_name=axis_name, core_rows=core_rows)
     return frame
 
 

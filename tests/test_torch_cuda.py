@@ -927,3 +927,54 @@ def test_develop_files_on_the_card_writes_the_cpu_pngs(cuda, tmp_path):
         assert got == want, a
         diff = read_png(got).astype(np.int64) - read_png(cpu).astype(np.int64)
         assert np.abs(diff).max() <= 1, a
+
+
+# --- the mesh (parallel/) on the card -------------------------------------------------
+
+
+def test_make_mesh_without_a_gpu_raises(monkeypatch):
+    """make_mesh() takes the visible cards and never falls back to the CPU."""
+    from pysp_tpu_torch import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="none is present"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 2), ["cuda:0"] * 2)
+
+
+@pytest.mark.parametrize("quality", ["Best", "Fast"])
+def test_mesh_on_the_card_matches_the_cpu_mesh(cuda, quality):
+    """develop_spatial and the row-sharded config-5 chain on a (1, 2) mesh of
+    cuda:0 against the same on a (1, 2) CPU mesh: Fast within 1e-5 (the
+    card's matrix inverse rounds differently), Best within the AHD kernel's
+    flip bound; Best's interior equal to the card's monolithic develop, with
+    one AHD launch a shard."""
+    from pysp_tpu_torch import (PipelineConfig, Poly3CorrectionModel, QualityDemosaic,
+                                encode_warp_rectilinear, make_mesh)
+    from pysp_tpu_torch.parallel.spatial import develop_spatial
+    from pysp_tpu_torch.parallel.spatial_pipeline import develop_frame_spatial
+
+    cfg = DevelopConfig(quality=getattr(QualityDemosaic, quality))
+    card_mesh, cpu_mesh = make_mesh((1, 2), [cuda] * 2), make_mesh((1, 2), ["cpu"] * 2)
+    frame = _frame(256, 192, 5, False, cuda, noise=0.01)
+    before = K.ahd_kernel_launches
+    got = develop_spatial(frame, cfg, card_mesh)
+    assert got.is_cuda
+    assert K.ahd_kernel_launches - before == (2 if quality == "Best" else 0)
+    want = develop_spatial(frame.to("cpu"), cfg, cpu_mesh)
+    if quality == "Best":
+        assert torch.equal(got[16:-16], develop(frame, cfg)[16:-16])
+        assert psnr(got.cpu().numpy(), want.numpy()) >= 50
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+    model = Poly3CorrectionModel(0.01)
+    block = encode_warp_rectilinear([(1.004, -0.008, 0.0015, 0.0, 0.0002, -0.0001)] * 3,
+                                    (0.5, 0.5))
+    pcfg = PipelineConfig(develop=cfg, repair_hot_pixels=True)
+    kw = dict(ca_model_r=model, ca_model_b=model, warp_block=block)
+    got = develop_frame_spatial(frame, card_mesh, pcfg, **kw)
+    want = develop_frame_spatial(frame.to("cpu"), cpu_mesh, pcfg, **kw)
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    assert psnr(got.cpu().numpy(), want.numpy()) >= 50

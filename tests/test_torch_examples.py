@@ -2,7 +2,11 @@
 ``examples/differentiable_isp_torch.py`` against
 ``examples/differentiable_isp.py`` and ``examples/full_pipeline_torch.py``
 against ``examples/full_pipeline.py``, the JAX side op by op
-(``jax.disable_jit``).
+(``jax.disable_jit``); ``examples/burst_production_torch.py`` and
+``examples/large_frame_sharded_torch.py`` on a mesh of four CPU shards
+against ``examples/burst_production.py`` and ``examples/large_frame_sharded.py``
+on four of tests/conftest.py's virtual devices, jitted (as the JAX sharded
+functions run).
 
 Tolerances:
 - the scene: within 1e-6 (the same cubic weights, summed in float64 here and
@@ -13,7 +17,16 @@ Tolerances:
 - the fit: the recovery gates of ``tests/test_differentiable_isp.py``;
 - the full pipeline: the same DNG bytes, >= 50 dB on the PNG (the AHD
   tie-flip floor of DIVERGENCES.md; measured 88.3 dB) and R's fitted k1 within
-  1e-3 relative, as ``tests/test_torch_ca.py`` holds the template fit.
+  1e-3 relative, as ``tests/test_torch_ca.py`` holds the template fit;
+- the burst: both run on the JAX example's files (the port's own hold the
+  same counts but at under 0.1% of the sites, one count apart: the baked CA
+  truncates a float32 value 2.4e-7 from JAX's), the CA models within 1e-3
+  relative (the JAX example's gradient fit taken in the port's direction, G
+  onto the channel: ROADMAP.md queue C, C4), >= 50 dB on each PNG (measured
+  90.8 dB to identical);
+- the large frame: the same DNG bytes, >= 40 dB between the two sharded Best
+  develops (JAX's jitted Best is 41 dB from op by op, ROADMAP.md), and each
+  example's own interior check against its monolithic pipeline.
 """
 import os
 import subprocess
@@ -26,10 +39,14 @@ import numpy as np
 import pytest
 import torch
 
+from examples import burst_production as jax_burst
+from examples import burst_production_torch
 from examples import differentiable_isp as jax_isp
 from examples import differentiable_isp_torch as isp
 from examples import full_pipeline as jax_full_pipeline
 from examples import full_pipeline_torch
+from examples import large_frame_sharded as jax_large_frame
+from examples import large_frame_sharded_torch
 from pysp_tpu.core.frame import RawFrame as JaxFrame
 from pysp_tpu_torch import RawFrame, develop
 from pysp_tpu_torch.utils.testing import psnr, read_png
@@ -40,6 +57,8 @@ REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-4
 FIT_RTOL = 1e-3
 MIN_PSNR = 50.0
+BEST_MIN_PSNR = 40.0
+SHARDS = ["cpu"] * 4
 
 
 def _small_frames():
@@ -175,3 +194,122 @@ def test_the_examples_default_to_the_card(tmp_path):
         isp.main()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         full_pipeline_torch.main(str(tmp_path))
+
+
+def test_the_sharded_examples_default_to_the_card(tmp_path):
+    """Without devices the sharded examples take the visible cards (one card:
+    a (1, 1) mesh); with no GPU they raise."""
+    if torch.cuda.is_available():
+        assert burst_production_torch.main(str(tmp_path)).is_cuda
+        assert large_frame_sharded_torch.main()[0].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        burst_production_torch.main(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        large_frame_sharded_torch.main()
+
+
+def _jax_fit_in_the_ports_direction(frame, steps=80, learning_rate=2e-3):
+    """The JAX package's Poly3 gradient fit of the mean G plane onto each of
+    R and B, the direction of the port's ``fit_ca_models_gradient`` (the JAX
+    function aligns the channel onto G and fits the inverse model: C4)."""
+    from pysp_tpu.core.bayer import bayer_to_rgbg
+    from pysp_tpu.correct.ca import gradfit as JG
+
+    r0, g1, b0, g2 = bayer_to_rgbg(frame.bayer)
+    g = 0.5 * (g1 + g2)
+    return tuple(JG._make_poly3(JG.fit_radial_gradient(
+        g, plane, "poly3", np.zeros(1, np.float32), steps=steps,
+        learning_rate=learning_rate)[0]) for plane in (r0, b0))
+
+
+def _recording(monkeypatch, owner, name, fn=None):
+    """Record what ``owner.name`` (or ``fn`` in its place) returns."""
+    seen = []
+    call = fn or getattr(owner, name)
+
+    def recording(*args, **kw):
+        seen.append(call(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(owner, name, recording)
+    return seen
+
+
+def test_burst_production_matches_the_jax_example(tmp_path, monkeypatch):
+    """Both examples' ``main`` with a four-shard batch mesh on the JAX
+    example's burst files: the same CA fit, the same PNGs within the stated
+    floor. The port's own burst files hold the same counts but where the
+    truncation of the baked CA (float32, 2.4e-7 from JAX's) crosses an
+    integer: there one count apart, on under 0.1% of the sites."""
+    import shutil
+    import tempfile
+
+    from pysp_tpu_torch import load_raw
+
+    jax_dir, own_dir, run_dir = tmp_path / "jax", tmp_path / "own", tmp_path / "torch"
+    for d in (jax_dir, own_dir, run_dir):
+        d.mkdir()
+    want_fit = _recording(monkeypatch, jax_burst, "fit_ca_models_gradient",
+                          _jax_fit_in_the_ports_direction)
+    monkeypatch.setattr(tempfile, "mkdtemp", lambda prefix="": str(jax_dir))
+    jax_burst.main()
+
+    own = burst_production_torch.make_burst(str(own_dir))
+    for path in own:
+        a = load_raw(path, device="cpu").bayer
+        b = load_raw(str(jax_dir / Path(path).name), device="cpu").bayer
+        off = (a - b).abs() * (4095 - 256)
+        assert off.max().item() <= 1.0 + 1e-3 and (off > 0.5).float().mean().item() < 1e-3
+
+    def jax_files(tmpdir, n=4, h=96, w=128):
+        return [shutil.copy(jax_dir / f"burst_{i:02d}.dng", tmpdir) for i in range(n)]
+
+    monkeypatch.setattr(burst_production_torch, "make_burst", jax_files)
+    got_fit = _recording(monkeypatch, burst_production_torch, "fit_ca_models_gradient")
+    out = burst_production_torch.main(str(run_dir), device="cpu", devices=SHARDS)
+    assert out.shape == (4, 96, 128, 3)
+    (got_models,), (want_models,) = got_fit, want_fit
+    for g, w in zip(got_models, want_models):
+        np.testing.assert_allclose(g.get_coefficients(), w.get_coefficients(),
+                                   rtol=FIT_RTOL, atol=0)
+    for i in range(4):
+        got = read_png((run_dir / f"out_{i:02d}.png").read_bytes())
+        want = read_png((jax_dir / f"out_{i:02d}.png").read_bytes())
+        p = psnr(got.astype(np.float64) / 255, want.astype(np.float64) / 255)
+        print(f"burst frame {i}: PNG {p:.2f} dB from the JAX example's")
+        assert p >= MIN_PSNR
+
+
+def test_large_frame_sharded_matches_the_jax_example(monkeypatch):
+    """Both examples' ``main`` on four spatial shards: the same DNG, each
+    example's interior check, and the two sharded develops within the Best
+    gate."""
+    import pysp_tpu.io.tiff as jax_tiff
+    import pysp_tpu.parallel.spatial_pipeline as jax_spatial
+    import pysp_tpu_torch.io.tiff as tiff
+
+    got_dng = _recording(monkeypatch, tiff, "write_synthetic_dng")
+    want_dng = _recording(monkeypatch, jax_tiff, "write_synthetic_dng")
+    want_out = _recording(monkeypatch, jax_spatial, "develop_frame_spatial")
+    out, err = large_frame_sharded_torch.main("cpu", SHARDS)
+    jax_large_frame.main()
+
+    assert got_dng == want_dng
+    assert out.shape == (512, 96, 3) and err <= large_frame_sharded_torch.ATOL
+    p = psnr(out.numpy(), np.asarray(want_out[0]))
+    print(f"large frame: the port's sharded develop {p:.2f} dB from the JAX example's")
+    assert p >= BEST_MIN_PSNR
+
+
+def test_the_sharded_examples_run_as_modules(tmp_path, monkeypatch, capsys):
+    """Each as a script, run in this process (``runpy``) with two CPU shards."""
+    import runpy
+
+    for args in (["burst_production_torch", str(tmp_path), "--device", "cpu", "--shards", "2"],
+                 ["large_frame_sharded_torch", "--device", "cpu", "--shards", "2"]):
+        monkeypatch.setattr(sys, "argv", args)
+        runpy.run_path(str(REPO / "examples" / f"{args[0]}.py"), run_name="__main__")
+    assert len(list(tmp_path.glob("out_*.png"))) == 4
+    out = capsys.readouterr().out
+    assert "on a 2-shard mesh" in out and "over 2 spatial shards" in out and "OK" in out

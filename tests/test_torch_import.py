@@ -62,8 +62,15 @@ MODULES = [
     "pysp_tpu_torch.io.nef",
     "pysp_tpu_torch.pipeline.stream",
     "pysp_tpu_torch.compat",
+    "pysp_tpu_torch.parallel.mesh",
+    "pysp_tpu_torch.parallel.shard",
+    "pysp_tpu_torch.parallel.spatial",
+    "pysp_tpu_torch.parallel.spatial_pipeline",
+    "pysp_tpu_torch.parallel.pipeline_sharded",
     "examples.differentiable_isp_torch",
     "examples.full_pipeline_torch",
+    "examples.burst_production_torch",
+    "examples.large_frame_sharded_torch",
 ]
 
 
