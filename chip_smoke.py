@@ -219,7 +219,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the plain finishing path and the plain corrections pipelines median of 3
    after 1) of the kernels, their plain versions, ``grid_sample`` (the one
    PyTorch call that computes the bilinear remap; the Lanczos4 remap also
-   with a map for each channel), the whole develop, the
+   with a map for each channel; the bilinear remap and ``grid_sample`` at
+   their three shapes also back to back, ``queued_ms``: ten calls queued
+   behind a spin kernel, so that the wrapper's host time before a lone
+   launch is left out, kept as the record's ``queued_ms`` and
+   ``library_queued_ms`` beside the lone call's ``ms`` and ``library_ms``), the whole develop, the
    whole finishing path, the two corrections pipelines and the three develops
    of the tiers path (the plain staged develop: median of 3 after 1), with
    the device busy share of each path under ``torch.profiler``. For the ca
@@ -248,6 +252,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (H, W, 3) postprocess entry against the channel entry (and against
    channel copies and a stack), each with the card's name and power limit,
    and the develop's idle share.
+
+Before the summary, one line a kernel record (and a line for each of its
+measured shapes, such as the bilinear remap at the (H, W, 3) image, the CA
+stack and the shard stack) gives its time against its bound and against the
+library call where there is one; these are readings, not gates.
 
 The line before the last holds the per-kernel JSON summary, the one before it
 the card's name and power limit; the last line is the device JSON. Each
@@ -435,6 +444,37 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+SPIN_CYCLES = 10_000_000   # queued_ms's spin, about 5 ms at the H100's clock
+
+
+def queued_ms(fn, runs: int = 10, repeats: int = 5) -> float:
+    """The card's time of one call of ``fn`` when calls follow each other:
+    CUDA events around ``runs`` calls queued behind a spin kernel
+    (``torch.cuda._sleep``), so that the card runs them back to back and never
+    waits for the host, divided by ``runs``; median of ``repeats``. Unlike
+    ``median_ms`` it leaves out the host's work before a lone launch, which
+    the card waits for when the kernel takes well under 0.1 ms."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        queued = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if queued >= spin.elapsed_time(start):
+            raise RuntimeError(f"the spin ({spin.elapsed_time(start):.3f} ms) ended before "
+                               f"the calls were queued ({queued:.3f} ms)")
+        times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
 
 
@@ -1649,9 +1689,12 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
             lambda: K.remap_plain(srgb, mx, my, "lanczos4", bounds, channels_last=True)),
         "remap_bilinear": median_ms(
             lambda: K.remap_kernel(srgb, mx, my, "bilinear", bounds, channels_last=True)),
+        "remap_bilinear_queued": queued_ms(
+            lambda: K.remap_kernel(srgb, mx, my, "bilinear", bounds, channels_last=True)),
         "remap_bilinear_plain": median_ms(
             lambda: K.remap_plain(srgb, mx, my, "bilinear", bounds, channels_last=True)),
         "grid_sample": median_ms(grid_sample),
+        "grid_sample_queued": queued_ms(grid_sample),
         "finish": median_ms(lambda: finish_stages(lin, block)),
         "finish_plain": median_ms(lambda: finish_stages_plain(lin), runs=3, warmup=1),
     }
@@ -1743,8 +1786,10 @@ def kernels_at_main_shapes(frame: RawFrame, lin: torch.Tensor, srgb: torch.Tenso
                     t["remap_lanczos4"], t["remap_lanczos4_plain"], b["lanczos4"], None),
              per_channel_maps_ms=t["remap_lanczos4_per_channel"],
              bilinear={"max_abs_err": remap_err["bilinear"], "ms": t["remap_bilinear"],
+                       "queued_ms": t["remap_bilinear_queued"],
                        "plain_ms": t["remap_bilinear_plain"], "bound_ms": b["bilinear"][0],
                        "bound_by": b["bilinear"][1], "library_ms": t["grid_sample"],
+                       "library_queued_ms": t["grid_sample_queued"],
                        "library": "torch.nn.functional.grid_sample",
                        "library_max_abs_diff": gs_diff}),
     ]
@@ -2014,13 +2059,18 @@ def ca_at_main_shapes(burst: RawFrame, block: bytes):
     ops = float_ops(lambda: K.remap_plain(g, mx, my, "bilinear"))
     b = bound(nbytes, ops)
     t = {"ca_bilinear": median_ms(lambda: K.remap_kernel(g, mx, my, "bilinear")),
+         "ca_bilinear_queued": queued_ms(lambda: K.remap_kernel(g, mx, my, "bilinear")),
          "ca_bilinear_plain": median_ms(lambda: K.remap_plain(g, mx, my, "bilinear")),
-         "ca_grid_sample": median_ms(grid_sample)}
+         "ca_grid_sample": median_ms(grid_sample),
+         "ca_grid_sample_queued": queued_ms(grid_sample)}
     log(f"bilinear CA remap of {n}x{h}x{w} with shared maps: bit-exact against plain; "
         f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops -> bound {b[0]:.4f} ms by {b[1]}; "
-        f"kernel {t['ca_bilinear']:.4f} ms ({t['ca_bilinear'] / b[0]:.2f}x), plain "
-        f"{t['ca_bilinear_plain']:.4f} ms, grid_sample {t['ca_grid_sample']:.4f} ms (max abs "
-        f"diff {gs_diff:.3g})")
+        f"kernel {t['ca_bilinear']:.4f} ms a lone call ({t['ca_bilinear'] / b[0]:.2f}x), "
+        f"{t['ca_bilinear_queued']:.4f} ms back to back, plain {t['ca_bilinear_plain']:.4f} "
+        f"ms, grid_sample {t['ca_grid_sample']:.4f} ms a lone call (the kernel at "
+        f"{t['ca_bilinear'] / t['ca_grid_sample']:.2f}x), {t['ca_grid_sample_queued']:.4f} ms "
+        f"back to back (the kernel at {t['ca_bilinear_queued'] / t['ca_grid_sample_queued']:.2f}"
+        f"x); max abs diff {gs_diff:.3g}")
     del got, want, grid
 
     frame = unstack_frames(burst)[0]
@@ -2049,8 +2099,10 @@ def ca_at_main_shapes(burst: RawFrame, block: bytes):
         f"{device_ms:.3f} ms of device kernels ({launches:.0f} kernels) per run, device idle "
         f"{idle:.1%} of the host time")
     return {"ca_bilinear": {"shape": [n, h, w], "max_abs_err": 0.0, "ms": t["ca_bilinear"],
+                            "queued_ms": t["ca_bilinear_queued"],
                             "plain_ms": t["ca_bilinear_plain"], "bound_ms": b[0],
                             "bound_by": b[1], "library_ms": t["ca_grid_sample"],
+                            "library_queued_ms": t["ca_grid_sample_queued"],
                             "library": "torch.nn.functional.grid_sample",
                             "library_max_abs_diff": gs_diff},
             "ahd_ca_frame": {"shape": [CA_H, CA_W], "ms": t["ahd_frame"],
@@ -3255,17 +3307,26 @@ def shard_stack_bilinear(burst: RawFrame) -> dict:
     grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], dim=-1)[None]
     nbytes = n * h * w * 4 * 2 + h * w * 8
     b = bound(nbytes, float_ops(lambda: K.remap_plain(g, mx, my, "bilinear")))
-    rec = {"shape": [n, h, w], "max_abs_err": 0.0,
-           "ms": median_ms(lambda: K.remap_kernel(g, mx, my, "bilinear")),
+
+    def kernel():
+        return K.remap_kernel(g, mx, my, "bilinear")
+
+    def grid_sample():
+        return F.grid_sample(g[None], grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    rec = {"shape": [n, h, w], "max_abs_err": 0.0, "ms": median_ms(kernel),
+           "queued_ms": queued_ms(kernel),
            "plain_ms": median_ms(lambda: K.remap_plain(g, mx, my, "bilinear")),
-           "bound_ms": b[0], "bound_by": b[1],
-           "library_ms": median_ms(lambda: F.grid_sample(g[None], grid, mode="bilinear",
-                                                         padding_mode="border",
-                                                         align_corners=True)),
+           "bound_ms": b[0], "bound_by": b[1], "library_ms": median_ms(grid_sample),
+           "library_queued_ms": queued_ms(grid_sample),
            "library": "torch.nn.functional.grid_sample"}
     log(f"bilinear CA remap at the shard-stack shape {n}x{h}x{w}, maps shared: bit-exact "
-        f"against plain; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
-        f"{b[0]:.4f} ms by {b[1]}, grid_sample {rec['library_ms']:.4f} ms")
+        f"against plain; kernel {rec['ms']:.4f} ms a lone call ({rec['ms'] / b[0]:.2f}x), "
+        f"{rec['queued_ms']:.4f} ms back to back, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{b[0]:.4f} ms by {b[1]}, grid_sample {rec['library_ms']:.4f} ms a lone call (the "
+        f"kernel at {rec['ms'] / rec['library_ms']:.2f}x), {rec['library_queued_ms']:.4f} ms "
+        f"back to back (the kernel at {rec['queued_ms'] / rec['library_queued_ms']:.2f}x)")
     return rec
 
 
@@ -3347,6 +3408,23 @@ def main() -> int:
     matrix_cache.cleanup()
 
     log("parallel path results: " + json.dumps(parallel))
+    # Each record's kernel time against its bound and against the library call
+    # that computes its function, where there is one (a reading, not a gate:
+    # sub-millisecond times move 10-60% between calls).
+    for rec in records:
+        parts = [(rec["name"], rec)] + [(f"{rec['name']} {key}", sub) for key, sub in rec.items()
+                                        if isinstance(sub, dict) and "bound_ms" in sub]
+        for label, r in parts:
+            lib, name = r.get("library_ms"), r.get("library", "the library call")
+            line = (f"{label}: {r['ms']:.4f} ms, {r['ms'] / r['bound_ms']:.2f}x its bound by "
+                    f"{r['bound_by']}, " + (f"{r['ms'] / lib:.2f}x {name} ({lib:.4f} ms)"
+                                            if lib else "no library call"))
+            if "queued_ms" in r:
+                line += (f"; back to back {r['queued_ms']:.4f} ms, "
+                         f"{r['queued_ms'] / r['bound_ms']:.2f}x its bound, "
+                         f"{r['queued_ms'] / r['library_queued_ms']:.2f}x {name} "
+                         f"({r['library_queued_ms']:.4f} ms)")
+            log(line)
     log(json.dumps({"kernels": records}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -17,14 +17,49 @@
 // TPU: a thread reads the maps of its pixel once, computes the weights and the
 // clamped tap indices once, and sums the taps of every channel, rows outer,
 // taps inner, each sum seeded with zero, multiply then add, with FMA
-// contraction off (-fmad=false) and IEEE division.
+// contraction off (-fmad=false) and IEEE division. The two kinds are two
+// kernels, launched through one entry point.
 //
-// Bilinear keeps the plain version's operations in their order and is
-// bit-identical to it; it is bound by device memory (8 B of maps and 2 x 4 B a
-// channel of image and output for about 10 operations a channel).
+// Bilinear (bilinear_kernel) keeps the plain version's operations in their
+// order and is bit-identical to it: for each channel top = i00 (1 - fx) +
+// i01 fx, bot the same on the next row, top (1 - fy) + bot fy. It is bound by
+// device memory (8 B of maps and 2 x 4 B a channel of image and output for
+// about 10 operations a channel), and CA removal gives it stacks of many
+// planes that share their maps. What the design does about it:
 //
-// Lanczos4 is bound by its instruction count: 64 taps a channel and 16 weights a
-// pixel against the same bytes. What the design does about it:
+// - Loads in flight. A thread computes one pixel of a 32 x 8 tile, kGroup = 4
+//   channels at a time: the 16 taps of four channels are loaded before the
+//   first lerp. The first design (four pixels a thread, one channel after
+//   another, as Lanczos4) kept four loads in flight and walked a 16-plane
+//   stack in 64 dependent steps.
+// - Registers. With shared maps and 32-bit offsets the kernel is capped at 40
+//   registers a thread, six blocks an SM (43 uncapped, five blocks: 1-2%
+//   slower; 32 spills and is 1.6x slower). The other instantiations, which
+//   the cap would make spill, are left uncapped.
+// - Addresses. The taps' offsets and phases are computed once a pixel with
+//   shared maps and once a channel with a map for each (kShared); offsets are
+//   32-bit wherever every index fits in 31 bits, which the host picks
+//   (bilinear_variant). An (H, W, 3) image needs no path of its own: its
+//   three channels are one group whose taps lie side by side.
+// - Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/time_kernels.py,
+//   calls back to back, the first design and grid_sample in the same call;
+//   PERF.md): 16 planes of 1000x1504 with shared maps 0.0846 ms, 1.39x
+//   its 0.0611 ms byte bound (the first design 0.1306, grid_sample 0.1092);
+//   4 planes 0.0265 ms (0.0411, 0.0382); the 24 MP (H, W, 3) image 0.3545 ms
+//   (0.3715, 0.4518); random maps on it 1.943 ms (3.134, 4.666). A lone
+//   call also holds the wrapper's 21-38 us of host work before its launch
+//   (grid_sample's: 7-14 us), so at the 4 planes a lone call is no faster
+//   than grid_sample's (0.065 against 0.047-0.051 ms).
+// - Tried and not kept, each slower or within 3%: a grid axis over groups of
+//   four channels, a block a group and the groups of a tile column side by
+//   side (0.0909 ms at the 16 planes: the maps read four times), eight
+//   channels a group (56 to 142 registers a thread; 0.402 ms on the image),
+//   two, tiles of 64 x 4, 128 x 2, 64 x 8 and the first design's 32 x 32 with
+//   four pixels a thread, and streaming stores.
+//
+// Lanczos4 (lanczos4_kernel) is bound by its instruction count: 64 taps a
+// channel and 16 weights a pixel against the same bytes. What the design does
+// about it:
 //
 // - The weights. The plain version takes, for each of an axis's eight taps at
 //   t = frac - m (m = -3..4), sin(pi t) / (pi t) * sin(pi t / 4) / (pi t / 4):
@@ -69,9 +104,9 @@
 
 #include "tile_loops.cuh"
 
-// The tile, the block and the blocks an SM that the register cap is set for;
-// tools/time_kernels.py builds other shapes beside these through the macros,
-// to compare them on one card in one call.
+// Lanczos4's tile, block and the blocks an SM that the register cap is set
+// for; tools/time_kernels.py builds other shapes beside these through the
+// macros, to compare them on one card in one call.
 #ifndef REMAP_TILE_Y
 #define REMAP_TILE_Y 32
 #endif
@@ -87,6 +122,14 @@ namespace {
 constexpr int kTileX = 32;
 constexpr int kTileY = REMAP_TILE_Y;
 constexpr int kThreads = REMAP_THREADS;
+// The bilinear kind's tile, a thread a pixel; the blocks an SM that the
+// register cap of its shared-map 32-bit instantiation is set for; the channels
+// a thread loads at once.
+constexpr int kBlTileX = 32;
+constexpr int kBlTileY = 8;
+constexpr int kBlThreads = kBlTileX * kBlTileY;
+constexpr int kBlMinBlocks = 6;
+constexpr int kGroup = 4;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kHalfSqrt2 = 0.70710678118654752440f;
 
@@ -142,73 +185,53 @@ __device__ __forceinline__ Sample sample_at(float mx, float my, int y, int x,
   return s;
 }
 
-// The block's pixels. NC channels are summed together: 3 for an (H, W, 3)
-// image with shared maps, whose channels lie side by side at every tap
-// (channel n at offset n), else 1.
-template <bool kLanczos, int NC>
-__device__ __forceinline__ void remap_pixels(
+// The block's pixels for Lanczos4. NC channels are summed together: 3 for an
+// (H, W, 3) image with shared maps, whose channels lie side by side at every
+// tap (channel n at offset n), else 1.
+template <int NC>
+__device__ __forceinline__ void lanczos4_pixels(
     const float* __restrict__ img, const float* __restrict__ map_x,
     const float* __restrict__ map_y, float* __restrict__ out, int H, int W,
     int C, long long img_plane, int pix_stride, long long map_plane,
     int bounded, int dy0, int dy1, int dx0, int dx1) {
-  constexpr int kTaps = kLanczos ? 8 : 2;
   for (int i = threadIdx.x; i < kTileX * kTileY; i += blockDim.x) {
     const int y = blockIdx.y * kTileY + i / kTileX;
     const int x = blockIdx.x * kTileX + i % kTileX;
     if (y >= H || x >= W) continue;
     const size_t p = (size_t)y * W + x;
-    size_t rows[kTaps], cols[kTaps];  // offsets of the clamped tap rows and columns
-    float wy[kTaps], wx[kTaps];
+    size_t rows[8], cols[8];  // offsets of the clamped tap rows and columns
+    float wy[8], wx[8];
     for (int c = 0; c < C; c += NC) {
       if (c == 0 || map_plane != 0) {
         const size_t m = (size_t)c * (size_t)map_plane + p;
         const Sample s = sample_at(map_x[m], map_y[m], y, x, bounded, dy0,
                                    dy1, dx0, dx1);
-        if (kLanczos) {
-          lanczos4_weights(s.fx, wx);
-          lanczos4_weights(s.fy, wy);
-        } else {
-          wx[0] = s.fx;
-          wy[0] = s.fy;
-        }
-        const int first = kLanczos ? -3 : 0;
+        lanczos4_weights(s.fx, wx);
+        lanczos4_weights(s.fy, wy);
 #pragma unroll
-        for (int k = 0; k < kTaps; ++k) {
-          rows[k] = (size_t)clamp_index(s.by + first + k, H) * W * pix_stride;
-          cols[k] = (size_t)clamp_index(s.bx + first + k, W) * pix_stride;
+        for (int k = 0; k < 8; ++k) {
+          rows[k] = (size_t)clamp_index(s.by - 3 + k, H) * W * pix_stride;
+          cols[k] = (size_t)clamp_index(s.bx - 3 + k, W) * pix_stride;
         }
       }
       const float* const plane = img + (size_t)c * (size_t)img_plane;
       float v[NC];
-      if (kLanczos) {
 #pragma unroll
-        for (int n = 0; n < NC; ++n) v[n] = 0.0f;
+      for (int n = 0; n < NC; ++n) v[n] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float* const row = plane + rows[j];
-          float acc[NC];
+      for (int j = 0; j < 8; ++j) {
+        const float* const row = plane + rows[j];
+        float acc[NC];
 #pragma unroll
-          for (int n = 0; n < NC; ++n) acc[n] = 0.0f;
+        for (int n = 0; n < NC; ++n) acc[n] = 0.0f;
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
+        for (int k = 0; k < 8; ++k) {
 #pragma unroll
-            for (int n = 0; n < NC; ++n)
-              acc[n] = acc[n] + wx[k] * __ldg(row + cols[k] + n);
-          }
-#pragma unroll
-          for (int n = 0; n < NC; ++n) v[n] = v[n] + wy[j] * acc[n];
+          for (int n = 0; n < NC; ++n)
+            acc[n] = acc[n] + wx[k] * __ldg(row + cols[k] + n);
         }
-      } else {
-        const float* const r0 = plane + rows[0];
-        const float* const r1 = plane + rows[1];
-        const float i00 = __ldg(r0 + cols[0]);
-        const float i01 = __ldg(r0 + cols[1]);
-        const float i10 = __ldg(r1 + cols[0]);
-        const float i11 = __ldg(r1 + cols[1]);
-        const float fx = wx[0], fy = wy[0];
-        const float top = i00 * (1.0f - fx) + i01 * fx;
-        const float bot = i10 * (1.0f - fx) + i11 * fx;
-        v[0] = top * (1.0f - fy) + bot * fy;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) v[n] = v[n] + wy[j] * acc[n];
       }
 #pragma unroll
       for (int n = 0; n < NC; ++n)
@@ -218,22 +241,118 @@ __device__ __forceinline__ void remap_pixels(
 }
 
 // One block computes a kTileX x kTileY tile of every channel.
-template <bool kLanczos>
 __global__ void __launch_bounds__(kThreads, REMAP_MIN_BLOCKS)
-remap_kernel(const float* __restrict__ img, const float* __restrict__ map_x,
-             const float* __restrict__ map_y, float* __restrict__ out, int H,
-             int W, int C, long long img_plane, int pix_stride,
-             long long map_plane, int bounded, int dy0, int dy1, int dx0,
-             int dx1) {
-  if constexpr (kLanczos) {
-    if (C == 3 && img_plane == 1 && pix_stride == 3 && map_plane == 0) {
-      remap_pixels<true, 3>(img, map_x, map_y, out, H, W, C, img_plane,
-                            pix_stride, map_plane, bounded, dy0, dy1, dx0, dx1);
-      return;
+lanczos4_kernel(const float* __restrict__ img, const float* __restrict__ map_x,
+                const float* __restrict__ map_y, float* __restrict__ out, int H,
+                int W, int C, long long img_plane, int pix_stride,
+                long long map_plane, int bounded, int dy0, int dy1, int dx0,
+                int dx1) {
+  if (C == 3 && img_plane == 1 && pix_stride == 3 && map_plane == 0) {
+    lanczos4_pixels<3>(img, map_x, map_y, out, H, W, C, img_plane, pix_stride,
+                       map_plane, bounded, dy0, dy1, dx0, dx1);
+    return;
+  }
+  lanczos4_pixels<1>(img, map_x, map_y, out, H, W, C, img_plane, pix_stride,
+                     map_plane, bounded, dy0, dy1, dx0, dx1);
+}
+
+// Where a bilinear sample reads: the offsets of its four taps in a plane
+// (rows y0, y0 + 1 by columns x0, x0 + 1, each clamped into the frame) and its
+// phases.
+template <class Off>
+struct BilinearTaps {
+  Off o00, o01, o10, o11;
+  float fx, fy;
+};
+
+template <class Off>
+__device__ __forceinline__ BilinearTaps<Off> bilinear_taps(
+    const float* __restrict__ map_x, const float* __restrict__ map_y, Off m,
+    int y, int x, int H, int W, int pix_stride, int bounded, int dy0, int dy1,
+    int dx0, int dx1) {
+  const Sample s = sample_at(map_x[m], map_y[m], y, x, bounded, dy0, dy1, dx0,
+                             dx1);
+  const Off row0 = (Off)clamp_index(s.by, H) * W * pix_stride;
+  const Off row1 = (Off)clamp_index(s.by + 1, H) * W * pix_stride;
+  const Off col0 = (Off)clamp_index(s.bx, W) * pix_stride;
+  const Off col1 = (Off)clamp_index(s.bx + 1, W) * pix_stride;
+  return {row0 + col0, row0 + col1, row1 + col0, row1 + col1, s.fx, s.fy};
+}
+
+// One thread an output pixel of a kBlTileX x kBlTileY tile, over every
+// channel, kGroup channels at a time: all their taps are loaded before the
+// first lerp. (The pixel loop strides by blockDim.x, so that one thread can
+// also walk a whole tile, as the tests' CPU schedule runs it.) With shared maps (kShared) the taps' offsets and phases are
+// computed once a pixel; with a map for each channel, once a channel. Off is
+// int where every index of img, out and the maps fits in 31 bits, else long
+// long.
+template <bool kShared, class Off>
+__global__ void __launch_bounds__(kBlThreads,
+                                  kShared && sizeof(Off) == 4 ? kBlMinBlocks : 1)
+bilinear_kernel(const float* __restrict__ img, const float* __restrict__ map_x,
+                const float* __restrict__ map_y, float* __restrict__ out, int H,
+                int W, int C, long long img_plane, int pix_stride,
+                long long map_plane, int bounded, int dy0, int dy1, int dx0,
+                int dx1) {
+  const Off plane = (Off)img_plane;
+  for (int i = threadIdx.x; i < kBlTileX * kBlTileY; i += blockDim.x) {
+    const int y = blockIdx.y * kBlTileY + i / kBlTileX;
+    const int x = blockIdx.x * kBlTileX + i % kBlTileX;
+    if (y >= H || x >= W) continue;
+    const Off p = (Off)y * W + x;
+    BilinearTaps<Off> taps[kShared ? 1 : kGroup];
+    if (kShared)
+      taps[0] = bilinear_taps<Off>(map_x, map_y, p, y, x, H, W, pix_stride,
+                                   bounded, dy0, dy1, dx0, dx1);
+    for (int c = 0; c < C; c += kGroup) {
+      const int here = C - c;  // channels in this group: kGroup or fewer
+      if (!kShared) {
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n)
+          if (n < here)
+            taps[n] = bilinear_taps<Off>(
+                map_x, map_y, (Off)(c + n) * (Off)map_plane + p, y, x, H, W,
+                pix_stride, bounded, dy0, dy1, dx0, dx1);
+      }
+      float v[kGroup][4];
+#pragma unroll
+      for (int n = 0; n < kGroup; ++n) {
+        if (n < here) {
+          const BilinearTaps<Off>& t = taps[kShared ? 0 : n];
+          const float* const src = img + (Off)(c + n) * plane;
+          v[n][0] = __ldg(src + t.o00);
+          v[n][1] = __ldg(src + t.o01);
+          v[n][2] = __ldg(src + t.o10);
+          v[n][3] = __ldg(src + t.o11);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kGroup; ++n) {
+        if (n < here) {
+          const BilinearTaps<Off>& t = taps[kShared ? 0 : n];
+          const float top = v[n][0] * (1.0f - t.fx) + v[n][1] * t.fx;
+          const float bot = v[n][2] * (1.0f - t.fx) + v[n][3] * t.fx;
+          out[(Off)(c + n) * plane + p * pix_stride] =
+              top * (1.0f - t.fy) + bot * t.fy;
+        }
+      }
     }
   }
-  remap_pixels<kLanczos, 1>(img, map_x, map_y, out, H, W, C, img_plane,
-                            pix_stride, map_plane, bounded, dy0, dy1, dx0, dx1);
+}
+
+using BilinearFn = void (*)(const float*, const float*, const float*, float*,
+                            int, int, int, long long, int, long long, int, int,
+                            int, int, int);
+
+// The bilinear kernel that pysp_remap launches: shared maps or one for each
+// channel, and 32-bit offsets unless an index needs more (or `wide`); every
+// index of img, out and the maps is below C * H * W in either layout.
+inline BilinearFn bilinear_variant(int H, int W, int C, long long map_plane,
+                                   bool wide) {
+  wide = wide || (long long)C * H * W > 0x7fffffffLL;
+  if (map_plane == 0)
+    return wide ? bilinear_kernel<true, long long> : bilinear_kernel<true, int>;
+  return wide ? bilinear_kernel<false, long long> : bilinear_kernel<false, int>;
 }
 
 }  // namespace
@@ -246,18 +365,21 @@ extern "C" int pysp_remap(const float* img, const float* map_x,
                           long long img_plane, int pix_stride,
                           long long map_plane, int kind, int bounded, int dy0,
                           int dy1, int dx0, int dx1, void* stream) {
-  const dim3 grid((W + kTileX - 1) / kTileX, (H + kTileY - 1) / kTileY);
   cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 1)
-    remap_kernel<true><<<grid, kThreads, 0, s>>>(
+  if (kind == 1) {
+    const dim3 grid((W + kTileX - 1) / kTileX, (H + kTileY - 1) / kTileY);
+    lanczos4_kernel<<<grid, kThreads, 0, s>>>(
         img, map_x, map_y, out, H, W, C, img_plane, pix_stride, map_plane,
         bounded, dy0, dy1, dx0, dx1);
-  else if (kind == 0)
-    remap_kernel<false><<<grid, kThreads, 0, s>>>(
-        img, map_x, map_y, out, H, W, C, img_plane, pix_stride, map_plane,
-        bounded, dy0, dy1, dx0, dx1);
-  else
+  } else if (kind == 0) {
+    const BilinearFn kernel = bilinear_variant(H, W, C, map_plane, false);
+    const dim3 grid((W + kBlTileX - 1) / kBlTileX, (H + kBlTileY - 1) / kBlTileY);
+    kernel<<<grid, kBlThreads, 0, s>>>(img, map_x, map_y, out, H, W, C,
+                                       img_plane, pix_stride, map_plane,
+                                       bounded, dy0, dy1, dx0, dx1);
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 #endif

@@ -279,6 +279,33 @@ def test_remap_kernel_layouts_and_maps(cuda, kind, case):
     _assert_remap_close(got, img, mx, my, kind, None, channels_last)
 
 
+@pytest.mark.parametrize("bounds", [None, ((-3, 1), (-2, 3))])
+@pytest.mark.parametrize("maps", ["shared", "per_channel"])
+@pytest.mark.parametrize("planes,layout", [(16, "chw"), (5, "chw"), (1, "chw"), (5, "hwc")])
+def test_remap_bilinear_stacks(cuda, planes, layout, maps, bounds):
+    """The bilinear kind on (C, H, W) stacks of 16 planes (config 5's CA
+    burst), of 5 (not a whole number of channel groups), on one plane and on
+    an (H, W, 5) image, maps shared or one for each plane, bounded (tighter
+    than the maps' displacement) or not, on a frame whose tiles overhang both
+    axes: one launch, ``torch.equal`` to ``remap_plain``."""
+    h, w = 203, 330
+    scene = _rl_image(h, w, 3, cuda)
+    img = torch.cat([scene * (1 - 0.05 * k) for k in range(-(-planes // 3))], dim=-1)
+    img = img[..., :planes].contiguous()
+    mx, my = _remap_maps(h, w, planes if maps == "per_channel" else 1, cuda)
+    if maps == "shared":
+        mx, my = mx[0], my[0]
+    channels_last = layout == "hwc"
+    if planes == 1 and maps == "shared":
+        img = img[..., 0].contiguous()
+    elif not channels_last:
+        img = img.permute(2, 0, 1).contiguous()
+    before = K.remap_kernel_launches
+    got = K.remap_kernel(img, mx, my, "bilinear", bounds, channels_last)
+    assert K.remap_kernel_launches == before + 1
+    assert torch.equal(got, K.remap_plain(img, mx, my, "bilinear", bounds, channels_last))
+
+
 def _plain_warp(img, co, center):
     """The lens warp of one coefficient set shared by every channel, through
     the remap kernel's plain version with the warp's own bounds."""

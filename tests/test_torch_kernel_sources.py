@@ -121,23 +121,43 @@ void emulate(const float* est, const float* img, float* out, const float* taps,
              run_rl, &a);
 }
 #elif defined(EMULATE_REMAP)
+static BilinearFn bilinear;
 static void run_remap(void* p) {
   Args* a = (Args*)p;
   if (a->kind == 1)
-    remap_kernel<true>(a->a, a->b, a->c, a->x, a->H, a->W, a->C, a->plane, a->pix,
-                       a->map_plane, a->bounded, a->lo_y, a->hi_y, a->lo_x, a->hi_x);
+    lanczos4_kernel(a->a, a->b, a->c, a->x, a->H, a->W, a->C, a->plane, a->pix,
+                    a->map_plane, a->bounded, a->lo_y, a->hi_y, a->lo_x, a->hi_x);
   else
-    remap_kernel<false>(a->a, a->b, a->c, a->x, a->H, a->W, a->C, a->plane, a->pix,
-                        a->map_plane, a->bounded, a->lo_y, a->hi_y, a->lo_x, a->hi_x);
+    bilinear(a->a, a->b, a->c, a->x, a->H, a->W, a->C, a->plane, a->pix, a->map_plane,
+             a->bounded, a->lo_y, a->hi_y, a->lo_x, a->hi_x);
 }
-void emulate(const float* img, const float* map_x, const float* map_y, float* out,
-             int H, int W, int C, int plane, int pix, int map_plane, int kind,
-             int bounded, int dy0, int dy1, int dx0, int dx1) {
+static void remap(const float* img, const float* map_x, const float* map_y, float* out,
+                  int H, int W, int C, int plane, int pix, int map_plane, int kind,
+                  int bounded, int dy0, int dy1, int dx0, int dx1, bool wide) {
   Args a{};
   a.a = img; a.b = map_x; a.c = map_y; a.x = out; a.H = H; a.W = W; a.C = C;
   a.plane = plane; a.pix = pix; a.map_plane = map_plane; a.kind = kind;
   a.bounded = bounded; a.lo_y = dy0; a.hi_y = dy1; a.lo_x = dx0; a.hi_x = dx1;
-  each_block(cdiv(W, kTileX), cdiv(H, kTileY), 1, run_remap, &a);
+  if (kind == 1) {
+    each_block(cdiv(W, kTileX), cdiv(H, kTileY), 1, run_remap, &a);
+  } else {
+    bilinear = bilinear_variant(H, W, C, map_plane, wide);
+    each_block(cdiv(W, kBlTileX), cdiv(H, kBlTileY), 1, run_remap, &a);
+  }
+}
+void emulate(const float* img, const float* map_x, const float* map_y, float* out,
+             int H, int W, int C, int plane, int pix, int map_plane, int kind,
+             int bounded, int dy0, int dy1, int dx0, int dx1) {
+  remap(img, map_x, map_y, out, H, W, C, plane, pix, map_plane, kind, bounded, dy0, dy1,
+        dx0, dx1, false);
+}
+// The bilinear kind with 64-bit offsets, which the launcher takes only for
+// more than 2^31 elements.
+void emulate_wide(const float* img, const float* map_x, const float* map_y, float* out,
+                  int H, int W, int C, int plane, int pix, int map_plane, int kind,
+                  int bounded, int dy0, int dy1, int dx0, int dx1) {
+  remap(img, map_x, map_y, out, H, W, C, plane, pix, map_plane, kind, bounded, dy0, dy1,
+        dx0, dx1, true);
 }
 #elif defined(EMULATE_HEAL)
 static void run_heal(void* p) {
@@ -421,7 +441,10 @@ def rl_lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def remap_lib(tmp_path_factory):
-    return _build(tmp_path_factory, "remap.cu", "EMULATE_REMAP", n_ptrs=4, n_ints=12)
+    dll = _build(tmp_path_factory, "remap.cu", "EMULATE_REMAP", n_ptrs=4, n_ints=12)
+    dll.emulate_wide.argtypes = dll.emulate.argtypes
+    dll.emulate_wide.restype = None
+    return dll
 
 
 def _rl_image(h, w, c, seed):
@@ -492,18 +515,20 @@ LANCZOS4_ATOL = 5e-6
 LANCZOS4_F64_SLACK = 1e-6
 
 
-def _remap_emulated(remap_lib, img, mx, my, kind, bounds, channels_last=None):
+def _remap_emulated(remap_lib, img, mx, my, kind, bounds, channels_last=None,
+                    wide=False):
     """The remap's device code on CPU tensors: an (H, W) plane, an (H, W, C)
-    image or, with ``channels_last=False``, a (C, H, W) stack."""
+    image or, with ``channels_last=False``, a (C, H, W) stack; ``wide`` takes
+    the bilinear kind's 64-bit offsets."""
     if channels_last is None:
         channels_last = img.ndim == 3
     h, w, channels, plane, pix = K._layout(img, channels_last)
     out = torch.full_like(img, float("nan"))
     (dy0, dy1), (dx0, dx1) = bounds or ((0, 0), (0, 0))
-    remap_lib.emulate(_ptr(img), _ptr(mx), _ptr(my), _ptr(out), h, w, channels, plane, pix,
-                      h * w if mx.ndim == 3 else 0,
-                      K.REMAP_KINDS.index(kind), int(bounds is not None),
-                      dy0, dy1, dx0, dx1)
+    run = remap_lib.emulate_wide if wide else remap_lib.emulate
+    run(_ptr(img), _ptr(mx), _ptr(my), _ptr(out), h, w, channels, plane, pix,
+        h * w if mx.ndim == 3 else 0, K.REMAP_KINDS.index(kind), int(bounds is not None),
+        dy0, dy1, dx0, dx1)
     assert not bool(torch.isnan(out).any())
     return out
 
@@ -575,6 +600,43 @@ def test_remap_source_layouts_and_maps(remap_lib, kind, case):
         img = img.permute(2, 0, 1).contiguous()
     out = _remap_emulated(remap_lib, img, mx, my, kind, bounds, channels_last)
     _assert_remap_close(out, img, mx, my, kind, bounds, channels_last)
+
+
+def _stack_case(planes, maps, layout, h=37, w=45):
+    """A bilinear case: ``planes`` planes as a (C, H, W) stack, an (H, W, C)
+    image or, for one plane, an (H, W) plane, with lens maps shared by the
+    planes or one for each (a (1, H, W) map for one plane), on a frame whose
+    tiles overhang both axes (32 x 8 px)."""
+    img = _rl_image(h, w, 3, seed=planes + h)
+    img = torch.cat([img * (1 - 0.05 * k) for k in range(-(-planes // 3))], dim=-1)
+    img = img[..., :planes].contiguous()
+    mx, my = _warp_maps(h, w, planes if maps == "per_channel" else 1, seed=planes)
+    if maps == "shared":
+        mx, my = mx[0].contiguous(), my[0].contiguous()
+    channels_last = layout == "hwc"
+    if planes == 1 and maps == "shared":
+        img = img[..., 0].contiguous()
+    elif not channels_last:
+        img = img.permute(2, 0, 1).contiguous()
+    return img, mx, my, channels_last
+
+
+@pytest.mark.parametrize("offsets", ["32-bit", "64-bit"])
+@pytest.mark.parametrize("bounds", [None, ((-2, 1), (-1, 2))])
+@pytest.mark.parametrize("maps", ["shared", "per_channel"])
+@pytest.mark.parametrize("planes,layout", [(16, "chw"), (7, "chw"), (6, "chw"), (5, "chw"),
+                                           (1, "chw"), (5, "hwc")])
+def test_remap_source_bilinear_stacks(remap_lib, planes, layout, maps, bounds, offsets):
+    """The bilinear kind's device code on (C, H, W) stacks of 16 planes
+    (config 5's CA burst), of 7, 6 and 5 (a part group of three, two and one
+    channels after whole groups of four), on one plane and on an (H, W, 5)
+    image, maps shared or one for each plane, bounded (tighter than the maps'
+    displacement) or not, with 32- and 64-bit offsets, over tiles that
+    overhang both axes: ``torch.equal`` to ``remap_plain``."""
+    img, mx, my, channels_last = _stack_case(planes, maps, layout)
+    out = _remap_emulated(remap_lib, img, mx, my, "bilinear", bounds, channels_last,
+                          wide=offsets == "64-bit")
+    assert torch.equal(out, K.remap_plain(img, mx, my, "bilinear", bounds, channels_last))
 
 
 def test_lanczos4_weights_near_whole_phases(remap_lib):

@@ -27,7 +27,11 @@ postprocess kernel against ``postprocess_color_channels`` at 512x768, 510x762,
 warp's maps and bounds (bilinear ``torch.equal`` to ``remap_plain``; Lanczos4
 by its max abs error against ``remap_plain`` and against the same remap in
 float64, beside the plain version's own error against float64) and on a random
-map; the heal kernel against ``heal_plain`` on ``heal_case`` planes at
+map, and its bilinear kind (``torch.equal`` to ``remap_plain``) on random maps
+at 4000x6000 and on config 5's CA stack (the upsampled greens of 16
+``make_scene`` frames of 1000x1504 with the Poly3(0.01) model's shared maps,
+as ``chip_smoke.py``'s ``ca_at_main_shapes`` builds them) and its first four
+planes (the shard stack of the parallel path's (4, 1) mesh); the heal kernel against ``heal_plain`` on ``heal_case`` planes at
 256x384, 253x381, 3x5 and 1x1 (``torch.equal``); the decision kernel's picks
 against ``ahd_decision_plain`` at 512x768 and 510x762, HDR and not (the share
 that differ); the median5 kernel against ``ops.stencil.median5`` and the
@@ -41,8 +45,14 @@ of 10 after 2 warm-ups) and a SHA-256 of each output, so that two variants can
 be compared bit for bit: the AHD kernel with 0, 1 and 2 stages and the fused
 tail, the Best develop; one RL iteration at sigma 1 and sigma 2 and 20
 iterations at sigma 1; one postprocess stage on the r, g, b planes of the
-frame's demosaic; the remap of the developed (H, W, 3) image, bilinear and
-Lanczos4, the latter also with a map for each channel and on the random map;
+frame's demosaic; the remap of the developed (H, W, 3) image by Lanczos4, also
+with a map for each channel and on the random map; the bilinear remap of that
+image, of it on the random map, of the CA stack and of the shard stack, each
+also timed back to back (``chip_smoke.queued_ms``: calls queued behind a spin
+kernel, so that the host's work before a launch is left out) and beside
+``F.grid_sample`` (bilinear, border, align_corners) on the same inputs, both
+ways, with its bound by bytes; the host's time of one bilinear wrapper call,
+of the bare ctypes launch and of ``grid_sample`` on an 8x8 stack;
 the heal of 4 x 2000 x 3000 planes (4 + 2 sweeps) with the hot-pixel
 detector's masks of a frame with 500 planted hot photosites and with a random
 mask at density 1e-2, each as the whole ``heal_kernel`` call, its
@@ -63,6 +73,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -70,15 +81,23 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pysp_tpu_torch import DevelopConfig, RawFrame, develop  # noqa: E402
+from pysp_tpu_torch import (  # noqa: E402
+    DevelopConfig,
+    Poly3CorrectionModel,
+    RawFrame,
+    develop,
+    stack_frames,
+)
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix  # noqa: E402
-from pysp_tpu_torch.core.bayer import bayer_to_planes  # noqa: E402
+from pysp_tpu_torch.core.bayer import bayer_to_planes, bayer_to_rgbg  # noqa: E402
+from pysp_tpu_torch.correct.ca.removal import _maps_from_offsets  # noqa: E402
 from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median  # noqa: E402
 from pysp_tpu_torch.demosaic.ahd import (  # noqa: E402
     ahd_candidates,
     ahd_decision_plain,
     postprocess_color_channels,
 )
+from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution  # noqa: E402
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels  # noqa: E402
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
 from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
@@ -106,6 +125,12 @@ WARP_CENTER = (0.5, 0.5)
 # than remap_plain the kernel may be.
 LANCZOS4_ATOL = 5e-6
 LANCZOS4_F64_SLACK = 1e-6
+# Config 5's CA burst (bench.py): the bilinear remap of its upsampled greens
+# with the Poly3 model's shared maps, as chip_smoke.py's ca path runs it, and
+# the four of them that a shard of the parallel path's (4, 1) mesh holds.
+CA_SHAPE = (16, 1000, 1504)
+CA_K1 = 0.01
+SHARD_PLANES = 4
 HEAL_SWEEPS = (4, 2)
 HEAL_DENSE = 1e-2
 MAX_PICK_FLIPS = 5e-4   # picks that cbrtf may flip at exact ties (0.05%)
@@ -132,6 +157,21 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time of one call of ``fn`` in microseconds, over ``calls`` calls in
+    a row on inputs so small that the card keeps up: what the card waits for
+    between two such launches."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
 
 
 def digest(t: torch.Tensor) -> str:
@@ -238,13 +278,59 @@ def random_maps(h: int, w: int, seed: int):
     return mx, my
 
 
-def check_remap(name: str, state: dict) -> bool:
+def ca_stack_state() -> dict:
+    """Config 5's CA remap input: the upsampled greens of 16 1000x1504
+    ``make_scene`` frames (N, H, W) and the Poly3(0.01) model's shared maps, as
+    chip_smoke.py's ``ca_at_main_shapes`` builds them; the first four planes
+    are the parallel path's shard stack."""
+    n, h, w = CA_SHAPE
+    burst = stack_frames([RawFrame.synthetic(
+        mosaic_rggb(make_scene(h, w, seed=k)).astype(np.float32), device="cuda")
+        for k in range(n)], device="cuda")
+    _, g1, _, g2 = bayer_to_rgbg(burst.bayer)
+    g = resample_g_to_full_resolution(g1, g2).contiguous()
+    mx, my = _maps_from_offsets(Poly3CorrectionModel(CA_K1).get_undistorted_coordinates(g[0]),
+                                h, w)
+    return {"ca16": (g, mx, my), "shard4": (g[:SHARD_PLANES].contiguous(), mx, my)}
+
+
+def bilinear_cases(state: dict):
+    """(key, image, map_x, map_y, bounds, channels_last) of every bilinear
+    case: the lens warp of the (H, W, 3) image, random maps on it, config 5's
+    CA stack and the shard stack."""
     srgb = state["srgb"]
     h, w = srgb.shape[:2]
     mx, my, bounds = warp_case(h, w)
-    got = K.remap_kernel(srgb, mx, my, "bilinear", bounds, channels_last=True)
-    ok = torch.equal(got, K.remap_plain(srgb, mx, my, "bilinear", bounds, channels_last=True))
-    print(f"{name}: remap bilinear {h}x{w}x3: bit-exact {ok}", flush=True)
+    yield "remap_bilinear", srgb, mx, my, bounds, True
+    yield "remap_bilinear_random", srgb, *random_maps(h, w, seed=2), None, True
+    for key, (g, cx, cy) in state["ca"].items():
+        yield f"remap_bilinear_{key}", g, cx, cy, None, False
+
+
+def grid_sample_call(img, mx, my, channels_last: bool):
+    """``F.grid_sample`` (bilinear, border, align_corners) on the same image
+    and maps: the one PyTorch call that computes the bilinear remap (it differs
+    from the gather by rounding; timed as a yardstick only)."""
+    planes = (img.permute(2, 0, 1) if channels_last else img)[None].contiguous()
+    h, w = planes.shape[-2:]
+    grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], dim=-1)[None]
+    return lambda: torch.nn.functional.grid_sample(planes, grid, mode="bilinear",
+                                                   padding_mode="border",
+                                                   align_corners=True)
+
+
+def check_remap(name: str, state: dict) -> bool:
+    ok = True
+    for key, img, mx, my, bounds, last in bilinear_cases(state):
+        got = K.remap_kernel(img, mx, my, "bilinear", bounds, channels_last=last)
+        same = torch.equal(got, K.remap_plain(img, mx, my, "bilinear", bounds,
+                                              channels_last=last))
+        print(f"{name}: {key} {tuple(img.shape)}: bit-exact {same}", flush=True)
+        ok &= same
+        del got
+    srgb = state["srgb"]
+    h, w = srgb.shape[:2]
+    mx, my, bounds = warp_case(h, w)
     cases = [("lens warp", srgb, mx, my, bounds)]
     small = srgb[:1000, :1500].contiguous()
     cases.append(("random map", small, *random_maps(1000, 1500, seed=1), None))
@@ -435,16 +521,48 @@ def times(name: str, state: dict, groups) -> dict:
         def remap(kind, cx=mx, cy=my, bnd=bounds):
             return K.remap_kernel(srgb, cx, cy, kind, bnd, channels_last=True)
 
-        for kind in K.REMAP_KINDS:
-            out[f"remap_{kind}_ms"] = median_ms(lambda: remap(kind))
-            out[f"remap_{kind}_sha"] = digest(remap(kind))
+        out["remap_lanczos4_ms"] = median_ms(lambda: remap("lanczos4"))
+        out["remap_lanczos4_sha"] = digest(remap("lanczos4"))
         # a map for each channel: the lens warp's, a little apart
         cx = torch.stack([mx - 0.6, mx, mx + 0.7]).clamp(0, w - 1)
         cy = torch.stack([my + 0.4, my, my - 0.3]).clamp(0, h - 1)
         wide = ((bounds[0][0] - 1, bounds[0][1] + 1), (bounds[1][0] - 1, bounds[1][1] + 1))
         out["remap_lanczos4_per_channel_ms"] = median_ms(lambda: remap("lanczos4", cx, cy, wide))
+        out["remap_lanczos4_per_channel_sha"] = digest(remap("lanczos4", cx, cy, wide))
         rx, ry = random_maps(h, w, seed=2)
         out["remap_lanczos4_random_ms"] = median_ms(lambda: remap("lanczos4", rx, ry, None))
+        out["remap_lanczos4_random_sha"] = digest(remap("lanczos4", rx, ry, None))
+        del cx, cy, rx, ry
+        # the bilinear kind beside grid_sample on the same inputs, a lone call
+        # (median_ms) and calls back to back (queued_ms), and its bound as
+        # chip_smoke.py's records take it: image in and out once, two maps
+        # (shared) once, and the plain version's float32 operations
+        from chip_smoke import bound, float_ops, queued_ms
+
+        for key, img, bx, by, bnd, last in bilinear_cases(state):
+            def run(img=img, bx=bx, by=by, bnd=bnd, last=last):
+                return K.remap_kernel(img, bx, by, "bilinear", bnd, channels_last=last)
+            library = grid_sample_call(img, bx, by, last)
+            out[f"{key}_ms"] = median_ms(run)
+            out[f"{key}_queued_ms"] = queued_ms(run)
+            out[f"{key}_sha"] = digest(run())
+            out[f"{key}_grid_sample_ms"] = median_ms(library)
+            out[f"{key}_grid_sample_queued_ms"] = queued_ms(library)
+            out[f"{key}_bound_ms"] = bound(
+                (2 * img.numel() + 2 * bx.numel()) * 4,
+                float_ops(lambda: K.remap_plain(img, bx, by, "bilinear", bnd,
+                                                channels_last=last)))[0]
+        # the host's time of a call on an 8x8 stack: the wrapper, the bare
+        # launch through ctypes, and grid_sample
+        tiny, tx, ty = (a[..., :8, :8].contiguous() for a in state["ca"]["shard4"])
+        out["remap_bilinear_wrapper_host_us"] = host_us(
+            lambda: K.remap_kernel(tiny, tx, ty, "bilinear"))
+        buf, lib = torch.empty_like(tiny), K.load_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        out["remap_bilinear_launch_host_us"] = host_us(lambda: lib.pysp_remap(
+            tiny.data_ptr(), tx.data_ptr(), ty.data_ptr(), buf.data_ptr(), 8, 8, 4, 64, 1, 0,
+            0, 0, 0, 0, 0, 0, stream))
+        out["grid_sample_host_us"] = host_us(grid_sample_call(tiny, tx, ty, False))
     if "heal" in groups:
         hs = state["heal"]
         planes = hs["planes"]
@@ -524,6 +642,8 @@ def main() -> int:
                  "srgb": develop(f, DevelopConfig(use_pallas=False)),
                  "planes": K.ahd_plain(f.bayer, mat, f.wb_reciprocal(), f.is_hdr, 0)}
         del lin
+    if "remap" in groups:
+        state["ca"] = ca_stack_state()
     if "heal" in groups:
         state["heal"] = heal_state()
         print(f"heal inputs: planes {tuple(state['heal']['planes'].shape)}, "
@@ -534,10 +654,11 @@ def main() -> int:
     if {"median5", "homogeneity"} & set(groups):
         state["staged"] = staged_state()
     ok = True
-    tags = {"ahd": "ahd_kernel", "rl": "rl_", "postprocess": "postprocess_kernel",
-            "remap": "remap_kernel", "heal": "heal", "decision": "decision_kernel",
-            "median5": "median5_kernel", "homogeneity": "homogeneity_kernel"}
-    entry_tags = [tags[g] for g in groups]
+    tags = {"ahd": ("ahd_kernel",), "rl": ("rl_",), "postprocess": ("postprocess_kernel",),
+            "remap": ("remap_kernel", "lanczos4_kernel", "bilinear_kernel"),
+            "heal": ("heal",), "decision": ("decision_kernel",),
+            "median5": ("median5_kernel",), "homogeneity": ("homogeneity_kernel",)}
+    entry_tags = [tag for g in groups for tag in tags[g]]
     order = variants + variants[::-1] if len(variants) > 1 else variants
     builds = build_variants(variants)
     seen = set()
