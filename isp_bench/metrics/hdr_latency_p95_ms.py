@@ -1,0 +1,2 @@
+"""hdr5.bracket: 95th percentile of a burst's submission to completion on the card (`readers.latency_p95_ms`)."""
+from isp_bench.readers import latency_p95_ms as read  # noqa: F401
