@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import threading
 
 import numpy as np
 import torch
@@ -46,7 +47,8 @@ from pysp_tpu_torch import (
 )
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.utils.testing import mosaic_rggb, ring_chart
-from pysp_tpu_torch.utils.tracing import StageTimer
+from pysp_tpu_torch.utils import tracing
+from pysp_tpu_torch.utils.tracing import span
 
 
 def make_burst(outdir: str, n: int = 3, size: int = 256):
@@ -95,27 +97,27 @@ def make_burst(outdir: str, n: int = 3, size: int = 256):
     return paths, vignette
 
 
-def run(paths, vignette: np.ndarray, out_path: str, device="cuda", timer=None):
+def run(paths, vignette: np.ndarray, out_path: str, device="cuda"):
     """The pipeline on a written burst; returns ``(sRGB image, R's CA model)``
-    and saves the image to ``out_path``."""
-    timer = timer or StageTimer()
-    with timer("decode"):
+    and saves the image to ``out_path``. Each stage is a span of the port's
+    recorder (``utils/tracing.py``), recorded while it is on."""
+    with span("decode"):
         frames = [load_raw_dng(p, device=device) for p in paths]
 
-    with timer("hot_pixels"):
+    with span("hot_pixels"):
         masks = [find_erroneous_pixels_median(f, quantile=0.999) for f in frames]
         shared = find_shared_pixels(masks, min_ratio=0.5)
         frames = [repair_bad_pixels(f, shared) for f in frames]
 
-    with timer("flat_field"):
+    with span("flat_field"):
         flat = RawFrame.synthetic(mosaic_rggb(np.dstack([vignette] * 3)), device=device)
         frames = [flat_frame_correction(f, flat) for f in frames]
 
-    with timer("hdr_fuse"):
+    with span("hdr_fuse"):
         batch = stack_frames(frames, device=device)
         hdr, _counts = fuse_exposures_to_raw(batch)
 
-    with timer("ca_fit"):
+    with span("ca_fit"):
         model_r, model_b = compute_ca_lens_models_for_raw(
             hdr,
             init_model_r=Poly3CorrectionModel(),
@@ -123,35 +125,51 @@ def run(paths, vignette: np.ndarray, out_path: str, device="cuda", timer=None):
             max_distortion_additional_scale=0.06,
         )
 
-    with timer("ca_remove"):
+    with span("ca_remove"):
         hdr = remove_ca_from_raw(hdr, model_r, None)
 
-    with timer("develop"):
+    with span("develop"):
         cfg = DevelopConfig(quality=QualityDemosaic.Best, postprocess_stages=1)
         dev = develop_to_image(hdr, cfg)
         lin = dev.to_lin_srgb(clip_highlights=False)
 
-    with timer("dng_warp"):
+    with span("dng_warp"):
         block = get_opcode_3_block(paths[0])
         lin = apply_opcode_3_warp(lin, block, interpolation="bilinear")
 
-    with timer("sharpen_and_encode"):
+    with span("sharpen_and_encode"):
         lin = unsharp_mask_lab(torch.clamp(lin, 0, 1), radius=1.0, amount=0.3)
         srgb = lin_srgb_to_srgb(lin)
         save_image(out_path, srgb)
     return srgb, model_r
 
 
+def stage_report(spans) -> str:
+    """Host milliseconds of each stage, the spans opened on this thread with
+    no enclosing span, in the order they ran, then their total."""
+    main = threading.get_ident()
+    times = {}
+    for s in sorted(spans, key=lambda s: s.start_ns):
+        if s.parent_id is None and s.thread_id == main:
+            times[s.name] = times.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e6
+    lines = [f"{k}: {v:.1f} ms" for k, v in times.items()]
+    lines.append(f"total: {sum(times.values()):.1f} ms")
+    return "\n".join(lines)
+
+
 def main(outdir: str = "/tmp/pysp_demo_torch", device="cuda") -> str:
     os.makedirs(outdir, exist_ok=True)
-    timer = StageTimer()
+    tracing.enable()
+    try:
+        with span("synthesize"):
+            paths, vignette = make_burst(outdir)
+        out_path = os.path.join(outdir, "developed.png")
+        _, model_r = run(paths, vignette, out_path, device)
+    finally:
+        tracing.disable()
+        recorded = tracing.drain()
 
-    with timer("synthesize"):
-        paths, vignette = make_burst(outdir)
-    out_path = os.path.join(outdir, "developed.png")
-    _, model_r = run(paths, vignette, out_path, device, timer)
-
-    print(timer.report())
+    print(stage_report(recorded.spans))
     print(f"fitted CA k1 = {float(model_r.get_coefficients()[0]):.4f} (true 0.04)")
     print(f"-> {out_path}")
     return out_path

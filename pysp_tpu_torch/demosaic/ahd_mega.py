@@ -21,6 +21,7 @@ from __future__ import annotations
 from ..colorimetry.transforms import cam_to_lin_srgb_matrix
 from ..core.frame import RawFrame
 from ..ops.cuda_kernels import ahd_kernel, ahd_kernel_admits
+from ..utils.tracing import span
 from .ahd import demosaic_ahd_channels
 
 
@@ -46,8 +47,11 @@ def develop_channels_mega(
     then develops through ``demosaic_ahd_mega``'s staged route)."""
     if not ahd_kernel_admits(tuple(frame.bayer.shape), postprocess_stages):
         return None
-    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-    return ahd_kernel(
-        frame.bayer, mat, frame.wb_reciprocal(), frame.is_hdr, postprocess_stages,
-        tail=(clip_highlights, gamma_encode),
-    )
+    with span("develop.color_matrix", cpu=False):
+        mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+        wb = frame.wb_reciprocal()
+    with span("develop.demosaic", cpu=False):
+        return ahd_kernel(
+            frame.bayer, mat, wb, frame.is_hdr, postprocess_stages,
+            tail=(clip_highlights, gamma_encode),
+        )

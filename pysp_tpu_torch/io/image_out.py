@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import count, span
 from . import tiff as T
 
 
@@ -36,7 +37,8 @@ def save_image(path: str, srgb, fast_png: bool = True) -> None:
     ``fast_png=True`` (default) uses the native stored-deflate PNG writer when
     built: bit-identical pixels through any decoder, at larger files than
     PIL's zlib pass. Pass ``fast_png=False`` for PIL's smaller compressed
-    output.
+    output. The native PNG is the spans ``io.to_uint8``, ``io.png_encode`` and
+    ``io.write``; its bytes count in ``io.bytes_written``.
     """
     lower = path.lower()
     if lower.endswith((".tif", ".tiff")):
@@ -47,8 +49,14 @@ def save_image(path: str, srgb, fast_png: bool = True) -> None:
         from . import native
 
         if native.has_png():
-            with open(path, "wb") as f:
-                f.write(native.png_encode(to_uint8(srgb)))
+            with span("io.to_uint8"):
+                img = to_uint8(srgb)
+            with span("io.png_encode"):
+                blob = native.png_encode(img)
+            del img
+            with span("io.write"), open(path, "wb") as f:
+                f.write(blob)
+            count("io.bytes_written", len(blob))
             return
 
     from PIL import Image

@@ -33,6 +33,7 @@ from ..const import BayerPattern
 from ..core.bayer import reversible_transform_rggb
 from ..core.device import CARD, resolve_device
 from ..core.frame import RawFrame
+from ..utils.tracing import span
 from . import tiff as T
 from .tiff import check_decode_dims  # noqa: F401  (format modules import it here)
 from .metadata import (
@@ -138,7 +139,13 @@ def load_raw_dng(source: Source, apply_gain_opcodes: bool = True, device=CARD) -
     OpcodeList1 bad pixels are healed on the normalized mosaic, matched for
     FixBadPixelsConstant on the stored counts after the linearization table,
     and then the OpcodeList2 gains are applied, both on ``device`` and before
-    the ActiveArea and the crop."""
+    the ActiveArea and the crop.
+
+    Its spans: ``io.read`` (each read of the file), ``io.decode_strips``,
+    ``io.normalize`` (linearization, black and white levels, the copy to
+    ``device``, the opcode lists) and ``io.metadata`` (area and crop, the
+    colour matrices, their harvest, the WB controller, the EV and the frame's
+    assembly)."""
     device = resolve_device(device)
     tf = T.read_tiff(source)
     raw_ifd = tf.find_raw_ifd()
@@ -156,51 +163,53 @@ def load_raw_dng(source: Source, apply_gain_opcodes: bool = True, device=CARD) -
     )
 
     data = tf.read_strips(raw_ifd)
-    lin = raw_ifd.get(T.TAG_LINEARIZATION_TABLE)
-    if lin is not None:
-        # DNG LinearizationTable: LUT applied to stored values before black/white
-        table = np.asarray(lin.as_ints(), np.uint16)
-        data = table[np.minimum(data, len(table) - 1)]
-    black, white = _black_white_levels(raw_ifd)
-    sensor = torch.from_numpy(_normalize_host(data, black, white)).to(device)
+    with span("io.normalize"):
+        lin = raw_ifd.get(T.TAG_LINEARIZATION_TABLE)
+        if lin is not None:
+            # DNG LinearizationTable: LUT applied to stored values before black/white
+            table = np.asarray(lin.as_ints(), np.uint16)
+            data = table[np.minimum(data, len(table) - 1)]
+        black, white = _black_white_levels(raw_ifd)
+        sensor = torch.from_numpy(_normalize_host(data, black, white)).to(device)
 
-    if apply_gain_opcodes:
-        t1 = raw_ifd.get(T.TAG_OPCODE_LIST_1)
-        if t1 is not None:
-            from ..warp.fix_opcodes import heal_bad_pixels_from_opcodes
+        if apply_gain_opcodes:
+            t1 = raw_ifd.get(T.TAG_OPCODE_LIST_1)
+            if t1 is not None:
+                from ..warp.fix_opcodes import heal_bad_pixels_from_opcodes
 
-            sensor = heal_bad_pixels_from_opcodes(sensor, data, t1.as_bytes())
-        t2 = raw_ifd.get(T.TAG_OPCODE_LIST_2)
-        if t2 is not None:
-            from ..warp.gain_opcodes import apply_gain_opcodes as _apply_gains
+                sensor = heal_bad_pixels_from_opcodes(sensor, data, t1.as_bytes())
+            t2 = raw_ifd.get(T.TAG_OPCODE_LIST_2)
+            if t2 is not None:
+                from ..warp.gain_opcodes import apply_gain_opcodes as _apply_gains
 
-            sensor = _apply_gains(sensor, t2.as_bytes())
+                sensor = _apply_gains(sensor, t2.as_bytes())
 
-    active_area, crop = get_image_area_from_tiff(source)
-    sensor = _apply_area_and_crop(sensor, active_area, crop)
+    with span("io.metadata"):
+        active_area, crop = get_image_area_from_tiff(source)
+        sensor = _apply_area_and_crop(sensor, active_area, crop)
 
-    mats = exif_get_color_mat_sources(tf)
-    if len(mats) == 0:
-        raise KeyError(
-            "EXIF ColorMatrix tags or illuminant tags missing, could not create "
-            "white balance controller!"
+        mats = exif_get_color_mat_sources(tf)
+        if len(mats) == 0:
+            raise KeyError(
+                "EXIF ColorMatrix tags or illuminant tags missing, could not create "
+                "white balance controller!"
+            )
+        # first-contact upgrade: any dual-illuminant DNG donates its body's REAL
+        # calibration rows to the persistent registry, so native-format loads
+        # (CR2/NEF/...) of the same body stop using estimated StdA matrices
+        from .camera_matrices import autoharvest_from_tiff
+
+        autoharvest_from_tiff(
+            tf, mats, source_name=source if isinstance(source, str) else None
         )
-    # first-contact upgrade: any dual-illuminant DNG donates its body's REAL
-    # calibration rows to the persistent registry, so native-format loads
-    # (CR2/NEF/...) of the same body stop using estimated StdA matrices
-    from .camera_matrices import autoharvest_from_tiff
+        neutral = exif_get_as_shot_neutral(tf)
+        cam_wb = CameraWhiteBalanceController(mats, neutral)
 
-    autoharvest_from_tiff(
-        tf, mats, source_name=source if isinstance(source, str) else None
-    )
-    neutral = exif_get_as_shot_neutral(tf)
-    cam_wb = CameraWhiteBalanceController(mats, neutral)
+        ev = compute_ev_from_tiff(source)
+        if not np.isfinite(ev):
+            raise ValueError("Error reading exposure value from raw!")
 
-    ev = compute_ev_from_tiff(source)
-    if not np.isfinite(ev):
-        raise ValueError("Error reading exposure value from raw!")
-
-    return frame_from_parts(sensor, pattern, cam_wb, ev, device=device)
+        return frame_from_parts(sensor, pattern, cam_wb, ev, device=device)
 
 
 def frame_from_parts(

@@ -22,6 +22,8 @@ from typing import Any, BinaryIO, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..utils.tracing import count, span
+
 # TIFF data types: id -> (struct fmt, size bytes)
 _TYPES = {
     1: ("B", 1),   # BYTE
@@ -223,8 +225,12 @@ class TiffFile:
 
         Supports uncompressed (1) and lossless-JPEG (7, the DNG standard raw
         compression — decoded by the native library) data, in both strip and tile
-        organizations.
+        organizations. The span ``io.decode_strips``.
         """
+        with span("io.decode_strips"):
+            return self._read_strips(ifd)
+
+    def _read_strips(self, ifd: Ifd) -> np.ndarray:
         comp_tag = ifd.get(TAG_COMPRESSION)
         compression = comp_tag.as_ints()[0] if comp_tag is not None else 1
         width = ifd.require(TAG_IMAGE_WIDTH).as_ints()[0]
@@ -361,14 +367,21 @@ def _parse_ifd(data: bytes, endian: str, offset: int, depth: int = 0) -> Tuple[I
 
 
 def read_tiff(source: Union[str, bytes, BinaryIO]) -> TiffFile:
-    if isinstance(source, str):
-        with open(source, "rb") as f:
-            data = f.read()
-    elif isinstance(source, (bytes, bytearray)):
-        data = bytes(source)
-    else:
-        data = source.read()
+    """The file read whole and its IFDs parsed: the span ``io.read``; the
+    bytes read from a file count in ``io.bytes_read``."""
+    with span("io.read"):
+        if isinstance(source, (bytes, bytearray)):
+            return _parse_tiff(bytes(source))
+        if isinstance(source, str):
+            with open(source, "rb") as f:
+                data = f.read()
+        else:
+            data = source.read()
+        count("io.bytes_read", len(data))
+        return _parse_tiff(data)
 
+
+def _parse_tiff(data: bytes) -> TiffFile:
     if data[:2] == b"II":
         endian = "<"
     elif data[:2] == b"MM":

@@ -36,7 +36,10 @@ launches in a module-level integer (``ahd_kernel_launches``,
 ``remap_kernel_launches``, ``heal_kernel_launches``,
 ``median5_kernel_launches``, ``homogeneity_kernel_launches``,
 ``decision_kernel_launches``), incremented only where the kernel launches,
-under a lock: the shards of ``parallel/`` launch from several threads.
+under a lock: the shards of ``parallel/`` launch from several threads. Read
+them through ``utils.tracing.counters()``, which hands each back as
+``kernels.<name>.launches``, with the recorder's own counters; a build of the
+library is the span ``kernels.build`` and counts in ``kernels.builds``.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ import torch
 
 from ..ops.phase_kernels import BayerPatternPosition, get_rgbg_kernel
 from ..ops.stencil import GAUSSIAN3_SIGMA1
+from ..utils.tracing import count, span
 
 Tensor = torch.Tensor
 
@@ -145,6 +149,13 @@ def build_library(csrc: Path | None = None, flags=None):
     path = _library_path(csrc, flags)
     if path.exists():
         return path, "", 0.0
+    with span("kernels.build"):
+        out = _build(csrc, flags, path)
+    count("kernels.builds")
+    return out
+
+
+def _build(csrc: Path, flags: tuple, path: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:

@@ -21,6 +21,13 @@ follow in plain PyTorch.
 On a CPU frame the plain PyTorch path runs, as the JAX package runs XLA off
 the TPU. Draft and Fast are plain PyTorch on every device, as they are plain
 XLA in the JAX package.
+
+With the recorder of ``utils/tracing.py`` on, a develop is the span
+``develop`` (timed on the device too), with ``develop.color_matrix`` (the
+cam->lin-sRGB matrix and the reciprocal WB gains: the small launches before
+the AHD kernel), ``develop.demosaic`` (the AHD kernel's wrapper, or the
+plain tier) and ``develop.tail`` (the plain colour tail, where it runs)
+inside; none of them reads the thread's CPU clock (``span(cpu=False)``).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from ..const import BayerPattern, QualityDemosaic
 from ..core.bayer import reversible_transform_rggb
 from ..core.frame import DevelopedImage, RawFrame, unstack_frames
 from ..demosaic import demosaic
+from ..utils.tracing import span
 
 Tensor = torch.Tensor
 
@@ -132,35 +140,41 @@ def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
     Best frame the AHD kernel's planes), the reconstruction against the
     frame's WB gains and ``lim_sat``, the cam->lin-sRGB matrix with no clip
     before it, the soft knee of ``max(c, 0)``, then gamma."""
-    out = srgb = None
-    if cfg.highlights == "reconstruct":
-        srgb = _reconstruct_channels(frame, cfg)
-    elif _use_kernel(frame, cfg):
-        from ..demosaic.ahd_mega import develop_channels_mega
+    with span("develop", device=frame.bayer.device, cpu=False):
+        out = srgb = None
+        if cfg.highlights == "reconstruct":
+            srgb = _reconstruct_channels(frame, cfg)
+        elif _use_kernel(frame, cfg):
+            from ..demosaic.ahd_mega import develop_channels_mega
 
-        out = develop_channels_mega(
-            frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
-        )
-    if out is None and srgb is None and frame.bayer.ndim == 2:
-        if cfg.quality == QualityDemosaic.Draft:
-            from ..demosaic.draft import develop_channels_draft
-
-            srgb = develop_channels_draft(frame, cfg.clip_highlights, cfg.gamma_encode)
-        elif cfg.quality == QualityDemosaic.Fast:
-            from ..demosaic.eag import develop_channels_eag
-
-            srgb = develop_channels_eag(frame, cfg.clip_highlights, cfg.gamma_encode)
-    if out is None:
-        if srgb is None:
-            r, g, b = _demosaic_channels(frame, cfg)
-            mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-            srgb = _color_tail_channels(
-                r, g, b, mat, cfg.clip_highlights, cfg.gamma_encode
+            out = develop_channels_mega(
+                frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
             )
-        out = torch.stack(srgb, dim=-1).to(torch.float32)
-    if frame.source_pattern != BayerPattern.Rggb:
-        out = reversible_transform_rggb(out, frame.source_pattern)
-    return out
+        if out is None and srgb is None and frame.bayer.ndim == 2:
+            if cfg.quality == QualityDemosaic.Draft:
+                from ..demosaic.draft import develop_channels_draft
+
+                with span("develop.demosaic", cpu=False):
+                    srgb = develop_channels_draft(frame, cfg.clip_highlights, cfg.gamma_encode)
+            elif cfg.quality == QualityDemosaic.Fast:
+                from ..demosaic.eag import develop_channels_eag
+
+                with span("develop.demosaic", cpu=False):
+                    srgb = develop_channels_eag(frame, cfg.clip_highlights, cfg.gamma_encode)
+        if out is None:
+            if srgb is None:
+                with span("develop.demosaic", cpu=False):
+                    r, g, b = _demosaic_channels(frame, cfg)
+                with span("develop.color_matrix", cpu=False):
+                    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+                with span("develop.tail", cpu=False):
+                    srgb = _color_tail_channels(
+                        r, g, b, mat, cfg.clip_highlights, cfg.gamma_encode
+                    )
+            out = torch.stack(srgb, dim=-1).to(torch.float32)
+        if frame.source_pattern != BayerPattern.Rggb:
+            out = reversible_transform_rggb(out, frame.source_pattern)
+        return out
 
 
 def _reconstruct_channels(frame: RawFrame, cfg: DevelopConfig):
@@ -168,15 +182,19 @@ def _reconstruct_channels(frame: RawFrame, cfg: DevelopConfig):
     from ..colorimetry.transforms import lin_srgb_to_srgb
     from ..correct.highlights import compress_highlights, reconstruct_highlights_channels
 
-    r, g, b = _demosaic_channels(frame, cfg)
-    r, g, b = reconstruct_highlights_channels(r, g, b, frame.wb_reciprocal(), frame.lim_sat)
-    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-    # no pre-matrix clip: super-white survives the matrix, then a soft knee
-    # brings it under 1.0 with tonal separation before gamma
-    srgb = [compress_highlights(torch.clamp(c, min=0.0))
-            for c in _color_tail_channels(r, g, b, mat, False, False)]
-    if cfg.gamma_encode:
-        srgb = [lin_srgb_to_srgb(c) for c in srgb]
+    with span("develop.demosaic", cpu=False):
+        r, g, b = _demosaic_channels(frame, cfg)
+    with span("develop.color_matrix", cpu=False):
+        wb = frame.wb_reciprocal()
+        mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    with span("develop.tail", cpu=False):
+        r, g, b = reconstruct_highlights_channels(r, g, b, wb, frame.lim_sat)
+        # no pre-matrix clip: super-white survives the matrix, then a soft knee
+        # brings it under 1.0 with tonal separation before gamma
+        srgb = [compress_highlights(torch.clamp(c, min=0.0))
+                for c in _color_tail_channels(r, g, b, mat, False, False)]
+        if cfg.gamma_encode:
+            srgb = [lin_srgb_to_srgb(c) for c in srgb]
     return srgb
 
 

@@ -10,6 +10,14 @@ A burst is a frame with a leading frame axis on every tensor
 (``core.frame.stack_frames``). Its per-frame corrections run one frame after
 another, as ``lax.map`` runs them in the JAX package; then the burst either
 fuses to one HDR frame (``fuse_hdr``) or develops frame by frame.
+
+With the recorder of ``utils/tracing.py`` on, a call is the span
+``pipeline.develop_pipeline``, with ``pipeline.detect`` (the hot-pixel
+detector, one a frame), ``pipeline.consensus`` (the burst's shared masks),
+``pipeline.correct`` (one a frame: dark, flat, heal, denoise; a detector run
+for that frame alone is inside it), ``pipeline.fuse`` and then ``develop``
+inside; all but ``pipeline.develop_pipeline`` are timed on the device too,
+and none reads the thread's CPU clock (``span(cpu=False)``).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.frame import RawFrame, stack_frames, unstack_frames
+from ..utils.tracing import span
 from .develop import DevelopConfig, develop
 
 Tensor = torch.Tensor
@@ -93,10 +102,11 @@ def _correct_one(
                                       axis_name=axis_name, core_rows=core_rows)
     if cfg.repair_hot_pixels:
         if masks is None:
-            masks = find_erroneous_pixels_median(
-                frame, cfg.hot_pixel_multiplier, cfg.hot_pixel_quantile,
-                axis_name=axis_name, core_rows=core_rows,
-            )
+            with span("pipeline.detect", device=frame.bayer.device, cpu=False):
+                masks = find_erroneous_pixels_median(
+                    frame, cfg.hot_pixel_multiplier, cfg.hot_pixel_quantile,
+                    axis_name=axis_name, core_rows=core_rows,
+                )
         frame = repair_bad_pixels(frame, masks, cfg.hot_pixel_iterations)
     if cfg.denoise_strength > 0.0:
         from ..correct.denoise import denoise_bayer_wavelet
@@ -117,32 +127,46 @@ def develop_pipeline(
     ``frames``: a single RawFrame, or a burst (leading axis N on every
     tensor). Returns sRGB (H, W, 3), or (N, H, W, 3) for a burst without
     ``fuse_hdr``."""
+    with span("pipeline.develop_pipeline", cpu=False):
+        return _develop_pipeline(frames, cfg, flat, dark)
+
+
+def _correct(frame, cfg, flat, dark, masks) -> RawFrame:
+    with span("pipeline.correct", device=frame.bayer.device, cpu=False):
+        return _correct_one(frame, cfg, flat, dark, masks)
+
+
+def _develop_pipeline(frames, cfg, flat, dark) -> Tensor:
     from ..correct.bad_pixels import find_erroneous_pixels_median
     from ..correct.hdr import fuse_exposures_to_raw
 
+    device = frames.bayer.device
     is_burst = frames.bayer.ndim == 3
     if cfg.fuse_hdr and not is_burst:
         raise ValueError("fuse_hdr requires a batched burst (leading frame axis)")
     if not is_burst:
-        return develop(_correct_one(frames, cfg, flat, dark, None), cfg.develop)
+        return develop(_correct(frames, cfg, flat, dark, None), cfg.develop)
 
     burst = unstack_frames(frames)
     shared_masks = None
     if cfg.repair_hot_pixels and cfg.hot_pixel_shared_ratio is not None:
         # consensus across the burst (find_shared_pixels semantics), taken on
         # the frames as they come in, before any correction
-        per_frame = [
-            find_erroneous_pixels_median(f, cfg.hot_pixel_multiplier, cfg.hot_pixel_quantile)
-            for f in burst
-        ]
-        need = float(np.ceil(np.float32(len(burst) * cfg.hot_pixel_shared_ratio)))
-        shared_masks = sum(m.to(torch.int32) for m in per_frame) >= need
+        per_frame = []
+        for f in burst:
+            with span("pipeline.detect", device=device, cpu=False):
+                per_frame.append(find_erroneous_pixels_median(
+                    f, cfg.hot_pixel_multiplier, cfg.hot_pixel_quantile))
+        with span("pipeline.consensus", device=device, cpu=False):
+            need = float(np.ceil(np.float32(len(burst) * cfg.hot_pixel_shared_ratio)))
+            shared_masks = sum(m.to(torch.int32) for m in per_frame) >= need
 
     if cfg.enables_per_frame_corrections:
-        burst = [_correct_one(f, cfg, flat, dark, shared_masks) for f in burst]
-        if cfg.fuse_hdr:
-            frames = stack_frames(burst, device=frames.bayer.device)
+        burst = [_correct(f, cfg, flat, dark, shared_masks) for f in burst]
     if cfg.fuse_hdr:
-        fused, _counts = fuse_exposures_to_raw(frames, cfg.hdr_target_ev)
+        with span("pipeline.fuse", device=device, cpu=False):
+            if cfg.enables_per_frame_corrections:
+                frames = stack_frames(burst, device=device)
+            fused, _counts = fuse_exposures_to_raw(frames, cfg.hdr_target_ev)
         return develop(fused, cfg.develop)
     return torch.stack([develop(f, cfg.develop) for f in burst])

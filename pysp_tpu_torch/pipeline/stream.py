@@ -37,9 +37,19 @@ in Python do not.
 
 With ``device="cpu"`` the same loop runs without streams. A decode or save
 error propagates and names its file.
+
+With the recorder of ``utils/tracing.py`` on, every span of one file carries
+that file's item id: ``stream.decode`` and ``stream.pin`` on a decode worker,
+``stream.wait_decode`` (blocked on the file's decode), ``stream.launch``
+(copy in, develop and copy out enqueued) and ``stream.wait_card`` (blocked on
+its copy out) on the driver thread, and in ``develop_files``
+``stream.wait_save`` (the driver blocked on the file's save) and
+``stream.save`` on a save worker; the counter ``stream.files`` counts the
+files handed on.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
@@ -49,6 +59,7 @@ import torch
 from ..const import QualityDemosaic
 from ..core.device import CARD, resolve_device
 from ..core.frame import RawFrame
+from ..utils.tracing import count, new_item, span
 from .develop import DevelopConfig, develop
 
 __all__ = ["develop_stream", "develop_files"]
@@ -130,6 +141,14 @@ def develop_stream(
     caller asks for another) to ``prefetch + 1``. On a CUDA device the yielded
     array is a view of pinned host memory, released when the caller drops it.
     """
+    with contextlib.closing(_developed(sources, cfg, decode_workers, prefetch, loader,
+                                       device)) as developed:
+        for src, image, _ in developed:
+            yield src, image
+
+
+def _developed(sources, cfg, decode_workers, prefetch, loader, device):
+    """``develop_stream``'s loop, yielding ``(source, image, item id)``."""
     device = resolve_device(device)
     if loader is None:
         from ..io.raw_loader import load_raw
@@ -148,41 +167,50 @@ def develop_stream(
 
             load_library()
 
-    def decode(src):
-        frame = loader(src)
-        return _pinned(frame) if lanes is not None else frame
+    def decode(src, item):
+        with span("stream.decode", item=item):
+            frame = loader(src)
+        if lanes is None:
+            return frame
+        with span("stream.pin", item=item):
+            return _pinned(frame)
 
-    pool = ThreadPoolExecutor(max_workers=decode_workers)
+    pool = ThreadPoolExecutor(max_workers=decode_workers, thread_name_prefix="pysp-decode")
     try:
-        pending: List[tuple] = []    # (source, decode future)
-        in_flight: List[tuple] = []  # (source, host image, event or None)
+        pending: List[tuple] = []    # (source, decode future, item)
+        in_flight: List[tuple] = []  # (source, host image, event or None, item)
         idx = 0
 
         def fill():
             nonlocal idx
             while idx < len(sources) and len(pending) < decode_workers + prefetch:
-                pending.append((sources[idx], pool.submit(decode, sources[idx])))
+                item = new_item()
+                pending.append((sources[idx], pool.submit(decode, sources[idx], item), item))
                 idx += 1
 
         fill()
         while pending or in_flight:
             # launch device work for every decoded frame, up to the prefetch bound
             while pending and len(in_flight) <= prefetch:
-                src, fut = pending.pop(0)
+                src, fut, item = pending.pop(0)
                 try:
-                    frame = fut.result()
+                    with span("stream.wait_decode", item=item):
+                        frame = fut.result()
                 except Exception as e:
                     raise _naming(e, "decoding", src) from e
-                if lanes is None:
-                    in_flight.append((src, develop(frame.to(device), cfg), None))
-                else:
-                    in_flight.append((src, *lanes.launch(frame, cfg)))
+                with span("stream.launch", item=item):
+                    if lanes is None:
+                        in_flight.append((src, develop(frame.to(device), cfg), None, item))
+                    else:
+                        in_flight.append((src, *lanes.launch(frame, cfg), item))
                 del frame
                 fill()
-            src, image, done = in_flight.pop(0)
+            src, image, done, item = in_flight.pop(0)
             if done is not None:
-                done.synchronize()
-            yield src, image.numpy()
+                with span("stream.wait_card", item=item):
+                    done.synchronize()
+            count("stream.files")
+            yield src, image.numpy(), item
             del image
             fill()
     finally:
@@ -208,29 +236,36 @@ def develop_files(
 
     os.makedirs(out_dir, exist_ok=True)
     written: List[str] = []
-    saves: List[tuple] = []  # (destination, save future)
+    saves: List[tuple] = []  # (destination, save future, item)
 
-    def finish(dst, fut):
+    def save(dst, srgb, item):
+        with span("stream.save", item=item):
+            save_image(dst, srgb)
+
+    def finish(dst, fut, item):
         try:
-            fut.result()
+            with span("stream.wait_save", item=item):
+                fut.result()
         except Exception as e:
             raise _naming(e, "saving", dst) from e
 
-    with ThreadPoolExecutor(max_workers=save_workers) as savers:
+    with ThreadPoolExecutor(max_workers=save_workers, thread_name_prefix="pysp-save") as savers:
         try:
-            for src, srgb in develop_stream(paths, cfg, decode_workers=decode_workers,
-                                            device=device):
-                dst = os.path.join(
-                    out_dir, os.path.splitext(os.path.basename(str(src)))[0] + ext
-                )
-                while len(saves) >= 2 * save_workers:
-                    finish(*saves.pop(0))
-                saves.append((dst, savers.submit(save_image, dst, srgb)))
-                written.append(dst)
+            # develop_stream's loop with its default prefetch and loader
+            with contextlib.closing(_developed(paths, cfg, decode_workers, 2, None,
+                                               device)) as developed:
+                for src, srgb, item in developed:
+                    dst = os.path.join(
+                        out_dir, os.path.splitext(os.path.basename(str(src)))[0] + ext
+                    )
+                    while len(saves) >= 2 * save_workers:
+                        finish(*saves.pop(0))
+                    saves.append((dst, savers.submit(save, dst, srgb, item), item))
+                    written.append(dst)
             while saves:
                 finish(*saves.pop(0))
         finally:
-            for _, fut in saves:
+            for _, fut, _ in saves:
                 fut.cancel()
     return written
 

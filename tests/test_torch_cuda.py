@@ -1005,3 +1005,42 @@ def test_mesh_on_the_card_matches_the_cpu_mesh(cuda, quality):
     want = develop_frame_spatial(frame.to("cpu"), cpu_mesh, pcfg, **kw)
     assert got.is_cuda and bool(torch.isfinite(got).all())
     assert psnr(got.cpu().numpy(), want.numpy()) >= 50
+
+
+# --- the port's span recorder on the card ----------------------------------------------
+
+def test_a_device_span_holds_its_kernel_on_the_profilers_clock(cuda):
+    """A span with ``device=`` around a kernel and a synchronize holds that
+    kernel's profiler interval on the shared host clock, and its device time
+    (its two CUDA events) holds the kernel's and lies within the host time
+    from before the span to after its end event completed."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysp_tpu_torch.utils import tracing
+
+    x = torch.rand(4096, 4096, device=cuda)
+    torch.cuda.synchronize()
+    tracing.drain()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracing.enable()
+        try:
+            t0 = time.time_ns()
+            with tracing.span("scale", device=cuda):
+                y = x * 2.0
+                torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            t1 = time.time_ns()
+        finally:
+            tracing.disable()
+    (s,) = [s for s in tracing.drain().spans if s.name == "scale"]
+    kernels = [(ev.start_ns(), ev.end_ns()) for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == torch.autograd.DeviceType.CUDA
+               and not ev.name().startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == 1
+    lo, hi = kernels[0]
+    assert t0 <= s.start_ns <= lo < hi <= s.end_ns <= t1
+    # two timers (CUDA events, the profiler's): 10% for their resolution
+    assert 0.9 * (hi - lo) / 1e6 <= s.device_ms <= (t1 - t0) / 1e6
+    assert torch.equal(y, x * 2.0)
