@@ -73,12 +73,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      heal) -> save_image``; then five 4000x6000 brackets of the scene a stop
      apart (exposure 1/400 to 1/25 s, the same hot photosites) through
      ``load_raw -> stack_frames -> develop_pipeline(consensus heal, HDR fuse)
-     -> save_image``. Asserts the launches (1 + 5 heals, 2 AHD, homogeneity
-     and postprocess 0), that every planted site was flagged and healed into the range of
+     -> save_image``. Asserts the launches (1 + 5 heals, 2 AHD, 4 multisection
+     passes a detected frame, 24, homogeneity and postprocess 0), that every
+     planted site was flagged and healed into the range of
      its plane's 4-neighbours, that the images are finite (H, W, 3) within
      [0, 1], that the fused frame is HDR with ``lim_sat > 1``, that each image
      is >= 50 dB PSNR against the same pipeline composed from the plain
-     versions on the card, and that the CLI (``develop --flat
+     versions on the card (the detector's plain passes, ``heal_plain``, the
+     plain develop), and that the CLI (``develop --flat
      --repair-hot-pixels``, ``develop b0..b4 --hdr --repair-hot-pixels``), run
      in subprocesses, writes the same TIFFs.
    - tiers (the demosaic layer outside the AHD kernel's route): the 4000x6000
@@ -208,7 +210,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      ``develop_burst_sharded`` on (4, 1) and ``develop_burst_spatial`` on
      (2, 2) of the 16 frames at Best against ``develop_burst``; (e) both
      sharded examples' ``main`` on the card. Asserts each phase's launches
-     of the AHD, heal and remap kernels and none of the others; (a) and (d)
+     of the AHD, heal, remap and multisection kernels (4 a detected frame or
+     row shard) and none of the others; (a) and (d)
      every frame (for ``develop_burst_spatial`` every row farther than the
      halo from the frame's top and bottom) within 3e-5 of its counterpart,
      (b) and (c) those rows within 3e-5 and >= 40 dB over the whole frame,
@@ -241,7 +244,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    plain, and each of the five must beat its plain one. Each kernel's bound is
    the larger of its bytes (each input read once, each output written once)
    over 3.35 TB/s and its float32 operations, counted on its plain version at
-   the same inputs, over 67 TFLOP/s. Beside it: the decision kernel's issue
+   the same inputs, over 67 TFLOP/s. The multisection kernel on config 3's
+   delta planes (4 x 2000 x 3000): the wrapper's four passes against
+   ``multisection_plain``'s (``torch.equal``), a counting pass (20 launches
+   back to back, per launch) against its 96 MB over 3.35 TB/s and a plain
+   pass, and the four passes of one wrapper call against the plain four.
+   Beside it: the decision kernel's issue
    floor (its SASS's instructions a pick), the median5 kernel's min/max floor
    (the FMNMX of its SASS a pixel at half the issue rate) and the homogeneity kernel's achieved TB/s beside ``torch``'s own copy
    of its three input planes. For the surface path: the load split on the
@@ -319,7 +327,11 @@ from pysp_tpu_torch.core.bayer import (
     reversible_transform_rggb,
 )
 from pysp_tpu_torch.core.frame import unstack_frames
-from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median, repair_bad_pixels
+from pysp_tpu_torch.correct.bad_pixels import (
+    find_erroneous_pixels_median,
+    multisection_plain,
+    repair_bad_pixels,
+)
 from pysp_tpu_torch.correct.ca import removal as ca_removal
 from pysp_tpu_torch.correct.ca import solver as ca_solver
 from pysp_tpu_torch.correct.ca.roi import PooledChannel, RoiDetector
@@ -349,7 +361,7 @@ from pysp_tpu_torch.io.raw_loader import (
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.ops.resample import remap_bilinear
-from pysp_tpu_torch.ops.stencil import median5
+from pysp_tpu_torch.ops.stencil import median2, median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
 from pysp_tpu_torch.utils.testing import (
     HEAL_TILE_KINDS,
@@ -521,7 +533,9 @@ def bound(nbytes: float, ops: float):
 
 
 COUNTERS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity",
-            "decision")
+            "decision", "multisection")
+# The multisection kernel's launches a detected frame (or row shard of one).
+DETECT_PASSES = 4
 
 
 def expect_launches(path: str, launches: dict, **expected) -> None:
@@ -1007,19 +1021,37 @@ def heal_frame_plain(frame: RawFrame, masks: torch.Tensor) -> RawFrame:
     return frame.replace(bayer=planes_to_bayer(healed))
 
 
+@contextlib.contextmanager
+def plain_multisection():
+    """The detector with the multisection kernel's gate closed: its plain
+    passes on the same CUDA planes."""
+    saved = K.multisection_kernel_admits
+    K.multisection_kernel_admits = lambda *a: False
+    try:
+        yield
+    finally:
+        K.multisection_kernel_admits = saved
+
+
+def detect_plain(frame: RawFrame) -> torch.Tensor:
+    with plain_multisection():
+        return find_erroneous_pixels_median(frame)
+
+
 def corrections_plain(frames: RawFrame, flat: RawFrame | None = None):
     """develop_pipeline of config 3 (a frame and its flat) or config 4 (a burst)
-    composed from the plain versions on the card: ``heal_plain`` for the
-    heal, ``DevelopConfig(use_pallas=False)`` for the develop. Returns the
-    image and the frame it developed."""
+    composed from the plain versions on the card: the detector's plain passes
+    (``multisection_plain``), ``heal_plain`` for the heal,
+    ``DevelopConfig(use_pallas=False)`` for the develop. Returns the image and
+    the frame it developed."""
     plain = DevelopConfig(quality=QualityDemosaic.Best, use_pallas=False)
     if flat is not None:
         frame = flat_frame_correction(frames, flat)
-        frame = heal_frame_plain(frame, find_erroneous_pixels_median(frame))
+        frame = heal_frame_plain(frame, detect_plain(frame))
         return develop(frame, plain), frame
     burst = unstack_frames(frames)
     need = float(np.ceil(np.float32(len(burst) * CFG4.hot_pixel_shared_ratio)))
-    shared = sum(find_erroneous_pixels_median(f).to(torch.int32) for f in burst) >= need
+    shared = sum(detect_plain(f).to(torch.int32) for f in burst) >= need
     healed = stack_frames([heal_frame_plain(f, shared) for f in burst], device=DEVICE)
     fused, _ = fuse_exposures_to_raw(healed)
     return develop(fused, plain), fused
@@ -1096,7 +1128,8 @@ def corrections_path(tmp: str):
         f"kernel launches {launches}")
     if frame.bayer.device.type != DEVICE or burst.bayer.device.type != DEVICE:
         raise AssertionError("load_raw / stack_frames did not put the frames on the card")
-    expect_launches("corrections", launches, heal=1 + BRACKETS, ahd=2)
+    expect_launches("corrections", launches, heal=1 + BRACKETS, ahd=2,
+                    multisection=DETECT_PASSES * (1 + BRACKETS))
     evs = [round(v, 4) for v in burst.ev.tolist()]
     log(f"bracket EVs {evs}")
 
@@ -1242,6 +1275,69 @@ def corrections_at_main_shapes(frame, flat, burst, corrected, masks):
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
             "mean_ms": t["heal_mean"], "launch_ms": t["heal_launch"],
             "dense_ms": t["heal_dense"], "dense_launch_ms": t["heal_dense_launch"]}
+
+
+def multisection_at_main_shapes(corrected: RawFrame) -> dict:
+    """Phase 4 for the hot-pixel detector's multisection kernel on config 3's
+    delta planes: the wrapper's four passes against ``multisection_plain``,
+    a counting pass against its bound and a plain pass, and the four passes
+    of one wrapper call against the plain four. Returns its record."""
+    planes = bayer_to_planes(corrected.bayer)
+    delta = torch.abs(planes - median2(planes))
+    delta = torch.abs(delta - delta.mean(dim=(-2, -1), keepdim=True))
+    del planes
+    p, h, w = delta.shape
+    lo, hi = delta.amin(dim=(-2, -1)), delta.amax(dim=(-2, -1))
+    target = float(np.float32(CFG3.hot_pixel_quantile * (h * w - 1)))
+    got = K.multisection_kernel(delta, lo, hi, target)
+    want = multisection_plain(delta, lo, hi, target)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    log(f"multisection kernel vs multisection_plain at {p}x{h}x{w}, config 3's delta planes "
+        f"(quantile {CFG3.hot_pixel_quantile:g}): the last bracket bit-exact {same}, max abs "
+        f"err {err:.3g}")
+    if not same:
+        raise AssertionError("the multisection kernel at 24 MP differs from plain")
+    bracket = torch.stack([lo, hi])
+    counts = torch.zeros(p * 16 + 1, dtype=torch.int32, device=DEVICE)
+
+    def passes():
+        for _ in range(MULTISECTION_B2B):
+            multisection_launch(delta, bracket, counts, target)
+
+    t = {"pass": median_ms(passes) / MULTISECTION_B2B,
+         "plain_pass": median_ms(lambda: multisection_plain(delta, lo, hi, target, 1), runs=3,
+                                 warmup=1),
+         "call": median_ms(lambda: K.multisection_kernel(delta, lo, hi, target)),
+         "plain_call": median_ms(lambda: multisection_plain(delta, lo, hi, target), runs=3,
+                                 warmup=1)}
+    b = bound(delta.numel() * 4, 0.0)
+    log(f"multisection kernel at {p}x{h}x{w}: a counting pass {t['pass']:.4f} ms "
+        f"({MULTISECTION_B2B} launches back to back, per launch), {t['pass'] / b[0]:.2f}x its "
+        f"bound of {b[0]:.4f} ms by bytes ({delta.numel() * 4 / 1e6:.0f} MB); a plain pass "
+        f"{t['plain_pass']:.3f} ms; the four passes of one wrapper call {t['call']:.4f} ms, "
+        f"plain {t['plain_call']:.3f} ms (CUDA events; plain median of 3 after 1)")
+    return {"name": "multisection", "route": "cuda",
+            "source": "pysp_tpu_torch/csrc/multisection.cu",
+            "replaces": "pysp_tpu_torch/correct/bad_pixels.py::multisection_plain",
+            "counter": "multisection", "max_abs_err": err, "ms": t["pass"],
+            "plain_ms": t["plain_pass"], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "call_ms": t["call"], "plain_call_ms": t["plain_call"]}
+
+
+# Counting launches timed back to back for one pass's time.
+MULTISECTION_B2B = 20
+
+
+def multisection_launch(delta, bracket, counts, target: float) -> None:
+    """One counting pass of the multisection kernel alone, no narrowing (phase
+    4 times it apart; this launch counts nowhere)."""
+    p, h, w = delta.shape
+    err = K.load_library().pysp_multisection(
+        delta.data_ptr(), p, h * w, delta.stride(0), bracket.data_ptr(), counts.data_ptr(),
+        counts[p * 16:].data_ptr(), 16, target, 0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"multisection launch failed: cudaError {err}")
 
 
 def heal_launch(planes, masks, means, out, fill: int, smooth: int) -> None:
@@ -2726,7 +2822,8 @@ def formats_path(tmp: str, card: str):
 DRIVERS_FILES = 8                  # 24 MP DNGs through the stream: 4 uncompressed, 4 LJ92
 DRIVERS_CFG = DevelopConfig(quality=QualityDemosaic.Best)
 DRIVERS_BURST = 16                 # load_burst of config 5's shape
-FULL_PIPELINE_LAUNCHES = {"heal": 3, "homogeneity": 2, "postprocess": 1, "remap": 3}
+FULL_PIPELINE_LAUNCHES = {"heal": 3, "homogeneity": 2, "postprocess": 1, "remap": 3,
+                          "multisection": 3 * DETECT_PASSES}
 # The differentiable example's recovery gates (tests/test_differentiable_isp.py).
 ISP_LOSS_SHARE, ISP_NEUTRAL_TOL, ISP_EXPOSURE_TOL = 0.05, 0.08, 0.05
 
@@ -3142,7 +3239,8 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
         return develop_pipeline_sharded(hot5, mesh_a, PAR_CFG5, ca_model_r=model,
                                         ca_model_b=model, warp_block=block5)
 
-    got = counted("a", sharded_a, heal=CA_FRAMES, remap=4 * 4 + CA_FRAMES, ahd=CA_FRAMES)
+    got = counted("a", sharded_a, heal=CA_FRAMES, remap=4 * 4 + CA_FRAMES, ahd=CA_FRAMES,
+                  multisection=DETECT_PASSES * CA_FRAMES)
     want, shared = config5_unsharded(hot5, block5)
     errs = [max_abs(g, w_) for g, w_ in zip(got, want)]
     log(f"parallel (a): config 5 with {n_sites} hot sites ({int(shared.sum())} sites in the "
@@ -3192,7 +3290,8 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    got = counted("b, 102 MP", sharded_b, heal=4, remap=4 * 5, ahd=4)
+    got = counted("b, 102 MP", sharded_b, heal=4, remap=4 * 5, ahd=4,
+                  multisection=DETECT_PASSES * 4)
     out["peak_gb_102mp"] = torch.cuda.max_memory_allocated() / 1e9
     want = unsharded_b()
     err = max_abs(got[halo:-halo], want[halo:-halo])
@@ -3238,7 +3337,7 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
     # over two.
     mesh_c = card_mesh((BRACKETS, 2))
     got = counted("c", lambda: develop_hdr_sharded(burst4, mesh_c, CFG4),
-                  heal=BRACKETS * 2, ahd=BRACKETS * 2)
+                  heal=BRACKETS * 2, ahd=BRACKETS * 2, multisection=DETECT_PASSES * BRACKETS * 2)
     want = develop_pipeline(burst4, CFG4)
     err = max_abs(got[16:-16], want[16:-16])
     p = psnr(got.double().cpu().numpy(), want.double().cpu().numpy())
@@ -3284,7 +3383,7 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
         if imgs.device.type != DEVICE or len(pngs) != 4:
             raise AssertionError("the burst example did not develop on the card and write 4 PNGs")
     img, err = counted("e, large-frame example", large_frame_sharded_torch.main,
-                       heal=2, remap=10, ahd=2)
+                       heal=2, remap=10, ahd=2, multisection=DETECT_PASSES * 2)
     log(f"parallel (e): both examples' main on the card: 4 PNGs; the large frame "
         f"{tuple(img.shape)}, interior {err:.3g} from its monolithic pipeline")
     out["seconds"] = time.perf_counter() - t_path
@@ -3367,6 +3466,7 @@ def main() -> int:
     records = kernels_at_main_shapes(frame, lin, srgb, block)
     del frame, lin, srgb
     records.append(corrections_at_main_shapes(*corrections_state))
+    records.append(multisection_at_main_shapes(corrections_state[3]))
     burst4 = corrections_state[2]
     del corrections_state
     records.extend(tiers_at_main_shapes(*tiers_state))

@@ -39,8 +39,21 @@ _BRADFORD_NP = np.array(
 _BRADFORD_INV_NP = np.linalg.inv(_BRADFORD_NP)
 
 
+# This module's constant matrices, each copied once to each device: a copy
+# from pageable host memory waits for the device's queue, which would stall
+# the host in every develop.
+_ON_DEVICE: dict = {}
+
+
 def _f32(value, like: Tensor) -> Tensor:
-    return torch.as_tensor(np.asarray(value, np.float32), device=like.device)
+    """The constant ``value`` as float32 on ``like``'s device."""
+    a = np.asarray(value, np.float32)
+    key = (a.tobytes(), a.shape, like.device)
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _ON_DEVICE[key] = torch.as_tensor(a, device=like.device)
+    return t
 
 
 def div_const(x: Tensor, c: float) -> Tensor:
@@ -101,7 +114,9 @@ def cam_to_rgb_norm_matrix(
     color_mat = cam_mat @ mat_rgb_to_xyz_d_cam
     color_sum = torch.sum(color_mat, dim=1, keepdim=True)
     color_mat = color_mat / color_sum
-    return torch.linalg.inv(color_mat)
+    # inv_ex: the same inverse without the check of its info on the host,
+    # which would wait for the device's queue
+    return torch.linalg.inv_ex(color_mat).inverse
 
 
 def cam_to_lin_srgb_matrix(cam_mat: Tensor, cam_white: Tensor) -> Tensor:

@@ -96,31 +96,62 @@ def _bisect_quantile(delta: Tensor, q: float, iters: int = 4, branches: int = 16
     frame's quantile exactly: counting rank is associative. The counts are
     summed as integers and rounded to float32 once, as the whole frame's
     count is: above 2**24 samples a plane (67 MP frames) a float32 sum of the
-    shards' counts would round differently from it."""
+    shards' counts would round differently from it.
+
+    On CUDA planes the passes are launches of the multisection kernel
+    (:func:`ops.cuda_kernels.multisection_kernel`), which without
+    ``axis_name`` also narrows the bracket on the card; on CPU planes, and
+    outside the kernel's gate, :func:`multisection_plain` runs. Both give the
+    same bits."""
+    from ..ops import cuda_kernels as K
+
     n = delta.shape[-2] * delta.shape[-1]
     lo = delta.amin(dim=(-2, -1))
     hi = delta.amax(dim=(-2, -1))
+    psum_counts = None
     if axis_name is not None:
         from ..parallel.shard import pmax, pmin, psum
 
         n = n * psum(1, axis_name)
         lo, hi = pmin(lo, axis_name), pmax(hi, axis_name)
+
+        def psum_counts(cnt):
+            return psum(cnt, axis_name)
+
+    # the target rank rounded to float32, as in the JAX package
+    target = float(np.float32(q * (n - 1)))
+    run = K.multisection_kernel if K.multisection_kernel_admits(delta, branches) \
+        else multisection_plain
+    return run(delta, lo, hi, target, iters, branches, psum_counts)[1]
+
+
+def multisection_plain(delta: Tensor, lo: Tensor, hi: Tensor, target: float, iters: int = 4,
+                       branches: int = 16, psum_counts=None, count=None):
+    """``iters`` passes of the count multisection on ``delta`` (P, H, W) from
+    the bracket ``lo``, ``hi`` (P,) toward the rank ``target``; returns the
+    last bracket (lo, hi). A pass's (P, B) counts come from ``count(lo, hi)``
+    where given (the multisection kernel's counting launch), else from the
+    plain compare, and are summed by ``psum_counts`` where given. The plain
+    version of the multisection kernel."""
     # float32 comparisons throughout, as in the JAX package: the counts are
     # exact integers below 2**24 and the target is rounded to float32. The
     # constants are filled on the device (no host copy, no synchronisation).
-    target = torch.full((), float(np.float32(q * (n - 1))), device=delta.device)
+    target = torch.full((), target, device=delta.device)
     fr = div_const(torch.arange(1, branches + 1, dtype=delta.dtype, device=delta.device),
                    branches + 1)
     for _ in range(iters):
         mids = lo[:, None] + (hi - lo)[:, None] * fr[None, :]          # (P, B)
-        # the rank of every mid in one pass over delta: (P, B, H, W) compares
-        cnt = (delta[:, None] <= mids[:, :, None, None]).sum(dim=(-2, -1))
-        if axis_name is not None:
-            cnt = psum(cnt, axis_name)
+        if count is None:
+            # the rank of every mid in one pass over delta: (P, B, H, W) compares
+            cnt = (delta[:, None] <= mids[:, :, None, None]).sum(dim=(-2, -1))
+        else:
+            cnt = count(lo, hi)
+        if psum_counts is not None:
+            cnt = psum_counts(cnt)
         ok = (cnt.to(torch.float32) - 1.0) >= target
-        hi = torch.where(ok, mids, hi[:, None]).amin(dim=1)
-        lo = torch.where(ok, lo[:, None], mids).amax(dim=1)
-    return hi
+        hi, lo = (torch.where(ok, mids, hi[:, None]).amin(dim=1),
+                  torch.where(ok, lo[:, None], mids).amax(dim=1))
+    return lo, hi
 
 
 def find_shared_pixels(masks: Sequence[Tensor], min_ratio: float = 0.1) -> Optional[Tensor]:

@@ -52,7 +52,9 @@ def fuse_exposures_to_raw(
     sum_pixel = (bayer * weights * off).sum(dim=0)
     counts = (weights > 0).sum(dim=0, dtype=torch.int32)
 
-    max_exposure = bayer[torch.argmax(ev_offsets)] * ev_offsets.max()
+    # index_select: indexing with the 0-d argmax would read it on the host, a
+    # wait for the device's queue
+    max_exposure = bayer.index_select(0, torch.argmax(ev_offsets)[None])[0] * ev_offsets.max()
     fused = torch.where(sum_weight == 0, max_exposure, sum_pixel / sum_weight)
 
     hdr = RawFrame(
@@ -84,7 +86,8 @@ def fuse_exposures_from_debayer(
     sum_weight = weights.sum(dim=0)
     sum_pixel = (images.image * weights * off).sum(dim=0)
 
-    max_exposure = images.image[torch.argmax(ev_offsets)] * ev_offsets.max()
+    max_exposure = (images.image.index_select(0, torch.argmax(ev_offsets)[None])[0]
+                    * ev_offsets.max())
     fused = torch.where(sum_weight == 0, max_exposure, sum_pixel / sum_weight)
     counts = (weights > 0).sum(dim=0, dtype=torch.int32)
 

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels for Hopper and their Python wrappers.
 
-Eight kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``, one for every
-function of the JAX package that reaches ``pl.pallas_call``:
+Nine kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``: one for every
+function of the JAX package that reaches ``pl.pallas_call``,
 
 - ``ahd.cu``: the whole AHD demosaic plus the optional develop colour tail,
   counterpart of ``pysp_tpu/ops/pallas_kernels.py::ahd_mega_pallas``;
@@ -20,7 +20,13 @@ function of the JAX package that reaches ``pl.pallas_call``:
 - ``homogeneity.cu``: one direction's AHD homogeneity count, counterpart of
   ``pysp_tpu/ops/pallas_kernels.py::homogeneity_map_pallas``;
 - ``decision.cu``: the fused AHD direction pick, counterpart of
-  ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``.
+  ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``;
+
+and one without a Pallas counterpart:
+
+- ``multisection.cu``: one pass of the hot-pixel detector's count
+  multisection, with the narrowing of the bracket after it
+  (``correct.bad_pixels._bisect_quantile``).
 
 At the first CUDA call the sources are compiled with ``nvcc`` for ``sm_90a``
 (one process for each source, all at once) into one shared library with a
@@ -35,7 +41,7 @@ launches in a module-level integer (``ahd_kernel_launches``,
 ``postprocess_kernel_launches``, ``rl_kernel_launches``,
 ``remap_kernel_launches``, ``heal_kernel_launches``,
 ``median5_kernel_launches``, ``homogeneity_kernel_launches``,
-``decision_kernel_launches``), incremented only where the kernel launches,
+``decision_kernel_launches``, ``multisection_kernel_launches``), incremented only where the kernel launches,
 under a lock: the shards of ``parallel/`` launch from several threads. Read
 them through ``utils.tracing.counters()``, which hands each back as
 ``kernels.<name>.launches``, with the recorder's own counters; a build of the
@@ -67,7 +73,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu", "median5.cu",
-            "homogeneity.cu", "decision.cu")
+            "homogeneity.cu", "decision.cu", "multisection.cu")
 _HEADERS = ("median5_columns.cuh", "ahd_lab.cuh", "tile_loops.cuh")
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
@@ -86,6 +92,8 @@ RL_MAX_REACH = 32
 REMAP_KINDS = ("bilinear", "lanczos4")
 # The heal kernel's largest fill + smooth sweep count, the JAX kernel's gate.
 HEAL_MAX_SWEEPS = 8
+# The multisection kernel's most branches a pass (its counters a thread).
+MULTISECTION_MAX_BRANCHES = 16
 
 ahd_kernel_launches = 0
 postprocess_kernel_launches = 0
@@ -95,6 +103,7 @@ heal_kernel_launches = 0
 median5_kernel_launches = 0
 homogeneity_kernel_launches = 0
 decision_kernel_launches = 0
+multisection_kernel_launches = 0
 
 # Shard threads (``parallel/shard.py``) launch at once: the counts and the
 # first build are taken under these locks.
@@ -215,6 +224,9 @@ def load_library() -> ctypes.CDLL:
         lib.pysp_homogeneity.restype = i32
         lib.pysp_ahd_decision.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
         lib.pysp_ahd_decision.restype = i32
+        lib.pysp_multisection.argtypes = [ptr, i32, i32, i64, ptr, ptr, ptr, i32,
+                                          ctypes.c_float, i32, ptr]
+        lib.pysp_multisection.restype = i32
         _lib = lib
         return lib
 
@@ -717,3 +729,78 @@ def decision_kernel(
     _raise_on_error(err, "decision kernel")
     _count_launch("decision")
     return out
+
+
+# --- the hot-pixel detector's count multisection ---------------------------------------
+
+
+def multisection_kernel_admits(delta: Tensor, branches: int) -> bool:
+    """Whether the multisection kernel takes ``delta`` with this many branches
+    a pass: (P, H, W) float32, at most 65535 planes of fewer than 2**31
+    samples, and 1 to ``MULTISECTION_MAX_BRANCHES`` branches. The caller runs
+    the plain passes for the rest."""
+    if delta.ndim != 3 or delta.dtype != torch.float32:
+        return False
+    p, h, w = delta.shape
+    return 1 <= p <= 65535 and 0 < h * w < 2**31 and 1 <= int(branches) <= MULTISECTION_MAX_BRANCHES
+
+
+def multisection_kernel(delta: Tensor, lo: Tensor, hi: Tensor, target: float, iters: int = 4,
+                        branches: int = 16, psum_counts=None):
+    """``iters`` passes of the hot-pixel detector's count multisection on the
+    (P, H, W) float32 planes ``delta``, from the bracket ``lo``, ``hi`` (P,)
+    toward the rank ``target``; returns the last bracket (lo, hi).
+
+    On CUDA planes each pass is one launch of the multisection kernel, which
+    reads each plane in place (a row slice of a stack included). Without
+    ``psum_counts`` the kernel also narrows the bracket: the passes share one
+    zeroed count buffer, the bracket stays on the card and nothing waits for
+    the host. With it (the shards of a row-sharded frame) each launch only
+    counts, for ``multisection_plain``'s loop, which sums the int32 counts
+    over the shards with ``psum_counts`` and narrows. The bracket has
+    lo <= hi (or NaN), as ``amin`` and ``amax`` give it. Bit-identical to
+    ``correct.bad_pixels.multisection_plain``, which runs instead on CPU
+    planes. Raises outside :func:`multisection_kernel_admits`."""
+    from ..correct.bad_pixels import multisection_plain
+
+    if delta.device.type == "cpu":
+        return multisection_plain(delta, lo, hi, target, iters, branches, psum_counts)
+    if not multisection_kernel_admits(delta, branches):
+        raise ValueError(
+            f"the multisection kernel takes (P, H, W) float32 planes of under 2**31 samples "
+            f"and 1..{MULTISECTION_MAX_BRANCHES} branches, got {tuple(delta.shape)} "
+            f"{delta.dtype} and {branches}"
+        )
+    if not delta[0].is_contiguous():
+        delta = delta.contiguous()
+    p, h, w = delta.shape
+    branches = int(branches)
+    lib = load_library()
+
+    def launch(bracket: Tensor, counts: Tensor, narrow: bool) -> None:
+        _check(bracket, "bracket", (2, p), delta.device)
+        err = lib.pysp_multisection(
+            delta.data_ptr(), p, h * w, delta.stride(0), bracket.data_ptr(), counts.data_ptr(),
+            counts[p * branches:].data_ptr(), branches, float(target), int(narrow),
+            torch.cuda.current_stream(delta.device).cuda_stream,
+        )
+        _raise_on_error(err, "multisection kernel")
+        _count_launch("multisection")
+
+    def count(lo: Tensor, hi: Tensor) -> Tensor:
+        # one pass's counts (P, B), and the ticket that a counting launch leaves alone
+        counts = torch.zeros(p * branches + 1, dtype=torch.int32, device=delta.device)
+        launch(torch.stack([lo, hi]), counts, narrow=False)
+        return counts[:-1].view(p, branches)
+
+    with torch.cuda.device(delta.device):
+        if psum_counts is not None:
+            return multisection_plain(delta, lo, hi, target, iters, branches, psum_counts,
+                                      count)
+        bracket = torch.stack([lo, hi])
+        # a pass's counts (P, B) and the ticket of its last block, a row a pass
+        counts = torch.zeros((int(iters), p * branches + 1), dtype=torch.int32,
+                             device=delta.device)
+        for it in range(int(iters)):
+            launch(bracket, counts[it], narrow=True)
+        return bracket[0], bracket[1]

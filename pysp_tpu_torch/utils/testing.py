@@ -2,8 +2,8 @@
 
 Copied from ``pysp_tpu/utils/testing.py`` (the functions the port's smoke run
 and tests use, ``ring_chart`` the CA scene among them), so that they import
-without JAX, plus the test cases of the heal and postprocess kernels, which the smoke run, ``tools/time_kernels.py``
-and the tests share, and the synthetic raw files of every format the loaders
+without JAX, plus the test cases of the heal, postprocess and multisection
+kernels, which the smoke run, ``tools/time_kernels.py`` and the tests share, and the synthetic raw files of every format the loaders
 read (``raw_format_case``) with a reader for the PNGs the port writes
 (``read_png``).
 """
@@ -112,6 +112,45 @@ def heal_tile_case(h2: int, w2: int, kind: str, seed: int):
     elif kind != "no_site":
         raise ValueError(f"kind must be one of {HEAL_TILE_KINDS}, got {kind!r}")
     return planes, mask
+
+
+MULTISECTION_KINDS = ("noise", "constant", "at_mids", "levels", "nan_samples")
+
+
+def multisection_case(h2: int, w2: int, kind: str, seed: int) -> np.ndarray:
+    """Delta planes (4, h2, w2) float32 for the hot-pixel detector's count
+    multisection: ``noise``, the detector's |delta| of sensor noise with a
+    thousandth of the sites hot, far above it; ``constant``, one value a plane
+    (lo == hi); ``at_mids``, ``noise`` with a third of the sites moved onto
+    the first pass's 16 interior points, as float32 computes them, so that
+    every count holds samples equal to its mid; ``levels``, five values, all
+    ties; ``nan_samples``, ``noise`` with a hundredth of the sites of planes
+    1 and 3 NaN, which no count holds (``amin`` / ``amax`` of those planes
+    are NaN, of planes 0 and 2 numbers)."""
+    rng = np.random.default_rng(seed)
+    shape = (4, h2, w2)
+    if kind == "constant":
+        values = np.float32([0.0, 0.125, 0.3, 1.0])[:, None, None]
+        return np.ascontiguousarray(np.broadcast_to(values, shape))
+    if kind == "levels":
+        return (rng.integers(0, 5, shape) * 0.25).astype(np.float32)
+    if kind not in MULTISECTION_KINDS:
+        raise ValueError(f"kind must be one of {MULTISECTION_KINDS}, got {kind!r}")
+    delta = np.abs(rng.normal(0.0, 0.01, shape)).astype(np.float32)
+    hot = rng.random(shape) < 1e-3
+    delta[hot] = rng.uniform(0.3, 0.9, int(hot.sum())).astype(np.float32)
+    if kind == "at_mids":
+        lo, hi = delta.min(axis=(1, 2)), delta.max(axis=(1, 2))
+        fr = np.arange(1, 17, dtype=np.float32) / np.float32(17)
+        mids = lo[:, None] + (hi - lo)[:, None] * fr[None, :]
+        which = rng.integers(0, 16, shape)
+        at = np.take_along_axis(mids, which.reshape(4, -1), axis=1).reshape(shape)
+        delta = np.where(rng.random(shape) < 1 / 3, at, delta).astype(np.float32)
+    elif kind == "nan_samples":
+        nan = rng.random(shape) < 1e-2
+        nan[0::2] = False
+        delta[nan] = np.nan
+    return delta
 
 
 def chroma_case(h: int, w: int, seed: int) -> np.ndarray:

@@ -146,6 +146,31 @@ def test_median_detector_threshold_and_masks(seed, hot, quantile, multiplier):
     np.testing.assert_array_equal(got[~near], want[~near])
 
 
+def test_median_detector_on_cpu_planes_never_loads_the_kernels(monkeypatch):
+    """On CPU planes the detector's quantile is the plain multisection: with
+    the kernels' library unloadable it still runs, and equals the JAX
+    package's threshold and masks."""
+    from pysp_tpu_torch.ops import cuda_kernels as K
+
+    def no_library():
+        raise AssertionError("the CPU detector loaded the CUDA kernels")
+
+    monkeypatch.setattr(K, "load_library", no_library)
+    before = K.multisection_kernel_launches
+    with jax.disable_jit():
+        jf, tf = _pair(_mosaic(96, 128, seed=4, hot=6))
+        jd, td = _median_deltas(jf, tf)
+        want_q = np.asarray(JP._bisect_quantile(jd, 0.9999))
+        want = np.asarray(JP.find_erroneous_pixels_median(jf, 1.5, 0.9999))
+    np.testing.assert_allclose(TP._bisect_quantile(td, 0.9999).numpy(), want_q, rtol=1e-6,
+                               atol=0)
+    got = TP.find_erroneous_pixels_median(tf, 1.5, 0.9999).numpy()
+    strong = (want_q * 1.5).reshape(4, 1, 1)
+    near = np.abs(np.asarray(jd) - strong) <= 1e-6 * strong
+    np.testing.assert_array_equal(got[~near], want[~near])
+    assert K.multisection_kernel_launches == before
+
+
 def test_find_shared_pixels_equal():
     rng = np.random.default_rng(6)
     masks = [rng.random((4, 8, 12)) < 0.3 for _ in range(5)]

@@ -24,6 +24,7 @@ from pysp_tpu_torch.utils.testing import (
     heal_tile_case,
     make_scene,
     mosaic_rggb,
+    multisection_case,
     psnr,
     raw_format_mosaic,
     read_png,
@@ -505,6 +506,152 @@ def test_corrections_pipeline_with_the_kernels_against_plain(cuda):
     assert (K.heal_kernel_launches, K.ahd_kernel_launches) == (before[0] + 5, before[1] + 1)
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert psnr(got.cpu().numpy(), _pipeline_plain(burst, cfg4).cpu().numpy()) >= 50
+
+
+# --- the hot-pixel detector's kernel: multisection ---------------------------------------
+
+
+def _hot_mosaic(h, w, seed, hot=3e-5):
+    """An (h, w) float32 mosaic of a smooth scene with sensor noise and a share
+    ``hot`` of the photosites stuck at 1.0, fewer than the detector's quantile
+    leaves above it, as hdr5's (memory-light at 102 MP)."""
+    rng = np.random.default_rng(seed)
+    scene = (0.3 + 0.2 * np.sin(np.arange(w, dtype=np.float32) / 9)[None, :]
+             * np.cos(np.arange(h, dtype=np.float32) / 13)[:, None])
+    mosaic = scene + 0.01 * rng.standard_normal((h, w), dtype=np.float32)
+    mosaic[rng.random((h, w), dtype=np.float32) < hot] = 1.0
+    return np.clip(mosaic, 0.0, 1.0)
+
+
+def _detector_delta(frame):
+    """The delta planes whose quantile the median detector takes."""
+    from pysp_tpu_torch.core.bayer import bayer_to_planes
+    from pysp_tpu_torch.ops.stencil import median2
+
+    planes = bayer_to_planes(frame.bayer)
+    delta = torch.abs(planes - median2(planes))
+    return torch.abs(delta - delta.mean(dim=(-2, -1), keepdim=True))
+
+
+def _with_plain_passes(monkeypatch, fn, *args):
+    """``fn(*args)`` with the multisection kernel's gate closed: the plain
+    passes on the same CUDA tensors."""
+    with monkeypatch.context() as m:
+        m.setattr(K, "multisection_kernel_admits", lambda *a: False)
+        return fn(*args)
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("noise", (1, 1)), ("frame", (3, 5)), ("frame", (2000, 3000)),
+    ("frame", (4368, 5824)),   # 25.4 M samples a plane: counts past 2**24 round in float32
+    ("constant", (64, 96)), ("at_mids", (2000, 3000)), ("levels", (300, 500)),
+    ("nan_samples", (2000, 3000)), ("core_rows", (2000, 3000)), ("burst", (2000, 3000)),
+])
+def test_multisection_kernel_bit_exact(cuda, monkeypatch, kind, shape):
+    """The detector's quantile and masks with the multisection kernel equal
+    the plain passes' on the card bit for bit, four launches a detection: on
+    planes of one sample, of 3x5, of a 24 MP and a 102 MP frame, constant
+    (lo == hi), with a third of the samples on the first pass's mids, all
+    ties, with NaN samples in two planes (whose ``amin`` / ``amax`` bracket is
+    NaN: NaN in the same planes, the numbers equal in the others), a row
+    slice of a stack read through its plane stride (also counted
+    without the kernel's narrowing, as the shards of a row-sharded frame
+    count), and a five-bracket burst like hdr5's through develop_pipeline to
+    its consensus masks and image."""
+    from pysp_tpu_torch.correct.bad_pixels import (
+        _bisect_quantile,
+        find_erroneous_pixels_median,
+        multisection_plain,
+    )
+
+    if kind == "burst":
+        _assert_burst_detection_bit_exact(cuda, monkeypatch, shape)
+        return
+    if kind == "frame":
+        frame = RawFrame.synthetic(_hot_mosaic(2 * shape[0], 2 * shape[1], seed=shape[1]),
+                                   device=cuda)
+        before = K.multisection_kernel_launches
+        masks = find_erroneous_pixels_median(frame)
+        assert K.multisection_kernel_launches == before + 4
+        assert torch.equal(masks, _with_plain_passes(monkeypatch, find_erroneous_pixels_median,
+                                                     frame))
+        delta = _detector_delta(frame)
+    elif kind == "core_rows":
+        full = torch.from_numpy(multisection_case(shape[0] + 80, shape[1], "noise", 5)).to(cuda)
+        delta = full[:, 40:-40]
+        assert not delta.is_contiguous() and delta[0].is_contiguous()
+    else:
+        delta = torch.from_numpy(multisection_case(*shape, kind, seed=shape[0])).to(cuda)
+    before = K.multisection_kernel_launches
+    got = _bisect_quantile(delta, 0.9999)
+    assert K.multisection_kernel_launches == before + 4
+    want = _with_plain_passes(monkeypatch, _bisect_quantile, delta, 0.9999)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert bool(got.isnan().any()) == (kind == "nan_samples")
+    if kind == "core_rows":
+        lo, hi = delta.amin(dim=(-2, -1)), delta.amax(dim=(-2, -1))
+        target = float(np.float32(0.9999 * (delta[0].numel() - 1)))
+        counted = K.multisection_kernel(delta, lo, hi, target, 4, 16, psum_counts=lambda c: c)
+        plain = multisection_plain(delta, lo, hi, target, 4, 16, psum_counts=lambda c: c)
+        assert all(torch.equal(a, b) for a, b in zip(counted, plain))
+
+
+def _assert_burst_detection_bit_exact(cuda, monkeypatch, shape):
+    """Five brackets of a scene with the same hot photosites (the scene scaled
+    by 2^(k-2) and clipped, as hdr5's), config 4 through develop_pipeline:
+    20 launches, and the consensus masks and the image equal the plain
+    passes'."""
+    from pysp_tpu_torch import PipelineConfig, develop_pipeline, stack_frames
+    from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median
+
+    scene = _hot_mosaic(2 * shape[0], 2 * shape[1], seed=19, hot=0.0)
+    hot = _hot_mosaic(2 * shape[0], 2 * shape[1], seed=20) == 1.0
+    frames = [RawFrame.synthetic(np.where(hot, 1.0, np.clip(scene * 2.0 ** (k - 2), 0, 1))
+                                 .astype(np.float32), cam_mat=CAM, wb_neutral=WB,
+                                 ev=12.0 - k, device=cuda) for k in range(5)]
+    cfg = PipelineConfig(fuse_hdr=True, repair_hot_pixels=True, hot_pixel_shared_ratio=0.5)
+
+    def consensus():
+        return sum(find_erroneous_pixels_median(f).to(torch.int32) for f in frames) >= 3
+
+    masks = consensus()
+    assert torch.equal(masks, _with_plain_passes(monkeypatch, consensus))
+    assert int(masks.sum()) > 0
+    before = K.multisection_kernel_launches
+    got = develop_pipeline(stack_frames(frames), cfg)
+    assert K.multisection_kernel_launches == before + 20
+    assert torch.equal(got, _with_plain_passes(monkeypatch, develop_pipeline,
+                                               stack_frames(frames), cfg))
+
+
+@pytest.mark.parametrize("entry", ["hdr_pipeline", "best", "draft"])
+def test_develops_queue_without_a_host_sync(cuda, entry):
+    """A five-bracket develop_pipeline (consensus masks, heal, fuse, Best), a
+    Best and a Draft develop queue all their work without one host
+    synchronisation (torch's sync debug mode raises at one), so the host is
+    never held to the card's pace inside a call: the fuse's pick of the
+    brightest frame, the colour matrix's constants and its inverse."""
+    from pysp_tpu_torch import PipelineConfig, QualityDemosaic, develop_pipeline, stack_frames
+
+    scene = _hot_mosaic(1000, 1500, seed=7)
+    frames = [RawFrame.synthetic(np.clip(scene * 2.0 ** (k - 2), 0, 1), cam_mat=CAM,
+                                 wb_neutral=WB, ev=12.0 - k, device=cuda) for k in range(5)]
+    calls = {
+        "hdr_pipeline": lambda: develop_pipeline(
+            stack_frames(frames), PipelineConfig(fuse_hdr=True, repair_hot_pixels=True,
+                                                 hot_pixel_shared_ratio=0.5)),
+        "best": lambda: develop(frames[2], DevelopConfig()),
+        "draft": lambda: develop(frames[2], DevelopConfig(quality=QualityDemosaic.Draft)),
+    }
+    want = calls[entry]()          # builds the kernels and loads the libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls[entry]()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
 
 
 # --- the staged AHD route's kernels: median5, homogeneity count, direction pick --------

@@ -35,6 +35,7 @@ from pysp_tpu_torch.utils.testing import (
     heal_tile_case,
     make_scene,
     mosaic_rggb,
+    multisection_case,
     psnr,
 )
 
@@ -56,16 +57,28 @@ DRIVER = r"""
 #define __align__(n)
 #define __ldg(p) (*(p))
 struct Dim3 { unsigned x, y, z; };
-static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
+static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1}, gridDim{1, 1, 1};
 static inline void __syncthreads() {}
 static inline int __syncthreads_or(int p) { return p; }
+static inline void __threadfence() {}
+static inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
 #define __reduce_or_sync(mask, v) (v)
+#define __reduce_add_sync(mask, v) (v)
+#define __ldcg(p) (*(p))
+#define __fadd_rn(a, b) ((a) + (b))
+#define __fsub_rn(a, b) ((a) - (b))
+#define __fmul_rn(a, b) ((a) * (b))
+#define __fdiv_rn(a, b) ((a) / (b))
+#define __int2float_rn(i) ((float)(i))
 #define __ffs(x) __builtin_ffs(x)
 #define __popc(x) __builtin_popcount(x)
 namespace { alignas(16) float smem[1 << 17]; }
 #include KERNEL_SOURCE
 static void each_block(unsigned gx, unsigned gy, unsigned gz, void (*run)(void*),
                        void* arg) {
+  gridDim.x = gx;
+  gridDim.y = gy;
+  gridDim.z = gz;
   for (unsigned bz = 0; bz < gz; ++bz)
     for (unsigned by = 0; by < gy; ++by)
       for (unsigned bx = 0; bx < gx; ++bx) {
@@ -214,6 +227,22 @@ void emulate(const float* r_h, const float* g_h, const float* b_h, const float* 
   a.a = r_h; a.b = g_h; a.c = b_h; a.d = r_v; a.e = g_v; a.f = b_v; a.g = params;
   a.x = out; a.H = H; a.W = W; a.hdr = is_hdr;
   each_block(cdiv(W, kTW), cdiv(H, kTH), 1, run_decision, &a);
+}
+#elif defined(EMULATE_MULTISECTION)
+struct MultisectionArgs {
+  const float* x; float* bracket; int* counts; int* ticket;
+  int P, n; long long stride; int branches; float target; int narrow;
+};
+static void run_multisection(void* p) {
+  MultisectionArgs* a = (MultisectionArgs*)p;
+  multisection_kernel(a->x, a->P, a->n, a->stride, a->bracket, a->counts, a->ticket,
+                      a->branches, a->target, a->narrow);
+}
+// One pass over P planes of n samples, `blocks` blocks a plane.
+void emulate(const float* x, float* bracket, int* counts, int* ticket, int P, int n,
+             long long stride, int branches, float target, int narrow, int blocks) {
+  MultisectionArgs a{x, bracket, counts, ticket, P, n, stride, branches, target, narrow};
+  each_block((unsigned)blocks, (unsigned)P, 1, run_multisection, &a);
 }
 #else
 static void run_pp(void* p) {
@@ -913,3 +942,117 @@ def test_decision_source_white_point_is_the_plain_versions():
     assert found is not None
     consts = np.array([float(v) for v in found.groups()], np.float32)
     assert consts.tobytes() == np.asarray(_CV2_LAB_WHITE, np.float32).tobytes()
+
+
+# --- the hot-pixel detector's count multisection ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def multisection_lib(tmp_path_factory):
+    dll = _build(tmp_path_factory, "multisection.cu", "EMULATE_MULTISECTION", n_ptrs=4,
+                 n_ints=0)
+    dll.emulate.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+    return dll
+
+
+def _multisection_delta(kind, shape, seed):
+    """A case's delta planes; ``core_rows`` is rows 5 to H - 7 of a ``noise``
+    stack, a slice whose planes lie a whole stack plane apart, and
+    ``nan_bracket`` the ``nan_samples`` planes."""
+    if kind == "core_rows":
+        full = torch.from_numpy(multisection_case(shape[0] + 12, shape[1], "noise", seed))
+        delta = full[:, 5:-7]
+        assert not delta.is_contiguous() and delta[0].is_contiguous()
+        return delta
+    if kind == "nan_bracket":
+        kind = "nan_samples"
+    return torch.from_numpy(multisection_case(*shape, kind, seed))
+
+
+def _bracket(delta, kind):
+    """The first bracket: ``amin`` / ``amax`` as the detector takes them (NaN
+    on a plane that holds a NaN, for ``nan_bracket``), but for
+    ``nan_samples`` over the samples that are not NaN, so that NaN samples
+    meet numeric mids."""
+    if kind == "nan_samples":
+        delta = delta.nan_to_num(nan=0.0)
+    return delta.amin(dim=(-2, -1)), delta.amax(dim=(-2, -1))
+
+
+def _same(a, b):
+    """Equal, with NaN in the same places (a NaN's payload is not compared)."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def _multisection_emulated(multisection_lib, delta, lo, hi, target, iters, branches, blocks,
+                           narrow=True):
+    """``iters`` launches of the kernel's device code over ``blocks`` blocks a
+    plane; returns the bracket (2, P) and the count buffer (iters, P * B + 1)."""
+    p, h, w = delta.shape
+    bracket = torch.stack([lo, hi]).contiguous()
+    counts = torch.zeros((iters, p * branches + 1), dtype=torch.int32)
+    for it in range(iters):
+        multisection_lib.emulate(_ptr(delta), _ptr(bracket), _ptr(counts[it]),
+                                 _ptr(counts[it, p * branches:]), p, h * w, delta.stride(0),
+                                 branches, target, int(narrow), blocks)
+    return bracket, counts
+
+
+def _assert_multisection_equal(multisection_lib, delta, q, iters, branches, blocks,
+                               kind="noise"):
+    """Passes with the kernel's narrowing against ``multisection_plain``, bit
+    for bit, and one counting pass against the plain counts; each launch's
+    ticket counts every block."""
+    from pysp_tpu_torch.correct.bad_pixels import multisection_plain
+
+    p, h, w = delta.shape
+    lo, hi = _bracket(delta, kind)
+    target = float(np.float32(q * (h * w - 1)))
+    bracket, counts = _multisection_emulated(multisection_lib, delta, lo, hi, target, iters,
+                                             branches, blocks)
+    want_lo, want_hi = multisection_plain(delta, lo, hi, target, iters, branches)
+    assert _same(bracket[0], want_lo) and _same(bracket[1], want_hi)
+    assert counts[:, -1].tolist() == [blocks * p] * iters
+
+    bracket, counts = _multisection_emulated(multisection_lib, delta, lo, hi, target, 1,
+                                             branches, blocks, narrow=False)
+    plain_counts = []
+    multisection_plain(delta, lo, hi, target, 1, branches,
+                       psum_counts=lambda c: plain_counts.append(c) or c)
+    assert torch.equal(counts[0, :-1].view(p, branches).long(), plain_counts[0])
+    assert torch.equal(bracket.view(torch.int32), torch.stack([lo, hi]).view(torch.int32))
+    assert int(counts[0, -1]) == 0
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("kind,shape", [
+    ("noise", (1, 1)), ("noise", (3, 5)),
+    ("noise", (61, 133)),   # planes off the 16-byte alignment: a scalar head and tail
+    ("noise", (64, 96)),    # 16-byte aligned planes: no head, no tail
+    ("constant", (20, 30)), ("at_mids", (61, 133)), ("levels", (40, 50)),
+    ("nan_samples", (37, 41)), ("nan_bracket", (37, 41)), ("core_rows", (64, 97)),
+])
+def test_multisection_source_bit_exact(multisection_lib, kind, shape, blocks):
+    """The multisection pass's device code: four passes with its narrowing
+    (the last block's) equal ``multisection_plain``'s bracket bit for bit, and
+    a counting pass the plain (P, 16, H, W) compare's counts, on one and on
+    three blocks a plane (the grid stride, the block-0 head and tail, the
+    atomic sums and the ticket), on planes of one sample, of five, off the
+    16-byte alignment, constant (lo == hi), with a third of the samples on
+    the mids, all ties, with NaN samples (under a numeric bracket, and under
+    the NaN bracket that ``amin`` / ``amax`` give such a plane), and a row
+    slice read through the plane stride."""
+    delta = _multisection_delta(kind, shape, seed=shape[0] * 7 + blocks)
+    _assert_multisection_equal(multisection_lib, delta, 0.9999, 4, 16, blocks, kind)
+
+
+@pytest.mark.parametrize("q,iters,branches", [
+    (0.999, 4, 16), (0.5, 6, 16), (0.0, 3, 16), (1.0, 4, 16), (0.9, 4, 5), (0.9, 3, 1),
+])
+def test_multisection_source_ranks_and_branches(multisection_lib, q, iters, branches):
+    """Other ranks (the lowest, the median, the highest), more passes, and
+    fewer branches than the kernel's 16 counters, on three blocks a plane."""
+    delta = _multisection_delta("at_mids", (45, 70), seed=int(q * 10) + branches)
+    _assert_multisection_equal(multisection_lib, delta, q, iters, branches, 3)
+

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Times and checks the AHD, RL, postprocess, remap, heal, AHD decision, 5x5
-median and homogeneity kernels of pysp_tpu_torch on one NVIDIA GPU, for one or
+median, homogeneity and multisection kernels of pysp_tpu_torch on one NVIDIA GPU, for one or
 more builds of the kernel sources inside one process, so that two versions are
 compared on the same card within one call.
 
     python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
                                   [--kernels ahd,rl,postprocess,remap,heal,decision,
-                                             median5,homogeneity]
+                                             median5,homogeneity,multisection]
                                   [--no-check]
 
 Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
@@ -15,7 +15,7 @@ holds another version of the sources (default: the package's own ``csrc``).
 Without ``--variant`` the package's own build is the only one. The variants
 are visited in the order given and then once more in reverse (a, b, b, a).
 
-``--kernels`` keeps the named groups only (default: all eight).
+``--kernels`` keeps the named groups only (default: all nine).
 
 For every variant it prints the ptxas lines of the chosen kernels and holds
 them against their plain versions: the AHD kernel over the whole frame at
@@ -37,7 +37,10 @@ against ``ahd_decision_plain`` at 512x768 and 510x762, HDR and not (the share
 that differ); the median5 kernel against ``ops.stencil.median5`` and the
 homogeneity kernel (both directions) against ``homogeneity_map_channels`` at
 ``STAGED_SHAPES``, from 512x768 down to 1x1, with rows on and off the 16-byte
-alignment (``torch.equal``). For the decision group it also prints the
+alignment (``torch.equal``); the multisection kernel's quantile and masks
+against the plain passes' (``torch.equal``) on the detector's delta planes of
+a 24 MP frame with hot photosites and on ``multisection_case`` planes. For the
+decision group it also prints the
 innermost loops of the kernel's SASS with their instruction counts
 (``tools/sass_count.py``).
 Then it prints one JSON line with the times at 4000x6000 (CUDA events, median
@@ -61,7 +64,12 @@ at all (the copy alone) and, as a yardstick for that copy, ``torch``'s own
 copy of the planes; the pick of a frame's six candidate fields, HDR and not;
 the 5x5 median of the R - G plane of the frame's demosaic; the homogeneity
 count of the CIELAB planes of its horizontal candidate, both directions, and,
-as a yardstick for its bytes, ``torch``'s own copy of those three planes.
+as a yardstick for its bytes, ``torch``'s own copy of those three planes;
+the hot-pixel detector on the 24 MP frame, its four multisection passes (the
+whole wrapper call), one counting pass alone (20 launches back to back, per
+launch), one plain pass (the (4, 16, H/2, W/2) compare, its sum and the
+narrowing: ``multisection_plain`` of one pass) and, as a
+yardstick for the pass's 96 MB, ``torch``'s ``amax`` of the same planes.
 """
 
 from __future__ import annotations
@@ -91,7 +99,10 @@ from pysp_tpu_torch import (  # noqa: E402
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix  # noqa: E402
 from pysp_tpu_torch.core.bayer import bayer_to_planes, bayer_to_rgbg  # noqa: E402
 from pysp_tpu_torch.correct.ca.removal import _maps_from_offsets  # noqa: E402
-from pysp_tpu_torch.correct.bad_pixels import find_erroneous_pixels_median  # noqa: E402
+from pysp_tpu_torch.correct.bad_pixels import (  # noqa: E402
+    find_erroneous_pixels_median,
+    multisection_plain,
+)
 from pysp_tpu_torch.demosaic.ahd import (  # noqa: E402
     ahd_candidates,
     ahd_decision_plain,
@@ -101,12 +112,13 @@ from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution  # noqa: E
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels  # noqa: E402
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
 from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
-from pysp_tpu_torch.ops.stencil import median5  # noqa: E402
+from pysp_tpu_torch.ops.stencil import median2, median5  # noqa: E402
 from pysp_tpu_torch.utils.testing import (  # noqa: E402
     chroma_case,
     heal_case,
     make_scene,
     mosaic_rggb,
+    multisection_case,
     psnr,
 )
 from pysp_tpu_torch.warp.rectilinear import (  # noqa: E402
@@ -117,7 +129,8 @@ from pysp_tpu_torch.warp.rectilinear import (  # noqa: E402
 CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32)
 WB = np.array([0.45, 1.0, 0.62], np.float32)
 FULL = (4000, 6000)
-GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision", "median5", "homogeneity")
+GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision", "median5", "homogeneity",
+          "multisection")
 # The lens warp of the finishing path: about 11 px at the corners of 4000x6000.
 WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
 WARP_CENTER = (0.5, 0.5)
@@ -477,6 +490,62 @@ def staged_state() -> dict:
     return {"chroma": (r - g).contiguous(), "lab": homogeneity_planes(fields[:3], mat, wb)}
 
 
+def detector_state() -> dict:
+    """The hot-pixel detector's 24 MP frame (500 hot photosites planted where
+    the scene is dark, as ``heal_state``'s) and its delta planes, first
+    bracket and target rank at the detector's quantile (0.9999)."""
+    from chip_smoke import plant_hot_sites
+
+    mosaic = mosaic_rggb(make_scene(*FULL, seed=13))
+    hot = plant_hot_sites(mosaic)
+    mosaic[hot[:, 0], hot[:, 1]] = 1.0
+    f = RawFrame.synthetic(mosaic.astype(np.float32), device="cuda")
+    planes = bayer_to_planes(f.bayer)
+    delta = torch.abs(planes - median2(planes))
+    delta = torch.abs(delta - delta.mean(dim=(-2, -1), keepdim=True))
+    n = delta.shape[-2] * delta.shape[-1]
+    return {"frame": f, "delta": delta, "lo": delta.amin(dim=(-2, -1)),
+            "hi": delta.amax(dim=(-2, -1)), "target": float(np.float32(0.9999 * (n - 1)))}
+
+
+def check_multisection(name: str, state: dict) -> bool:
+    """The detector's masks and quantile with the kernel against the plain
+    passes on the same planes."""
+    ok = True
+    f, delta = state["frame"], state["delta"]
+    cases = [("24 MP detector delta", delta)] + [
+        (f"{kind} 4x{h}x{w}", torch.from_numpy(multisection_case(h, w, kind, seed=h)).cuda())
+        for kind, (h, w) in (("at_mids", (2000, 3000)), ("constant", (64, 96)),
+                             ("levels", (300, 500)), ("noise", (3, 5)), ("noise", (1, 1)))]
+    for label, d in cases:
+        lo, hi = d.amin(dim=(-2, -1)), d.amax(dim=(-2, -1))
+        target = float(np.float32(0.9999 * (d.shape[-2] * d.shape[-1] - 1)))
+        same = all(torch.equal(a, b) for a, b in zip(
+            K.multisection_kernel(d, lo, hi, target), multisection_plain(d, lo, hi, target)))
+        print(f"{name}: multisection {label}: bit-exact {same}", flush=True)
+        ok &= same
+    real = K.multisection_kernel_admits
+    K.multisection_kernel_admits = lambda *a: False
+    try:
+        plain_masks = find_erroneous_pixels_median(f)
+    finally:
+        K.multisection_kernel_admits = real
+    same = torch.equal(find_erroneous_pixels_median(f), plain_masks)
+    print(f"{name}: detector masks at 24 MP ({int(plain_masks.sum())} sites): bit-exact {same}",
+          flush=True)
+    return ok and same
+
+
+def multisection_launch(delta, bracket, counts, target) -> None:
+    """One counting pass of the multisection kernel alone (no narrowing)."""
+    p, h, w = delta.shape
+    err = K.load_library().pysp_multisection(
+        delta.data_ptr(), p, h * w, delta.stride(0), bracket.data_ptr(), counts.data_ptr(),
+        counts[p * 16:].data_ptr(), 16, target, 0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"multisection launch failed: cudaError {err}")
+
+
 def heal_launch(planes, masks, means, out, fill, smooth) -> None:
     """The heal kernel's launch alone, on means computed beforehand."""
     _, h, w = planes.shape
@@ -605,6 +674,25 @@ def times(name: str, state: dict, groups) -> dict:
         out["homogeneity_tb_s"] = src[0].numel() * 16 / (out["homogeneity_h_ms"] * 1e9)
         out["homogeneity_torch_copy_tb_s"] = 2 * src.numel() * 4 / (copy_ms * 1e9)
         del src, dst
+    if "multisection" in groups:
+        ms = state["multisection"]
+        delta, lo, hi, target = ms["delta"], ms["lo"], ms["hi"], ms["target"]
+        out["detect_ms"] = median_ms(lambda: find_erroneous_pixels_median(ms["frame"]))
+        out["multisection_ms"] = median_ms(lambda: K.multisection_kernel(delta, lo, hi, target))
+        out["multisection_sha"] = digest(torch.stack(K.multisection_kernel(delta, lo, hi,
+                                                                           target)))
+        bracket = torch.stack([lo, hi])
+        counts = torch.zeros(4 * 16 + 1, dtype=torch.int32, device="cuda")
+
+        def passes(k=20):
+            for _ in range(k):
+                multisection_launch(delta, bracket, counts, target)
+
+        out["multisection_pass_ms"] = median_ms(passes) / 20
+        out["multisection_plain_pass_ms"] = median_ms(
+            lambda: multisection_plain(delta, lo, hi, target, 1), runs=5)
+        out["multisection_amax_ms"] = median_ms(lambda: delta.amax(dim=(-2, -1)))
+        out["multisection_bound_ms"] = delta.numel() * 4 / 3.35e9
     return out
 
 
@@ -631,6 +719,9 @@ def main() -> int:
         spec, _, csrc = spec.partition("@")
         name, _, flags = spec.partition(":")
         variants.append((name, [x for x in flags.split(",") if x], csrc))
+    # built before the inputs, whose detector and develops load the package's
+    # library (so that its nvcc output is this build's)
+    builds = build_variants(variants)
     state = {}
     if {"ahd", "rl", "postprocess", "remap"} & set(groups):
         f = frame(*FULL, seed=7)
@@ -653,14 +744,16 @@ def main() -> int:
         state["decision"] = decision_state()
     if {"median5", "homogeneity"} & set(groups):
         state["staged"] = staged_state()
+    if "multisection" in groups:
+        state["multisection"] = detector_state()
     ok = True
     tags = {"ahd": ("ahd_kernel",), "rl": ("rl_",), "postprocess": ("postprocess_kernel",),
             "remap": ("remap_kernel", "lanczos4_kernel", "bilinear_kernel"),
             "heal": ("heal",), "decision": ("decision_kernel",),
-            "median5": ("median5_kernel",), "homogeneity": ("homogeneity_kernel",)}
+            "median5": ("median5_kernel",), "homogeneity": ("homogeneity_kernel",),
+            "multisection": ("multisection_kernel",)}
     entry_tags = [tag for g in groups for tag in tags[g]]
     order = variants + variants[::-1] if len(variants) > 1 else variants
-    builds = build_variants(variants)
     seen = set()
     for name, flags, csrc in order:
         load_variant(flags, csrc)
@@ -681,7 +774,8 @@ def main() -> int:
             checks = {"ahd": check_ahd, "rl": check_rl, "postprocess": check_postprocess,
                       "remap": lambda n: check_remap(n, state), "heal": check_heal,
                       "decision": check_decision, "median5": check_median5,
-                      "homogeneity": check_homogeneity}
+                      "homogeneity": check_homogeneity,
+                      "multisection": lambda n: check_multisection(n, state["multisection"])}
             if not args.no_check:
                 for g in groups:
                     ok &= checks[g](name)
