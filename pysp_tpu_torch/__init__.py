@@ -31,6 +31,13 @@ Bayer-domain HDR fuse of a bracketed burst, ``develop_pipeline``:
     burst = stack_frames([load_raw(p) for p in paths])
     srgb = develop_pipeline(burst, PipelineConfig(fuse_hdr=True))
 
+One frame through the command line's lens-corrected chain (CA removal, heal,
+develop, the DNG OpcodeList3 warp), as ``develop x.dng --params lens.json
+--repair-hot-pixels --warp`` runs it after the load:
+
+    srgb = develop_lens_corrected(frame, DevelopConfig(), ca_models=(model_r, model_b),
+                                  repair_hot_pixels=True, warp_block=get_opcode_3_block(path))
+
 Lateral chromatic aberration: fit R->G and B->G radial models blind from the
 mosaic, or by gradient descent, and remove them from a frame or a burst:
 
@@ -161,6 +168,7 @@ from .pipeline.develop import (
     develop_to_image,
     develop_with_stats,
 )
+from .pipeline.lens import FinishConfig, develop_lens_corrected
 from .pipeline.pipeline import PipelineConfig, develop_pipeline
 from .pipeline.stream import develop_files, develop_stream
 from .warp.gain_opcodes import (
@@ -189,6 +197,8 @@ __all__ = [
     "DevelopConfig",
     "PipelineConfig",
     "develop_pipeline",
+    "develop_lens_corrected",
+    "FinishConfig",
     "stack_frames",
     "bayer_normalize",
     "bayer_to_planes",

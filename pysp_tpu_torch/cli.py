@@ -9,9 +9,10 @@ Counterpart of ``pysp_tpu/cli.py``, in the JAX CLI's order and branches:
   ``--repair-hot-pixels`` the masks are the burst's consensus
   (``hot_pixel_shared_ratio=0.5``);
 - otherwise: load (``--temperature``: the frame rebuilt with the WB solved for
-  that colour temperature) -> the sidecar's WB neutral (``--params``) -> CA
-  (the sidecar's models, or a fit: ``--ca template|gradient|refine``) ->
-  ``--save-params`` -> then ``--flat`` / ``--dark``: ``develop_pipeline``
+  that colour temperature) -> the sidecar's WB neutral (``--params``) -> the
+  CA models (the sidecar's, or a fit: ``--ca template|gradient|refine``) ->
+  ``--save-params`` -> then one call of ``pipeline.lens.develop_lens_corrected``:
+  CA removal -> ``--flat`` / ``--dark``: ``develop_pipeline``
   (dark, flat, heal, denoise); else heal (``--repair-hot-pixels``) -> denoise
   (``--denoise``) -> develop (``--stats``: the sensor and output statistics
   printed to stderr as JSON) -> the linear-light filters (``--deconv``,
@@ -54,6 +55,7 @@ import numpy as np
 import torch
 
 from .correct.ca.removal import remove_ca_from_raw
+from .pipeline.lens import FinishConfig, develop_lens_corrected, finish_image
 from .utils.sidecar import ca_model_from_dict, ca_model_to_dict, load_sidecar, save_sidecar
 
 
@@ -154,44 +156,35 @@ def _save_output(args, dst: str, img) -> None:
         save_image(dst, img)
 
 
-def _apply_filters(args, out: torch.Tensor) -> torch.Tensor:
-    """The linear-light filters, then clip and gamma unless ``--no-gamma``."""
-    from .colorimetry.transforms import lin_srgb_to_srgb
-    from .filters.blur import blur_gaussian
-    from .filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
-
+def _finish_config(args):
+    """The filters of ``--deconv``, ``--unsharp`` and ``--blur`` with their clip
+    and gamma (unless ``--no-gamma``); None without a filter."""
+    if not (args.unsharp or args.deconv or args.blur is not None):
+        return None
+    deconv = unsharp = None
     if args.deconv:
         sigma, iters = _split_spec(args.deconv, 20.0)
-        out = gaussian_rt_deconvolution_yuv(out, sigma, int(iters))
+        deconv = (sigma, int(iters))
     if args.unsharp:
-        amount, radius = _split_spec(args.unsharp, 2.0)
-        out = unsharp_mask_lab(out, radius, amount)
-    if args.blur is not None:
-        out = blur_gaussian(out, args.blur)
-    if not args.no_gamma:
-        out = lin_srgb_to_srgb(torch.clamp(out, 0.0, 1.0))
-    return out
+        unsharp = _split_spec(args.unsharp, 2.0)
+    return FinishConfig(deconv=deconv, unsharp=unsharp, blur=args.blur,
+                        gamma_encode=not args.no_gamma)
 
 
-def _apply_warp(out: torch.Tensor, src: str) -> torch.Tensor:
+def _warp_block(args, src: str):
+    """``src``'s OpcodeList3 block under ``--warp``; None without one."""
     from .io.metadata import get_opcode_3_block
-    from .warp.opcodes import apply_opcode_3_warp
 
+    if not args.warp:
+        return None
     block = get_opcode_3_block(src)
     if block is None:
         print(f"{src}: no OpcodeList3 block; --warp skipped", file=sys.stderr)
-        return out
-    return apply_opcode_3_warp(out, block)
+    return block
 
 
-def _finish(args, out: torch.Tensor, filtering: bool, device, t0: float, dst: str,
-            label: str, warp_src=None) -> int:
-    """The filters, the warp of ``warp_src``'s OpcodeList3 (the HDR path has
-    none), save and report."""
-    if filtering:
-        out = _apply_filters(args, out)
-    if warp_src is not None and args.warp:
-        out = _apply_warp(out, warp_src)
+def _finish(args, out: torch.Tensor, device, t0: float, dst: str, label: str) -> int:
+    """Save and report."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -218,7 +211,8 @@ def _develop(args) -> int:
         "fast": QualityDemosaic.Fast,
         "best": QualityDemosaic.Best,
     }[args.quality]
-    filtering = bool(args.unsharp or args.deconv or args.blur is not None)
+    finish = _finish_config(args)
+    filtering = finish is not None
     cfg = DevelopConfig(
         quality=quality,
         postprocess_stages=args.postprocess,
@@ -259,9 +253,10 @@ def _develop(args) -> int:
                     batch.wb_neutral).contiguous())
             batch = remove_ca_from_raw(batch, sidecar["ca_model_r"], sidecar["ca_model_b"])
         out = develop_pipeline(batch, pcfg, **aux)
+        if finish is not None:
+            out = finish_image(out, finish)
         dst = args.output or os.path.splitext(args.inputs[0])[0] + "_hdr.png"
-        return _finish(args, out, filtering, device, t0, dst,
-                       f"{len(args.inputs)} frames (HDR)")
+        return _finish(args, out, device, t0, dst, f"{len(args.inputs)} frames (HDR)")
 
     sidecar = load_sidecar(args.params) if args.params else None
     if args.temperature is None and sidecar is not None:
@@ -283,24 +278,18 @@ def _develop(args) -> int:
         return 0
 
     for src in args.inputs:
-        _develop_one(args, src, cfg, pcfg, aux, sidecar, filtering, device)
+        _develop_one(args, src, cfg, pcfg, aux, sidecar, finish, device)
         args.save_params = None  # the fit state comes from the first input
     return 0
 
 
-def _develop_one(args, src: str, cfg, pcfg, aux: dict, sidecar, filtering: bool,
-                 device) -> None:
-    """One input of a looped call: load, correct, develop (through
-    ``develop_pipeline`` with ``pcfg`` where ``--flat`` or ``--dark`` set
-    one), finish and save."""
-    from . import (
-        develop,
-        develop_pipeline,
-        develop_with_stats,
-        find_erroneous_pixels_median,
-        load_raw,
-        repair_bad_pixels,
-    )
+def _develop_one(args, src: str, cfg, pcfg, aux: dict, sidecar, finish, device) -> None:
+    """One input of a looped call: load, the sidecar's or the asked white
+    balance, the CA models (the sidecar's, or a fit), ``--save-params``, then
+    the lens-corrected chain (``develop_lens_corrected``: CA, heal, denoise,
+    develop, or ``develop_pipeline`` with ``pcfg`` where ``--flat`` or
+    ``--dark`` set one, the filters, the warp) and save."""
+    from . import load_raw
 
     t0 = time.time()
     frame = load_raw(src, device=device)
@@ -310,30 +299,24 @@ def _develop_one(args, src: str, cfg, pcfg, aux: dict, sidecar, filtering: bool,
         # restore the saved camera neutral exactly (WB gains = 1/neutral)
         frame = frame.replace(wb_neutral=_neutral(sidecar, device))
 
-    frame, fitted = _remove_ca(args, src, frame, sidecar)
+    models = _ca_models(args, src, frame, sidecar)
     if args.save_params:
+        fitted = models or (None, None)
         save_sidecar(args.save_params, ca_model_r=fitted[0], ca_model_b=fitted[1],
                      wb_neutral=frame.wb_neutral.cpu().numpy().astype(np.float64),
                      temperature=args.temperature)
         print(f"develop parameters -> {args.save_params}", file=sys.stderr)
 
-    if pcfg is not None:
-        out = develop_pipeline(frame, pcfg, **aux)
-    else:
-        if args.repair_hot_pixels:
-            frame = repair_bad_pixels(frame, find_erroneous_pixels_median(frame))
-        if args.denoise > 0.0:
-            from .correct.denoise import denoise_bayer_wavelet
-
-            frame = denoise_bayer_wavelet(frame, args.denoise)
-        if args.stats:
-            out, stats = develop_with_stats(frame, cfg)
-            host_stats = {k: {kk: vv.cpu().numpy().tolist() for kk, vv in v.items()}
-                          for k, v in stats.items()}
-            print(json.dumps(host_stats, indent=2), file=sys.stderr)
-        else:
-            out = develop(frame, cfg)
-    _finish(args, out, filtering, device, t0, _dst_for(args, src), src, warp_src=src)
+    stats = {} if args.stats and pcfg is None else None
+    out = develop_lens_corrected(
+        frame, cfg, ca_models=models, repair_hot_pixels=args.repair_hot_pixels,
+        denoise_strength=args.denoise, pipeline=pcfg, flat=aux.get("flat"),
+        dark=aux.get("dark"), finish=finish, warp_block=_warp_block(args, src), stats=stats)
+    if stats is not None:
+        host_stats = {k: {kk: vv.cpu().numpy().tolist() for kk, vv in v.items()}
+                      for k, v in stats.items()}
+        print(json.dumps(host_stats, indent=2), file=sys.stderr)
+    _finish(args, out, device, t0, _dst_for(args, src), src)
 
 
 def _neutral(sidecar, device) -> torch.Tensor:
@@ -354,16 +337,15 @@ def _frame_at_temperature(src: str, frame, temperature: float, device):
                             device=device)
 
 
-def _remove_ca(args, src: str, frame, sidecar):
-    """CA removal with the sidecar's models, or with the models that ``--ca``
-    fits; returns the frame and the models applied (``(None, None)`` if none)."""
+def _ca_models(args, src: str, frame, sidecar):
+    """The sidecar's CA models, or the models that ``--ca`` fits on
+    ``frame``; None where there are none."""
     if sidecar is not None and (sidecar["ca_model_r"] is not None
                                 or sidecar["ca_model_b"] is not None):
         # saved coefficients: apply without re-fitting (sidecar workflow)
-        models = (sidecar["ca_model_r"], sidecar["ca_model_b"])
-        return remove_ca_from_raw(frame, *models), models
+        return sidecar["ca_model_r"], sidecar["ca_model_b"]
     if not args.ca:
-        return frame, (None, None)
+        return None
 
     from .correct.ca.gradfit import fit_ca_models_gradient, refine_ca_models_gradient
     from .correct.ca.removal import compute_ca_lens_models_for_raw
@@ -376,7 +358,7 @@ def _remove_ca(args, src: str, frame, sidecar):
         except ValueError as e:
             # e.g. "Not enough tiles": a featureless scene stays untouched
             print(f"{src}: CA fit failed ({e}); --ca skipped", file=sys.stderr)
-            return frame, (None, None)
+            return None
         if args.ca == "refine":
             models = refine_ca_models_gradient(frame, *models)
     if args.save_params:
@@ -384,7 +366,7 @@ def _remove_ca(args, src: str, frame, sidecar):
         # through their JSON float form), so that the fit's develop and a
         # --params replay are bit-identical
         models = tuple(ca_model_from_dict(ca_model_to_dict(m)) for m in models)
-    return remove_ca_from_raw(frame, *models), models
+    return models
 
 
 def _info(args) -> int:

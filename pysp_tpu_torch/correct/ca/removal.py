@@ -28,6 +28,13 @@ kernel's unbounded bilinear is bit-identical to ``remap_plain``'s gather.
 Within the bound that ``_model_bound_px`` guarantees, that gather equals the
 JAX package's bounded CPU path, which ``remap_bilinear_bounded`` holds
 bit-identical to the gather (``pysp_tpu/ops/resample.py``).
+
+With the recorder of ``utils/tracing.py`` on, a removal is the span
+``ca.remove``, with ``ca.maps`` (one coordinate field and its clipped maps;
+the counter ``ca.maps_built`` counts them: four for two models, on every
+call), ``ca.resample`` (the full-resolution green, then each of R and B
+upsampled with it) and ``ca.remap`` (one remap kernel launch) inside; every
+one is also timed on the device, and none reads the thread's CPU clock.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from ...core.bayer import bayer_to_rgbg, rgbg_to_bayer
 from ...core.frame import RawFrame
 from ...demosaic.eag import resample_b, resample_g_to_full_resolution, resample_r
 from ...ops.cuda_kernels import remap_kernel
+from ...utils.tracing import count, span
 from .instability import compute_structural_instability
 from .models import CaCorrectionModel, Poly5CorrectionModel, ReversibleModelMixin
 from .solver import get_scale_pairs_using_pooled_tiler
@@ -130,29 +138,42 @@ def remove_ca_from_raw(
                 "to remove error. Use a reversible model and try again."
             )
 
-    single = frame.bayer.ndim == 2
-    bayer = frame.bayer[None] if single else frame.bayer
-    wb = frame.wb_reciprocal().reshape(-1, 3)[:, :, None, None]   # (N, 3, 1, 1)
+    device = frame.bayer.device
+    with span("ca.remove", device=device, cpu=False):
+        single = frame.bayer.ndim == 2
+        bayer = frame.bayer[None] if single else frame.bayer
+        wb = frame.wb_reciprocal().reshape(-1, 3)[:, :, None, None]   # (N, 3, 1, 1)
 
-    r, g1, b, g2 = bayer_to_rgbg(bayer)                           # (N, h2, w2)
-    g_res = resample_g_to_full_resolution(g1, g2)                 # (N, fh, fw)
-    fh, fw = g_res.shape[-2], g_res.shape[-1]
+        r, g1, b, g2 = bayer_to_rgbg(bayer)                           # (N, h2, w2)
+        with span("ca.resample", device=device, cpu=False):
+            g_res = resample_g_to_full_resolution(g1, g2)             # (N, fh, fw)
+        fh, fw = g_res.shape[-2], g_res.shape[-1]
+        probe = g_res[0]  # shape and device carrier only: the maps do not read pixels
 
-    def remap(stack, coords):
-        return remap_kernel(stack, *_maps_from_offsets(coords, fh, fw), "bilinear")
+        def maps(coordinates):
+            with span("ca.maps", device=device, cpu=False):
+                count("ca.maps_built")
+                return _maps_from_offsets(coordinates(probe), fh, fw)
 
-    probe = g_res[0]  # shape and device carrier only: the maps do not read pixels
-    if lens_model_r is not None:
-        g_at_r = remap(g_res, lens_model_r.get_undistorted_coordinates(probe))
-        r_res = resample_r(r * wb[:, 0], g_at_r)
-        r_at_g = remap(r_res, lens_model_r.get_distorted_coordinates(probe))
-        r = bayer_to_rgbg(r_at_g)[0] / wb[:, 0]
+        def remap(stack, xy):
+            with span("ca.remap", device=device, cpu=False):
+                return remap_kernel(stack, *xy, "bilinear")
 
-    if lens_model_b is not None:
-        g_at_b = remap(g_res, lens_model_b.get_undistorted_coordinates(probe))
-        b_res = resample_b(b * wb[:, 2], g_at_b)
-        b_at_g = remap(b_res, lens_model_b.get_distorted_coordinates(probe))
-        b = bayer_to_rgbg(b_at_g)[2] / wb[:, 2]
+        def resample(fn, plane, g_at):
+            with span("ca.resample", device=device, cpu=False):
+                return fn(plane, g_at)
 
-    out = rgbg_to_bayer(r, g1, b, g2)
+        if lens_model_r is not None:
+            g_at_r = remap(g_res, maps(lens_model_r.get_undistorted_coordinates))
+            r_res = resample(resample_r, r * wb[:, 0], g_at_r)
+            r_at_g = remap(r_res, maps(lens_model_r.get_distorted_coordinates))
+            r = bayer_to_rgbg(r_at_g)[0] / wb[:, 0]
+
+        if lens_model_b is not None:
+            g_at_b = remap(g_res, maps(lens_model_b.get_undistorted_coordinates))
+            b_res = resample(resample_b, b * wb[:, 2], g_at_b)
+            b_at_g = remap(b_res, maps(lens_model_b.get_distorted_coordinates))
+            b = bayer_to_rgbg(b_at_g)[2] / wb[:, 2]
+
+        out = rgbg_to_bayer(r, g1, b, g2)
     return frame.replace(bayer=out[0] if single else out)

@@ -6,6 +6,10 @@ kr0-3 + kt0-1, optical center), the per-plane warp, ``stack_warp_prior`` so
 that a custom remap (e.g. CA) and the DNG warp resample once, and an encoder
 for synthetic test DNGs. Parsing is host code; the warp runs on the image's
 device through the remap kernel.
+
+With the recorder of ``utils/tracing.py`` on, ``apply_opcode_3_warp`` is the
+span ``warp.opcode3``, timed on the device too, with the ``warp.maps`` and
+``warp.remap`` spans of ``warp/rectilinear.py`` inside.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from ..core.device import CARD, resolve_device
 from ..ops.resample import identity_map
+from ..utils.tracing import span
 from .rectilinear import warp_channel_rectilinear, warp_image_rectilinear
 
 Tensor = torch.Tensor
@@ -95,31 +100,32 @@ def apply_opcode_3_warp(
     is warped through its composed table."""
     h, w, c = image.shape
 
-    for opcode_id, _ver, _flags, data in iter_opcodes(opcode_block):
-        if opcode_id != OPCODE_WARP_RECTILINEAR:
-            continue
-        decoded = decode_warp_rectilinear(data, c)
-        if decoded is None:
-            continue
-        coefficients, center = decoded
-        if prior is None:
-            image = warp_image_rectilinear(
-                image, coefficients, center, scale, interpolation
-            )
-            continue
-        planes = [
-            warp_channel_rectilinear(
-                image[:, :, idx].contiguous(),
-                coeff,
-                center,
-                scale=scale,
-                prior=prior[idx],
-                interpolation=interpolation,
-            )
-            for idx, coeff in enumerate(coefficients)
-        ]
-        image = torch.stack(planes, dim=-1)
-    return image
+    with span("warp.opcode3", device=image.device, cpu=False):
+        for opcode_id, _ver, _flags, data in iter_opcodes(opcode_block):
+            if opcode_id != OPCODE_WARP_RECTILINEAR:
+                continue
+            decoded = decode_warp_rectilinear(data, c)
+            if decoded is None:
+                continue
+            coefficients, center = decoded
+            if prior is None:
+                image = warp_image_rectilinear(
+                    image, coefficients, center, scale, interpolation
+                )
+                continue
+            planes = [
+                warp_channel_rectilinear(
+                    image[:, :, idx].contiguous(),
+                    coeff,
+                    center,
+                    scale=scale,
+                    prior=prior[idx],
+                    interpolation=interpolation,
+                )
+                for idx, coeff in enumerate(coefficients)
+            ]
+            image = torch.stack(planes, dim=-1)
+        return image
 
 
 def encode_warp_rectilinear(

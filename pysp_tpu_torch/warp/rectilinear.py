@@ -12,6 +12,10 @@ CPU does. Every resample goes through the remap kernel
 (``ops.cuda_kernels.remap_kernel``); ``warp_image_rectilinear`` warps all
 channels of an (H, W, C) image in one launch, in that layout.
 
+With the recorder of ``utils/tracing.py`` on, each warp is the spans
+``warp.maps`` (the displacement bounds and the clipped tables) and
+``warp.remap`` (the remap kernel's launch), both timed on the device too.
+
 Not carried: the TPU's select-chain sizing (``warp_sep_pos_error``,
 ``warp_row_zones``, ``warp_grid_zones``, ``_GRID_ZONES``), which exists
 because Mosaic has no gather.
@@ -26,6 +30,7 @@ import torch
 
 from ..core.device import CARD, resolve_device
 from ..ops.cuda_kernels import remap_kernel
+from ..utils.tracing import span
 
 Tensor = torch.Tensor
 
@@ -243,20 +248,22 @@ def warp_image_rectilinear(
     if len(coeffs) != c:
         raise ValueError(f"{len(coeffs)} coefficient sets for {c} channels")
     unique = list(dict.fromkeys(coeffs))
-    bounds = [displacement_bounds(co, w, h, cam_center_norm, scale) for co in unique]
-    if any(b is None for b in bounds):
-        dims = None
-    else:
-        dims = ((min(b[0][0] for b in bounds), max(b[0][1] for b in bounds)),
-                (min(b[1][0] for b in bounds), max(b[1][1] for b in bounds)))
+    with span("warp.maps", device=image.device, cpu=False):
+        bounds = [displacement_bounds(co, w, h, cam_center_norm, scale) for co in unique]
+        if any(b is None for b in bounds):
+            dims = None
+        else:
+            dims = ((min(b[0][0] for b in bounds), max(b[0][1] for b in bounds)),
+                    (min(b[1][0] for b in bounds), max(b[1][1] for b in bounds)))
 
-    tables = [compute_remapping_table(co, w, h, cam_center_norm, scale, image.device)
-              for co in (unique if len(unique) == 1 else coeffs)]
-    mx = torch.stack([t[0].clamp(0, w - 1) for t in tables])
-    my = torch.stack([t[1].clamp(0, h - 1) for t in tables])
-    if len(tables) == 1:
-        mx, my = mx[0], my[0]
-    return remap_kernel(image, mx, my, interpolation, bounds=dims, channels_last=True)
+        tables = [compute_remapping_table(co, w, h, cam_center_norm, scale, image.device)
+                  for co in (unique if len(unique) == 1 else coeffs)]
+        mx = torch.stack([t[0].clamp(0, w - 1) for t in tables])
+        my = torch.stack([t[1].clamp(0, h - 1) for t in tables])
+        if len(tables) == 1:
+            mx, my = mx[0], my[0]
+    with span("warp.remap", device=image.device, cpu=False):
+        return remap_kernel(image, mx, my, interpolation, bounds=dims, channels_last=True)
 
 
 def warp_channel_rectilinear(
@@ -274,16 +281,18 @@ def warp_channel_rectilinear(
     prior-composed table); with none, the remap is the plain gather. The
     remap kernel runs on a CUDA tensor, its plain version on a CPU tensor."""
     h, w = channel.shape[-2], channel.shape[-1]
-    if prior is None:
-        map_x, map_y = compute_remapping_table(
-            coeffs, w, h, cam_center_norm, scale, channel.device
-        )
-        if bounds is None:
-            bounds = displacement_bounds(coeffs, w, h, cam_center_norm, scale)
-    else:
-        map_x, map_y = compute_offset_remapping_table(
-            prior[0], prior[1], coeffs, w, h, cam_center_norm, scale
-        )
-    map_x = map_x.clamp(0, w - 1)
-    map_y = map_y.clamp(0, h - 1)
-    return remap_kernel(channel, map_x, map_y, interpolation, bounds=bounds)
+    with span("warp.maps", device=channel.device, cpu=False):
+        if prior is None:
+            map_x, map_y = compute_remapping_table(
+                coeffs, w, h, cam_center_norm, scale, channel.device
+            )
+            if bounds is None:
+                bounds = displacement_bounds(coeffs, w, h, cam_center_norm, scale)
+        else:
+            map_x, map_y = compute_offset_remapping_table(
+                prior[0], prior[1], coeffs, w, h, cam_center_norm, scale
+            )
+        map_x = map_x.clamp(0, w - 1)
+        map_y = map_y.clamp(0, h - 1)
+    with span("warp.remap", device=channel.device, cpu=False):
+        return remap_kernel(channel, map_x, map_y, interpolation, bounds=bounds)

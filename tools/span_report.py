@@ -4,7 +4,7 @@
 trace, and reports what the spans read. It changes nothing of the benchmark
 and is not one of its runs.
 
-    python3 tools/span_report.py --cells cam24.best hdr5.bracket cam24.files
+    python3 tools/span_report.py --cells cam24.best hdr5.bracket cam24.files mf102.lens
         [--seed N] [--seconds 20] [--cost-seconds 5] [--cost-pairs 3]
         [--out chiprun_out/span_report]
 
@@ -25,7 +25,12 @@ For each cell, after the cell's own set-up and warm-up (``driver.prepare``):
   trace's kernel time an item (hdr5), the share of ``develop_files``' host
   time the driver's spans cover and of its idle card time under ``stream.*``
   spans (files), the share of the idle time while ``develop`` launches under
-  ``develop.*`` spans (cam24);
+  ``develop.*`` spans (cam24); for mf102.lens the chain's spans an item on
+  the device and the host, the CA's coordinate maps against its remaps and
+  the warp's maps against its remap, the remap kernel's device ms from the
+  trace and the counters an item (its driver turns the recorder on in every
+  traced window and drains it itself, so both traced windows record; the
+  cost windows show the recorder's effect);
 - for the resident cells, the recorder's cost: ``--cost-pairs`` pairs of
   untraced windows of ``--cost-seconds``, recorder off and on in turn (off,
   on, on, off, ...), and the items each completed.
@@ -61,8 +66,15 @@ METRICS = {  # reader of isp_bench/spans.py -> what it divides by
 }
 
 
+# the lens-corrected chain's spans (mf102.lens), outermost first
+LENS_SPANS = ("pipeline.develop_lens_corrected", "ca.remove", "ca.maps", "ca.resample",
+              "ca.remap", "pipeline.detect", "develop", "warp.opcode3", "warp.maps",
+              "warp.remap")
+
+
 def _reset(run) -> None:
     run.items, run.files, run.window_s, run.busy_window_s, run.trace = [], 0, 0.0, 0.0, None
+    run.spans = []
 
 
 def _device_events(session) -> list:
@@ -122,6 +134,9 @@ def traced_window(ctx, driver, state, seconds: float, record: bool) -> dict:
     tracing.disable()
     run.trace, idle = _stop(session)
     rec = tracing.drain()
+    if run.spans:       # a driver that drains the recorder itself (mf102.lens)
+        rec = tracing.Recording(sorted(run.spans + rec.spans,
+                                       key=lambda s: (s.start_ns, s.span_id)), rec.counters)
     metrics = {}
     for m in ctx.metrics(True) + ctx.metrics(False):
         try:
@@ -195,8 +210,32 @@ def analyse(cell: str, on: dict, off: dict) -> dict:
             s for n, s in on["trace"].by_kernel if "ahd_kernel" in n) * 1e3 / n_items
         checks["top_kernels_ms_per_item"] = [
             [n, s * 1e3 / n_items] for n, s in on["trace"].by_kernel[:5]]
+        if S.named(rec.spans, "ca.remove"):
+            checks.update(lens_checks(on, n_items))
     out["checks"] = checks
     return out
+
+
+def lens_checks(on: dict, n_items: int) -> dict:
+    """mf102.lens: the chain's spans an item, device and host ms; the CA's
+    maps against its remaps and the warp's maps against its remap on the
+    device; the remap kernel's device ms from the trace; the counters an
+    item."""
+    from isp_bench import roofline_remap, spans as S
+
+    spans = on["rec"].spans
+    dev = {n: S.device_ms(S.named(spans, n)) / n_items for n in LENS_SPANS[1:]}
+    return {
+        "lens_device_ms_per_item_by_span": dev,
+        "lens_host_ms_per_item_by_span": {n: S.host_ms(S.named(spans, n)) / n_items
+                                          for n in LENS_SPANS},
+        "ca_maps_against_remaps_device_ms": [dev["ca.maps"], dev["ca.remap"]],
+        "warp_maps_against_remap_device_ms": [dev["warp.maps"], dev["warp.remap"]],
+        "remap_kernel_ms_per_item": sum(
+            s for n, s in on["trace"].by_kernel if roofline_remap.is_remap_kernel(n))
+        * 1e3 / n_items,
+        "counters_per_item": {k: v / n_items for k, v in on["counters"].items()},
+    }
 
 
 def cost(ctx, driver, state, seconds: float, pairs: int) -> list:
