@@ -1908,13 +1908,15 @@ CHAIN_H, CHAIN_W = 8736, 11648     # the composed 102 MP chain
 @contextlib.contextmanager
 def plain_remaps():
     """The CA removal and the lens warp with the remap kernel's plain version
-    in its place; the launch counts do not move."""
-    saved = ca_removal.remap_kernel, rectilinear.remap_kernel
+    in its place, the CA removal on its plain coordinate maps; the launch
+    counts do not move."""
+    saved = ca_removal.remap_kernel, rectilinear.remap_kernel, ca_removal._kernel_form
     ca_removal.remap_kernel = rectilinear.remap_kernel = K.remap_plain
+    ca_removal._kernel_form = lambda model, stack: None
     try:
         yield
     finally:
-        ca_removal.remap_kernel, rectilinear.remap_kernel = saved
+        ca_removal.remap_kernel, rectilinear.remap_kernel, ca_removal._kernel_form = saved
 
 
 def plant_ca(plane: torch.Tensor, k1: float) -> torch.Tensor:

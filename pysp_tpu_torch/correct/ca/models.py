@@ -14,6 +14,12 @@ generic Newton-Raphson inversion).
 - Newton inversion: 8 iterations from zero, a Python loop with no early exit,
   as the JAX package's fixed-trip loop (DIVERGENCES.md, "Newton/bisection
   early exits").
+- The remap kernel's own coordinates: each of the three Newton models states
+  its radial form in ``kernel_form()`` (the form's name and the float32
+  constants of its expressions), from which the remap kernel computes the
+  coordinate fields in registers, bit for bit as these methods compute them
+  on the card (``correct/ca/removal.py``). Any other model gives None and
+  keeps the plain fields.
 - The centre pixel: where the radius is exactly 0 (both sizes of the plane
   odd), ``f(r) / r`` is 0/0. The port takes the scale there as 1, so the offset
   is ``0 * 1 = 0``, the continuous limit; the JAX package returns NaN there.
@@ -24,7 +30,7 @@ Also includes the standalone lensfun Poly3 remap (pySP's corr_ca_poly3.py:5-72).
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +76,15 @@ class CaCorrectionModel(ABC):
     @abstractmethod
     def get_distorted(self, undistorted: Tensor) -> Tensor:
         ...
+
+    def kernel_form(self) -> Optional[Tuple[str, np.ndarray]]:
+        """The radial form whose coordinates the remap kernel computes itself
+        (``ops.cuda_kernels.remap_radial_kernel``): its name and the float32
+        constants PyTorch rounds this model's Python scalars to against a
+        float32 tensor, in the order ``ops.cuda_kernels.radial_plain`` reads
+        them. None here: CA removal then builds this model's coordinate
+        fields with plain PyTorch."""
+        return None
 
     def get_distorted_coordinates(self, image: Tensor) -> Tensor:
         """(H, W, 2) center-relative (dy, dx) offsets mapping undistorted sampling
@@ -181,6 +196,10 @@ class Poly3CorrectionModel(NewtonRaphsonModel):
     def get_coefficients(self):
         return np.array((self._k1,))
 
+    def kernel_form(self):
+        k1 = self._k1
+        return "poly3", np.float32([k1, 1.0 - k1, 3.0 * k1])
+
     def compute_coefficients(self, r_distorted_undistorted: np.ndarray) -> bool:
         r_d = np.asarray(r_distorted_undistorted)[:, 0]
         r_ud = np.asarray(r_distorted_undistorted)[:, 1]
@@ -208,6 +227,9 @@ class Poly5CorrectionModel(NewtonRaphsonModel):
 
     def get_coefficients(self):
         return np.array((self._h1, self._h2))
+
+    def kernel_form(self):
+        return "poly5", np.float32([self._h1, self._h2, 3.0 * self._h1, 5.0 * self._h2])
 
     def compute_coefficients(self, r_distorted_undistorted: np.ndarray) -> bool:
         r_d = np.asarray(r_distorted_undistorted)[:, 0]
@@ -240,6 +262,11 @@ class PtLensCorrectionModel(NewtonRaphsonModel):
 
     def get_coefficients(self):
         return np.array((self._a, self._b, self._c))
+
+    def kernel_form(self):
+        d = 1.0 - self._a - self._b - self._c
+        return "ptlens", np.float32([self._a, self._b, self._c, d, 3.0 * self._b,
+                                     2.0 * self._c])
 
     def compute_coefficients(self, r_distorted_undistorted: np.ndarray) -> bool:
         r_d = np.asarray(r_distorted_undistorted)[:, 0]

@@ -11,12 +11,17 @@ roughly following DOI 10.1109/ACCESS.2021.3096201):
   re-sample at the Bayer phase and overwrite the raw planes.
 
 One path for a frame and a burst, on every device: a frame is a burst of one.
-The coordinate maps depend only on the model and the shape, so each (model,
-direction) map is built once, and each remap is one call of the remap kernel
-(``ops.cuda_kernels.remap_kernel``, bilinear, ``bounds=None``) over the whole
-burst with the map shared by its frames: four launches for two models, two
-for one, whatever the burst's length. On CPU tensors the wrapper runs its
-plain version, ``remap_plain``.
+The coordinate maps depend only on the model and the shape, so each remap is
+one launch of the remap kernel over the whole burst with the coordinates
+shared by its frames: four launches for two models, two for one, whatever the
+burst's length. On a CUDA tensor with a model that states its radial form
+(``kernel_form()``: Poly3, Poly5, PTLens), the kernel computes the
+coordinates itself (``ops.cuda_kernels.remap_radial_kernel``), and no
+coordinate field is built in device memory; its output is the maps path's bit
+for bit. Otherwise (CPU tensors, any other reversible model) each (model,
+direction) field is built once with plain PyTorch and its clipped maps go to
+``ops.cuda_kernels.remap_kernel`` (bilinear, ``bounds=None``), which runs its
+plain version, ``remap_plain``, on CPU tensors.
 
 ``_model_bound_px`` is the static displacement bound of a model's maps (a
 host sweep of the radial maps). The row-sharded pipeline
@@ -30,11 +35,13 @@ JAX package's bounded CPU path, which ``remap_bilinear_bounded`` holds
 bit-identical to the gather (``pysp_tpu/ops/resample.py``).
 
 With the recorder of ``utils/tracing.py`` on, a removal is the span
-``ca.remove``, with ``ca.maps`` (one coordinate field and its clipped maps;
-the counter ``ca.maps_built`` counts them: four for two models, on every
-call), ``ca.resample`` (the full-resolution green, then each of R and B
-upsampled with it) and ``ca.remap`` (one remap kernel launch) inside; every
-one is also timed on the device, and none reads the thread's CPU clock.
+``ca.remove``, with ``ca.maps`` (one plain coordinate field and its clipped
+maps; the counter ``ca.maps_built`` counts them), ``ca.resample`` (the
+full-resolution green, then each of R and B upsampled with it) and
+``ca.remap`` (one remap kernel launch) inside; every one is also timed on the
+device, and none reads the thread's CPU clock. The counter
+``ca.maps_in_kernel`` counts the remaps whose coordinates the kernel computed:
+for two Poly3 models on the card it is 4 a call and ``ca.maps_built`` 0.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ import torch
 from ...core.bayer import bayer_to_rgbg, rgbg_to_bayer
 from ...core.frame import RawFrame
 from ...demosaic.eag import resample_b, resample_g_to_full_resolution, resample_r
-from ...ops.cuda_kernels import remap_kernel
+from ...ops.cuda_kernels import remap_kernel, remap_radial_kernel
 from ...utils.tracing import count, span
 from .instability import compute_structural_instability
 from .models import CaCorrectionModel, Poly5CorrectionModel, ReversibleModelMixin
@@ -117,6 +124,13 @@ def _model_bound_px(model, h: int, w: int, cap: int = 12) -> Optional[int]:
     return bound if bound <= cap else None
 
 
+def _kernel_form(model, stack: Tensor):
+    """The radial form whose coordinates the remap kernel computes for
+    ``model`` on ``stack``, or None (CPU tensors, models without one): then
+    the plain coordinate maps."""
+    return model.kernel_form() if stack.is_cuda else None
+
+
 def remove_ca_from_raw(
     frame: RawFrame,
     lens_model_r: Optional[CaCorrectionModel],
@@ -148,14 +162,19 @@ def remove_ca_from_raw(
         with span("ca.resample", device=device, cpu=False):
             g_res = resample_g_to_full_resolution(g1, g2)             # (N, fh, fw)
         fh, fw = g_res.shape[-2], g_res.shape[-1]
-        probe = g_res[0]  # shape and device carrier only: the maps do not read pixels
 
-        def maps(coordinates):
+        def remap(stack, model, inverse):
+            form = _kernel_form(model, stack)
+            if form is not None:
+                count("ca.maps_in_kernel")
+                with span("ca.remap", device=device, cpu=False):
+                    return remap_radial_kernel(stack, form, inverse)
+            coordinates = (model.get_undistorted_coordinates if inverse
+                           else model.get_distorted_coordinates)
             with span("ca.maps", device=device, cpu=False):
                 count("ca.maps_built")
-                return _maps_from_offsets(coordinates(probe), fh, fw)
-
-        def remap(stack, xy):
+                # g_res[0] carries the shape and device only: the maps read no pixel
+                xy = _maps_from_offsets(coordinates(g_res[0]), fh, fw)
             with span("ca.remap", device=device, cpu=False):
                 return remap_kernel(stack, *xy, "bilinear")
 
@@ -164,15 +183,15 @@ def remove_ca_from_raw(
                 return fn(plane, g_at)
 
         if lens_model_r is not None:
-            g_at_r = remap(g_res, maps(lens_model_r.get_undistorted_coordinates))
+            g_at_r = remap(g_res, lens_model_r, inverse=True)
             r_res = resample(resample_r, r * wb[:, 0], g_at_r)
-            r_at_g = remap(r_res, maps(lens_model_r.get_distorted_coordinates))
+            r_at_g = remap(r_res, lens_model_r, inverse=False)
             r = bayer_to_rgbg(r_at_g)[0] / wb[:, 0]
 
         if lens_model_b is not None:
-            g_at_b = remap(g_res, maps(lens_model_b.get_undistorted_coordinates))
+            g_at_b = remap(g_res, lens_model_b, inverse=True)
             b_res = resample(resample_b, b * wb[:, 2], g_at_b)
-            b_at_g = remap(b_res, maps(lens_model_b.get_distorted_coordinates))
+            b_at_g = remap(b_res, lens_model_b, inverse=False)
             b = bayer_to_rgbg(b_at_g)[2] / wb[:, 2]
 
         out = rgbg_to_bayer(r, g1, b, g2)

@@ -57,6 +57,49 @@
 //   two, tiles of 64 x 4, 128 x 2, 64 x 8 and the first design's 32 x 32 with
 //   four pixels a thread, and streaming stores.
 //
+// The radial kind (bilinear_kernel<Off, RadialCoords<form, inverse>>, through
+// pysp_remap_radial) is the bilinear kind with shared maps that computes its
+// coordinates itself from a radial CA model (Poly3, Poly5 or PTLens of
+// correct/ca/models.py, forward or Newton-inverted): the frame's centre, the
+// float32 reciprocal of its corner radius and the model's float32 constants
+// take the place of the two maps, so CA removal keeps no coordinate field in
+// device memory and reads none back. It replaces no TPU kernel: the JAX
+// package builds these maps in XLA. Its output is bit-identical to the maps
+// path on the maps that plain PyTorch builds on the card
+// (_maps_from_offsets(model.get_*_coordinates(...))), because each of their
+// plain operations is one IEEE rounding here, in PyTorch's order:
+// __fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn and __fsqrt_rn, contracted by
+// no flag; u**3 as PyTorch's u * u * u; the division by the Python scalar
+// r_corner as PyTorch's multiply by the float32 rounding of its reciprocal
+// taken in double (the host computes it); scale 1 at r == 0; torch.clamp's
+// NaN rule. Its bound:
+//
+// - Bytes: 8 B a pixel and channel (the plane read once, the output written
+//   once), against the maps path's 16 B with one plane: 0.243 ms for one
+//   8736 x 11648 plane at 3.35 TB/s.
+// - Instructions: the inverse takes eight Newton steps of f, f' and an IEEE
+//   division (a reciprocal and its refinement), and both directions a square
+//   root and one more division for the scale: 117 float32 operations a
+//   pixel at the Poly3 inverse, 34 at the forward, each division and root
+//   some ten instructions.
+//
+// What the design does about it:
+//
+// - The scale depends only on the offset's square, and the offsets of the
+//   pixels mirrored about the centre's row and column are exact negations of
+//   each other, so a thread computes one scale and serves the up to four
+//   pixels it mirrors to; the kernel's grid covers the top-left quadrant.
+//   And a pixel's coordinates serve every plane of a burst's stack.
+// - Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/time_kernels.py,
+//   back to back; PERF.md): one 8736 x 11648 plane at the mf102 model,
+//   forward 0.568 ms (2.3x the byte bound), inverse 0.821 ms, against
+//   8.95 and 33.57 ms for the plain maps and the bilinear kind on them (the
+//   bilinear kind alone 0.834 ms, grid_sample on the maps 1.180); config 5's
+//   16 planes of 1000 x 1504 0.108-0.109 ms (the maps path 0.225 and 0.538).
+//   The first design, a thread a pixel, took 0.668 and 1.869 ms at the
+//   plane; the register cap of six blocks an SM (40 registers, 40 bytes
+//   spilled) beat five (0.591 / 0.857 ms) and four (0.673 / 0.956).
+//
 // Lanczos4 (lanczos4_kernel) is bound by its instruction count: 64 taps a
 // channel and 16 weights a pixel against the same bytes. What the design does
 // about it:
@@ -350,9 +393,212 @@ using BilinearFn = void (*)(const float*, const float*, const float*, float*,
 inline BilinearFn bilinear_variant(int H, int W, int C, long long map_plane,
                                    bool wide) {
   wide = wide || (long long)C * H * W > 0x7fffffffLL;
-  if (map_plane == 0)
-    return wide ? bilinear_kernel<true, long long> : bilinear_kernel<true, int>;
-  return wide ? bilinear_kernel<false, long long> : bilinear_kernel<false, int>;
+  if (map_plane == 0) {
+    if (wide) return bilinear_kernel<true, long long>;
+    return bilinear_kernel<true, int>;
+  }
+  if (wide) return bilinear_kernel<false, long long>;
+  return bilinear_kernel<false, int>;
+}
+
+// --- The radial kind: CA removal's coordinates computed in the kernel -------
+//
+// The forms of a radial model r_d = f(r_u) (correct/ca/models.py), in the
+// order of ops/cuda_kernels.py's RADIAL_FORMS. Each reads its constants c[]
+// as the model's kernel_form() gives them: the float32 values PyTorch rounds
+// the model's Python scalars to against a float32 tensor.
+enum RadialForm { kPoly3 = 0, kPoly5 = 1, kPtLens = 2 };
+constexpr int kRadialConstants = 6;
+constexpr int kNewtonSteps = 8;
+
+// The frame's centre, the float32 reciprocal of its corner radius and the
+// model's constants: the kernel's arguments in place of two maps.
+struct RadialModel {
+  float cy, cx, inv_r_corner;
+  float c[kRadialConstants];
+};
+
+// f(u) and f'(u), each plain PyTorch operation of the model's expression one
+// rounding, in its order (u**3 is PyTorch's u * u * u, u**2 its u * u).
+template <int kForm>
+__device__ __forceinline__ float radial_f(const float* c, float u) {
+  if (kForm == kPoly3)  // k1 u^3 + (1 - k1) u; c = {k1, 1 - k1, 3 k1}
+    return __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(u, u), u), c[0]),
+                     __fmul_rn(c[1], u));
+  if (kForm == kPoly5) {  // u (1 + u^2 (h1 + u^2 h2)); c = {h1, h2, 3 h1, 5 h2}
+    const float r2 = __fmul_rn(u, u);
+    return __fmul_rn(
+        u, __fadd_rn(__fmul_rn(r2, __fadd_rn(__fmul_rn(r2, c[1]), c[0])), 1.0f));
+  }
+  // u (d + u (c + u (b + u a))); c = {a, b, c, d, 3 b, 2 c}
+  return __fmul_rn(
+      u, __fadd_rn(__fmul_rn(u, __fadd_rn(__fmul_rn(u, __fadd_rn(
+                                               __fmul_rn(u, c[0]), c[1])),
+                                           c[2])),
+                   c[3]));
+}
+
+template <int kForm>
+__device__ __forceinline__ float radial_df(const float* c, float u) {
+  if (kForm == kPoly3)  // 3 k1 u^2 + (1 - k1)
+    return __fadd_rn(__fmul_rn(c[2], __fmul_rn(u, u)), c[1]);
+  if (kForm == kPoly5) {  // 1 + u^2 (3 h1 + 5 h2 u^2)
+    const float r2 = __fmul_rn(u, u);
+    return __fadd_rn(__fmul_rn(r2, __fadd_rn(__fmul_rn(c[3], r2), c[2])), 1.0f);
+  }
+  // d + u (2 c + u (3 b + (u 4) a))
+  return __fadd_rn(
+      __fmul_rn(u, __fadd_rn(__fmul_rn(u, __fadd_rn(__fmul_rn(__fmul_rn(u, 4.0f),
+                                                              c[0]),
+                                                    c[4])),
+                             c[5])),
+      c[3]);
+}
+
+// torch.clamp(v, 0, hi): NaN passes through.
+__device__ __forceinline__ float clamp_map(float v, float hi) {
+  return v != v ? v : fminf(fmaxf(v, 0.0f), hi);
+}
+
+// The scale of the offset (ys, xs) from the centre, as
+// model.get_*_coordinates(...) computes it: the offset's radius over the
+// corner's (PyTorch divides by a Python scalar as a multiply by the float32
+// rounding of the scalar's reciprocal), then f(r) / r, or for the inverse
+// u(r) / r with u from kNewtonSteps Newton steps from zero and no early exit;
+// 1 at r == 0.
+template <int kForm, bool kInverse>
+struct RadialCoords {
+  static __device__ __forceinline__ float scale(const RadialModel& m, float ys,
+                                                float xs) {
+    const float r = __fmul_rn(
+        __fsqrt_rn(__fadd_rn(__fmul_rn(ys, ys), __fmul_rn(xs, xs))),
+        m.inv_r_corner);
+    if (r == 0.0f) return 1.0f;
+    float u;
+    if (kInverse) {
+      u = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kNewtonSteps; ++k)
+        u = __fsub_rn(u, __fdiv_rn(__fsub_rn(radial_f<kForm>(m.c, u), r),
+                                   radial_df<kForm>(m.c, u)));
+    } else {
+      u = radial_f<kForm>(m.c, r);
+    }
+    return __fdiv_rn(u, r);
+  }
+};
+
+// One axis of a pixel's sample, as _maps_from_offsets takes it: the offset
+// scaled, moved back by the centre and clamped into [0, n - 1].
+__device__ __forceinline__ float radial_map(float offset, float scale,
+                                            float centre, int n) {
+  return clamp_map(__fadd_rn(__fmul_rn(offset, scale), centre), (float)(n - 1));
+}
+
+// The bilinear kind with the coordinates from Coords (RadialCoords) in place
+// of two maps. The scale depends on the offset's square alone, and the
+// offsets of the pixels mirrored about the centre's row and column are the
+// exact negations of each other, so one thread computes the scale of a pixel
+// of the frame's top-left quadrant (the middle row and column of an odd side
+// included) and serves the up to four pixels it mirrors to: each takes its
+// own clamped sample, then the taps and lerps of the maps path (the same
+// operations in the same order) over every channel of the (C, H, W) stack,
+// kGroup channels' taps loaded before the first lerp. The maps path's code is
+// left as it was, so that its instantiations compile as before. Bound by its
+// instructions at the inverse (8 Newton steps and nine IEEE divisions a
+// quadrant pixel), by its 8 B a pixel and channel at the forward (see the
+// header).
+template <class Off, class Coords>
+__global__ void __launch_bounds__(kBlThreads,
+                                  sizeof(Off) == 4 ? kBlMinBlocks : 1)
+bilinear_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
+                int W, int C, long long img_plane, RadialModel model) {
+  const Off plane = (Off)img_plane;
+  for (int i = threadIdx.x; i < kBlTileX * kBlTileY; i += blockDim.x) {
+    const int y = blockIdx.y * kBlTileY + i / kBlTileX;
+    const int x = blockIdx.x * kBlTileX + i % kBlTileX;
+    if (2 * y >= H + 1 || 2 * x >= W + 1) continue;
+    const float ys = __fsub_rn((float)y, model.cy);
+    const float xs = __fsub_rn((float)x, model.cx);
+    const float scale = Coords::scale(model, ys, xs);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool flip_y = q & 1, flip_x = q & 2;
+      const int yq = flip_y ? H - 1 - y : y, xq = flip_x ? W - 1 - x : x;
+      if ((flip_y && yq == y) || (flip_x && xq == x)) continue;
+      const Sample s = sample_at(radial_map(flip_x ? -xs : xs, scale, model.cx, W),
+                                 radial_map(flip_y ? -ys : ys, scale, model.cy, H),
+                                 yq, xq, 0, 0, 0, 0, 0);
+      const Off row0 = (Off)clamp_index(s.by, H) * W;
+      const Off row1 = (Off)clamp_index(s.by + 1, H) * W;
+      const Off col0 = (Off)clamp_index(s.bx, W);
+      const Off col1 = (Off)clamp_index(s.bx + 1, W);
+      const Off p = (Off)yq * W + xq;
+      for (int c = 0; c < C; c += kGroup) {
+        const int here = C - c;
+        float v[kGroup][4];
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) {
+          if (n < here) {
+            const float* const src = img + (Off)(c + n) * plane;
+            v[n][0] = __ldg(src + row0 + col0);
+            v[n][1] = __ldg(src + row0 + col1);
+            v[n][2] = __ldg(src + row1 + col0);
+            v[n][3] = __ldg(src + row1 + col1);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) {
+          if (n < here) {
+            const float top = v[n][0] * (1.0f - s.fx) + v[n][1] * s.fx;
+            const float bot = v[n][2] * (1.0f - s.fx) + v[n][3] * s.fx;
+            out[(Off)(c + n) * plane + p] = top * (1.0f - s.fy) + bot * s.fy;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The grid of a radial launch: the tiles of the top-left quadrant.
+inline dim3 radial_grid(int H, int W) {
+  const int hq = (H + 1) / 2, wq = (W + 1) / 2;
+  return dim3((wq + kBlTileX - 1) / kBlTileX, (hq + kBlTileY - 1) / kBlTileY);
+}
+
+using RadialFn = void (*)(const float*, float*, int, int, int, long long,
+                          RadialModel);
+
+template <class Off>
+inline RadialFn radial_form_variant(int form, bool inverse) {
+  switch (form * 2 + (int)inverse) {
+    case kPoly3 * 2: return bilinear_kernel<Off, RadialCoords<kPoly3, false>>;
+    case kPoly3 * 2 + 1: return bilinear_kernel<Off, RadialCoords<kPoly3, true>>;
+    case kPoly5 * 2: return bilinear_kernel<Off, RadialCoords<kPoly5, false>>;
+    case kPoly5 * 2 + 1: return bilinear_kernel<Off, RadialCoords<kPoly5, true>>;
+    case kPtLens * 2: return bilinear_kernel<Off, RadialCoords<kPtLens, false>>;
+    case kPtLens * 2 + 1: return bilinear_kernel<Off, RadialCoords<kPtLens, true>>;
+  }
+  return nullptr;
+}
+
+// The radial kernel that pysp_remap_radial launches (nullptr for a form it
+// does not know): 32-bit offsets unless an index needs more (or `wide`).
+inline RadialFn radial_variant(int H, int W, int C, int form, bool inverse,
+                               bool wide) {
+  wide = wide || (long long)C * H * W > 0x7fffffffLL;
+  return wide ? radial_form_variant<long long>(form, inverse)
+              : radial_form_variant<int>(form, inverse);
+}
+
+// params: cy, cx, 1 / r_corner, then kRadialConstants constants.
+inline RadialModel radial_model(const float* params) {
+  RadialModel m;
+  m.cy = params[0];
+  m.cx = params[1];
+  m.inv_r_corner = params[2];
+  for (int k = 0; k < kRadialConstants; ++k) m.c[k] = params[3 + k];
+  return m;
 }
 
 }  // namespace
@@ -380,6 +626,23 @@ extern "C" int pysp_remap(const float* img, const float* map_x,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Launches the bilinear remap of an (H, W) plane or a contiguous (C, H, W)
+// stack through a radial model's coordinates computed in the kernel (`form`
+// one of RadialForm, `inverse` nonzero for the Newton inverse; `params` on
+// the host: cy, cx, 1 / r_corner, then the model's six constants); returns
+// the cudaError_t of the launch.
+extern "C" int pysp_remap_radial(const float* img, float* out, int H, int W,
+                                 int C, long long img_plane, int form,
+                                 int inverse, const float* params,
+                                 void* stream) {
+  const RadialFn kernel = radial_variant(H, W, C, form, inverse != 0, false);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<radial_grid(H, W), kBlThreads, 0, (cudaStream_t)stream>>>(img, out, H, W, C,
+                                                        img_plane,
+                                                        radial_model(params));
   return (int)cudaGetLastError();
 }
 #endif

@@ -12,7 +12,10 @@ function of the JAX package that reaches ``pl.pallas_call``,
 - ``rl.cu``: one Richardson-Lucy iteration over every channel, counterpart of
   ``pysp_tpu/ops/pallas_kernels.py::rl_deconv_pallas``;
 - ``remap.cu``: the bilinear / Lanczos4 remap over every channel, counterpart
-  of ``pysp_tpu/ops/pallas_kernels.py::remap_bounded_pallas``;
+  of ``pysp_tpu/ops/pallas_kernels.py::remap_bounded_pallas``, and its radial
+  kind (``remap_radial_kernel``), the bilinear remap through a radial CA
+  model's coordinates computed in the kernel, which has no Pallas
+  counterpart (the JAX package builds those maps in XLA);
 - ``heal.cu``: every sweep of the hot-pixel heal on the four CFA planes,
   counterpart of ``pysp_tpu/ops/pallas_kernels.py::masked_fill_pallas``;
 - ``median5.cu``: the 5x5 median of a plane, counterpart of
@@ -90,6 +93,11 @@ AHD_MIN_SIDE = 4
 # The RL kernel's largest PSF reach (taps // 2), as the JAX kernel's gate.
 RL_MAX_REACH = 32
 REMAP_KINDS = ("bilinear", "lanczos4")
+# The radial forms whose coordinates the remap kernel computes itself, in the
+# order of remap.cu's RadialForm, with the count of float32 constants each
+# takes (a model's ``kernel_form()``, correct/ca/models.py).
+RADIAL_FORMS = {"poly3": 3, "poly5": 4, "ptlens": 6}
+RADIAL_NEWTON_STEPS = 8
 # The heal kernel's largest fill + smooth sweep count, the JAX kernel's gate.
 HEAL_MAX_SWEEPS = 8
 # The multisection kernel's most branches a pass (its counters a thread).
@@ -216,6 +224,9 @@ def load_library() -> ctypes.CDLL:
         lib.pysp_rl_iter.restype = i32
         lib.pysp_remap.argtypes = [ptr] * 4 + [i32] * 3 + [i64, i32, i64] + [i32] * 6 + [ptr]
         lib.pysp_remap.restype = i32
+        lib.pysp_remap_radial.argtypes = [ptr, ptr] + [i32] * 3 + [i64, i32, i32,
+                                                                ctypes.POINTER(ctypes.c_float), ptr]
+        lib.pysp_remap_radial.restype = i32
         lib.pysp_heal.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.pysp_heal.restype = i32
         lib.pysp_median5.argtypes = [ptr, ptr, i32, i32, ptr]
@@ -574,6 +585,116 @@ def remap_plain(
     else:
         out = one(planes, map_x, map_y)
     return out.movedim(0, -1).contiguous() if channels_last else out
+
+
+def _check_radial_form(form) -> None:
+    kind, constants = form
+    if kind not in RADIAL_FORMS or len(constants) != RADIAL_FORMS[kind]:
+        raise ValueError(f"a radial form is one of {RADIAL_FORMS} with as many constants, "
+                         f"got {form!r}")
+
+
+def _radial_params(form, h: int, w: int) -> np.ndarray:
+    """The radial kernel's host parameters: cy, cx and 1 / r_corner as the
+    plain maps round them on the card (PyTorch there divides a float32 tensor
+    by a Python scalar as a multiply by the float32 rounding of the scalar's
+    reciprocal, taken in double), then the form's constants, padded to six."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    params = np.zeros(9, np.float32)
+    params[:3] = cy, cx, 1.0 / float(np.hypot(cy, cx))
+    constants = np.asarray(form[1], np.float32)
+    params[3:3 + constants.size] = constants
+    return params
+
+
+def radial_plain(form, u: Tensor) -> Tensor:
+    """f(u) of a radial form from its float32 constants, in the kernel's order
+    of operations (``radial_f`` in ``csrc/remap.cu``)."""
+    kind, c = form[0], [float(v) for v in form[1]]
+    if kind == "poly3":
+        return u * u * u * c[0] + u * c[1]
+    if kind == "poly5":
+        r2 = u * u
+        return u * (r2 * (r2 * c[1] + c[0]) + 1.0)
+    return u * (u * (u * (u * c[0] + c[1]) + c[2]) + c[3])
+
+
+def radial_prime_plain(form, u: Tensor) -> Tensor:
+    """f'(u) of a radial form, in the kernel's order (``radial_df``)."""
+    kind, c = form[0], [float(v) for v in form[1]]
+    if kind == "poly3":
+        return u * u * c[2] + c[1]
+    if kind == "poly5":
+        r2 = u * u
+        return r2 * (r2 * c[3] + c[2]) + 1.0
+    return u * (u * (u * 4.0 * c[0] + c[4]) + c[5]) + c[3]
+
+
+def radial_inverse_plain(form, r: Tensor) -> Tensor:
+    """u with f(u) = r: RADIAL_NEWTON_STEPS Newton steps from zero, no early
+    exit."""
+    u = torch.zeros_like(r)
+    for _ in range(RADIAL_NEWTON_STEPS):
+        u = u - (radial_plain(form, u) - r) / radial_prime_plain(form, u)
+    return u
+
+
+def radial_maps_plain(form, inverse: bool, h: int, w: int, device) -> tuple:
+    """The clipped (map_x, map_y) of a radial form on an (h, w) frame, in the
+    radial kernel's order of operations; on the card they equal
+    ``_maps_from_offsets(model.get_*_coordinates(...))`` of the model that
+    gave the form."""
+    _check_radial_form(form)
+    cy, cx, inv_r_corner = (float(v) for v in _radial_params(form, h, w)[:3])
+    ys = (torch.arange(h, dtype=torch.float32, device=device) - cy)[:, None]
+    xs = (torch.arange(w, dtype=torch.float32, device=device) - cx)[None, :]
+    # the kernel's square root is IEEE's, as the card's float32 torch.sqrt;
+    # the CPU's vectorised one is not always: take it in double and round
+    r = torch.sqrt((ys * ys + xs * xs).double()).float() * inv_r_corner
+    centre = r == 0
+    r_safe = torch.where(centre, torch.ones_like(r), r)
+    u = (radial_inverse_plain if inverse else radial_plain)(form, r_safe)
+    scale = torch.where(centre, torch.ones_like(r), u / r_safe)
+    map_x = torch.clamp(xs * scale + cx, 0, w - 1)
+    map_y = torch.clamp(ys * scale + cy, 0, h - 1)
+    return map_x.contiguous(), map_y.contiguous()
+
+
+def remap_radial_kernel(img: Tensor, form, inverse: bool) -> Tensor:
+    """The bilinear remap of an (H, W) plane or a (C, H, W) stack through a
+    radial model's clipped maps, which the kernel computes itself (one launch,
+    the coordinates shared by the channels): ``form`` is a model's
+    ``kernel_form()``, ``(kind, float32 constants)``, and ``inverse`` takes
+    its Newton inverse. On the card it is bit-identical to
+    ``remap_kernel(img, *_maps_from_offsets(model.get_*_coordinates(...)),
+    "bilinear")``. CPU tensors run :func:`remap_radial_plain`."""
+    _check_radial_form(form)
+    if img.ndim not in (2, 3):
+        raise ValueError(f"image must be (H, W) or (C, H, W), got {tuple(img.shape)}")
+    if img.device.type == "cpu":
+        return remap_radial_plain(img, form, inverse)
+    img = img.contiguous()
+    _check(img, "img")
+    h, w, c, plane, _ = _layout(img, False)
+    params = _radial_params(form, h, w)
+    out = torch.empty_like(img)
+    lib = load_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.pysp_remap_radial(
+            img.data_ptr(), out.data_ptr(), h, w, c, plane, list(RADIAL_FORMS).index(form[0]),
+            int(bool(inverse)), params.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), stream,
+        )
+    _raise_on_error(err, "radial remap kernel")
+    _count_launch("remap")
+    return out
+
+
+def remap_radial_plain(img: Tensor, form, inverse: bool) -> Tensor:
+    """The radial remap's plain version: :func:`radial_maps_plain`, then
+    :func:`remap_plain`."""
+    h, w = img.shape[-2:]
+    return remap_plain(img, *radial_maps_plain(form, inverse, h, w, img.device), "bilinear")
 
 
 # --- hot-pixel heal ---------------------------------------------------------------

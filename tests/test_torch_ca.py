@@ -150,6 +150,108 @@ def test_coordinate_windows_are_rows_of_the_field(name):
             inv[row0:row0 + n].numpy())
 
 
+# The remap kernel's radial forms: MODELS, the mf102 configuration's k1 and a
+# strong Poly3 either way.
+KERNEL_FORM_MODELS = {
+    **{name: (coeffs, tcls) for name, (coeffs, tcls, _) in MODELS.items()},
+    "poly3_mf102_r": ((0.000714,), TMod.Poly3CorrectionModel),
+    "poly3_mf102_b": ((-0.000714,), TMod.Poly3CorrectionModel),
+    "poly3_strong": ((0.3,), TMod.Poly3CorrectionModel),
+    "poly3_strong_neg": ((-0.3,), TMod.Poly3CorrectionModel),
+}
+
+
+def _kernel_form_model(name):
+    coeffs, tcls = KERNEL_FORM_MODELS[name]
+    return tcls(*coeffs)
+
+
+def _scalar_rounded(value: float) -> float:
+    """What PyTorch multiplies a float32 tensor by for the Python scalar
+    ``value``."""
+    return (torch.ones(1) * value).item()
+
+
+@pytest.mark.parametrize("name", list(KERNEL_FORM_MODELS))
+def test_kernel_form_constants_are_pytorchs_scalar_rounding(name):
+    """Each Newton model's constants are the float32 values PyTorch rounds the
+    Python scalars of its expressions to, in ``radial_plain``'s order."""
+    model = _kernel_form_model(name)
+    kind, got = model.kernel_form()
+    assert got.dtype == np.float32 and len(got) == K.RADIAL_FORMS[kind]
+    c = [float(v) for v in model.get_coefficients()]
+    want = {"poly3": lambda k1: (k1, 1.0 - k1, 3.0 * k1),
+            "poly5": lambda h1, h2: (h1, h2, 3.0 * h1, 5.0 * h2),
+            "ptlens": lambda a, b, c: (a, b, c, 1.0 - a - b - c, 3.0 * b, 2.0 * c)}[kind](*c)
+    assert [float(v) for v in got] == [_scalar_rounded(v) for v in want]
+
+
+@pytest.mark.parametrize("name", list(KERNEL_FORM_MODELS))
+def test_kernel_form_evaluates_as_the_model(name):
+    """The form's plain f and its Newton inverse, from the float32 constants in
+    the kernel's order of operations, equal the model's own methods bit for
+    bit on radii from 0 to past the corner."""
+    model = _kernel_form_model(name)
+    form = model.kernel_form()
+    u = torch.from_numpy(np.linspace(0.0, 1.25, 4001, dtype=np.float32))
+    assert torch.equal(K.radial_plain(form, u), model.get_distorted(u))
+    assert torch.equal(K.radial_inverse_plain(form, u), model.estimate_undistorted(u))
+
+
+def _card_rounded_model_maps(model, inverse, h, w):
+    """``_maps_from_offsets(model.get_*_coordinates(...))`` with the card's
+    rounding of the radius: PyTorch on the card divides by the Python scalar
+    ``r_corner`` as a multiply by the float32 rounding of its reciprocal
+    (taken in double), on the CPU it divides; the card's float32 square root
+    is IEEE's, the CPU's vectorised one not always."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ys = (torch.arange(h, dtype=torch.float32) - cy)[:, None]
+    xs = (torch.arange(w, dtype=torch.float32) - cx)[None, :]
+    inv = float(np.float32(1.0 / np.hypot(cy, cx)))
+    r = torch.sqrt((ys * ys + xs * xs).double()).float() * inv
+    fn = model.estimate_undistorted if inverse else model.get_distorted
+    scale = TMod.radial_scale(r, fn)
+    coords = torch.stack([ys.expand(h, w) * scale, xs.expand(h, w) * scale], dim=-1)
+    return TR._maps_from_offsets(coords, h, w)
+
+
+@pytest.mark.parametrize("name", list(KERNEL_FORM_MODELS))
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", [(21, 21), (37, 50), (24, 71), (64, 96)])
+def test_radial_maps_plain_are_the_model_maps(name, inverse, shape):
+    """The radial kernel's plain maps from a model's form are the model's own
+    coordinate maps as the card rounds them, bit for bit, the centre pixel of
+    the odd-by-odd plane included; on the CPU they lie within a float32
+    rounding of the radius of the CPU's own maps."""
+    model = _kernel_form_model(name)
+    got = K.radial_maps_plain(model.kernel_form(), inverse, *shape, "cpu")
+    for g, want in zip(got, _card_rounded_model_maps(model, inverse, *shape)):
+        assert torch.equal(g, want)
+    h, w = shape
+    fn = model.get_undistorted_coordinates if inverse else model.get_distorted_coordinates
+    for g, want in zip(got, TR._maps_from_offsets(fn(torch.zeros(shape)), h, w)):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+def test_the_base_model_has_no_kernel_form():
+    """A reversible model that states no radial form gives None."""
+
+    class Scaled(TMod.CaCorrectionModel, TMod.ReversibleModelMixin):
+        def compute_coefficients(self, r_distorted_undistorted):
+            return True
+
+        def get_coefficients(self):
+            return np.array((1.01,))
+
+        def get_distorted(self, undistorted):
+            return undistorted * 1.01
+
+        def estimate_undistorted(self, distorted, max_iterations=8, max_epsilon=1e-5):
+            return distorted / 1.01
+
+    assert Scaled().kernel_form() is None
+
+
 @pytest.mark.parametrize("coeffs", [(0.0, 0.0, 1.0), (0.01, -0.02, 1.01), (-0.03, 0.01, 1.02)])
 @pytest.mark.parametrize("shape", [(10, 14), (48, 64)])
 def test_lensfun_poly3_remap_coords_match(coeffs, shape):

@@ -819,25 +819,30 @@ def test_staged_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def _ca_removal_plain(monkeypatch, frame, model_r, model_b):
-    """``remove_ca_from_raw`` with the remap kernel's plain version in its place."""
+    """``remove_ca_from_raw`` with the plain coordinate maps of every model
+    and the remap kernel's plain version in place of the kernel."""
     from pysp_tpu_torch.correct.ca import removal
 
     with monkeypatch.context() as m:
+        m.setattr(removal, "_kernel_form", lambda model, stack: None)
         m.setattr(removal, "remap_kernel", K.remap_plain)
         return removal.remove_ca_from_raw(frame, model_r, model_b)
 
 
-@pytest.mark.parametrize("case", ["single", "burst", "r_only", "odd_planes"])
+@pytest.mark.parametrize("case", ["single", "burst", "r_only", "odd_planes", "ptlens"])
 def test_ca_removal_on_the_card_equals_plain(cuda, monkeypatch, case):
-    """CA removal through the remap kernel is the plain remap's bit for bit:
-    4 launches a call with two models (2 with one), for a frame or a burst."""
-    from pysp_tpu_torch import Poly3CorrectionModel, Poly5CorrectionModel, remove_ca_from_raw
+    """CA removal through the remap kernel, its coordinates computed in the
+    kernel, is the plain maps' plain remap bit for bit: 4 launches a call
+    with two models (2 with one), for a frame or a burst."""
+    from pysp_tpu_torch import (Poly3CorrectionModel, Poly5CorrectionModel,
+                                PtLensCorrectionModel, remove_ca_from_raw)
     from pysp_tpu_torch.core.frame import stack_frames
 
     h, w = (258, 334) if case == "odd_planes" else (256, 320)
     frames = [_frame(h, w, seed=s, is_hdr=False, device=cuda) for s in range(3)]
     frame = stack_frames(frames, device=cuda) if case == "burst" else frames[0]
-    model_r = Poly3CorrectionModel(0.02)
+    model_r = (PtLensCorrectionModel(0.01, -0.02, 0.015) if case == "ptlens"
+               else Poly3CorrectionModel(0.02))
     model_b = None if case == "r_only" else Poly5CorrectionModel(-0.01, 0.004)
     before = K.remap_kernel_launches
     got = remove_ca_from_raw(frame, model_r, model_b)
@@ -847,6 +852,100 @@ def test_ca_removal_on_the_card_equals_plain(cuda, monkeypatch, case):
     if case == "burst":
         for f, g in zip(frames, got.bayer):
             assert torch.equal(g, remove_ca_from_raw(f, model_r, model_b).bayer)
+
+
+# CA removal's radial models: Poly3 at the mf102 configuration's k1 and at
+# +-0.3, Poly5 and PTLens.
+RADIAL_MODELS = {
+    "poly3_mf102_r": ("Poly3CorrectionModel", (0.000714,)),
+    "poly3_mf102_b": ("Poly3CorrectionModel", (-0.000714,)),
+    "poly3_strong": ("Poly3CorrectionModel", (0.3,)),
+    "poly3_strong_neg": ("Poly3CorrectionModel", (-0.3,)),
+    "poly5": ("Poly5CorrectionModel", (0.015, -0.008)),
+    "ptlens": ("PtLensCorrectionModel", (0.01, -0.02, 0.015)),
+}
+
+
+def _radial_model(name):
+    import pysp_tpu_torch
+
+    cls, coeffs = RADIAL_MODELS[name]
+    return getattr(pysp_tpu_torch, cls)(*coeffs)
+
+
+def test_scalar_division_is_a_reciprocal_multiply_on_the_card(cuda):
+    """The plain coordinate fields divide by the Python scalar r_corner; on the
+    card PyTorch runs that as a multiply by the float32 rounding of its
+    reciprocal taken in double, and its float32 square root is IEEE's: the
+    radial kind of the remap kernel rounds as they do."""
+    x = torch.rand(1 << 20, device=cuda) * 8000
+    shapes = [(37, 45), (258, 334), (8736, 11648), (1000, 1504)]
+    shapes += [(h, w) for h in range(2, 3000, 97) for w in range(3, 4000, 131)]
+    for h, w in shapes:
+        r_corner = float(np.hypot((h - 1) / 2.0, (w - 1) / 2.0))
+        assert torch.equal(x / r_corner, x * float(np.float32(1.0 / r_corner))), (h, w)
+    squares = torch.from_numpy(np.random.default_rng(2).uniform(0, 5e7, 1 << 22)
+                               .astype(np.float32))
+    want = torch.sqrt(squares.double()).float()
+    assert torch.equal(torch.sqrt(squares.to(cuda)).cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 45), (3, 37, 45), (3, 250, 334),
+                                   (1, 8736, 11648)])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("name", list(RADIAL_MODELS))
+def test_radial_remap_kernel_equals_the_maps_path(cuda, name, inverse, shape):
+    """The radial kind, its coordinates computed in the kernel, is
+    ``remap_kernel`` on ``_maps_from_offsets(model.get_*_coordinates(...))``
+    bit for bit, and so is its plain version on the card: an odd-by-odd plane
+    (the centre pixel) alone and as a three-frame burst, a ragged shape, and
+    mf102's 8736x11648."""
+    from pysp_tpu_torch.correct.ca.removal import _maps_from_offsets
+
+    model = _radial_model(name)
+    n, h, w = shape
+    g = torch.Generator(device=cuda).manual_seed(h + n)
+    stack = torch.rand(shape, generator=g, device=cuda)
+    coordinates = (model.get_undistorted_coordinates if inverse
+                   else model.get_distorted_coordinates)
+    mx, my = _maps_from_offsets(coordinates(stack[0]), h, w)
+    want = K.remap_kernel(stack, mx, my, "bilinear")
+    del mx, my
+    before = K.remap_kernel_launches
+    got = K.remap_radial_kernel(stack, model.kernel_form(), inverse)
+    assert K.remap_kernel_launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(K.remap_radial_plain(stack, model.kernel_form(), inverse), want)
+
+
+def test_a_model_without_a_kernel_form_builds_the_plain_maps_on_the_card(cuda, monkeypatch):
+    """A reversible model that states no radial form keeps the plain
+    coordinate fields on the card (``ca.maps_built``), beside a model whose
+    coordinates the kernel computes (``ca.maps_in_kernel``); the output is the
+    plain path's bit for bit."""
+    from pysp_tpu_torch import Poly3CorrectionModel, remove_ca_from_raw
+    from pysp_tpu_torch.utils import tracing
+
+    class Formless(Poly3CorrectionModel):
+        def kernel_form(self):
+            return None
+
+    frame = _frame(256, 320, seed=4, is_hdr=False, device=cuda)
+    model_r, model_b = Poly3CorrectionModel(0.02), Formless(-0.02)
+    tracing.drain()
+    tracing.enable()
+    try:
+        before = tracing.counters()
+        got = remove_ca_from_raw(frame, model_r, model_b)
+        after = tracing.counters()
+    finally:
+        tracing.disable()
+        tracing.drain()
+    assert {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("ca.maps_in_kernel", "ca.maps_built")} == {"ca.maps_in_kernel": 2,
+                                                                  "ca.maps_built": 2}
+    want = _ca_removal_plain(monkeypatch, frame, model_r, model_b)
+    assert torch.equal(got.bayer, want.bayer)
 
 
 def test_template_match_batch_on_the_card_matches_the_cpu(cuda):

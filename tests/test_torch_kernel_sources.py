@@ -26,6 +26,11 @@ import torch
 
 from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
 from pysp_tpu_torch.core.frame import RawFrame
+from pysp_tpu_torch.correct.ca.models import (
+    Poly3CorrectionModel,
+    Poly5CorrectionModel,
+    PtLensCorrectionModel,
+)
 from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.utils.testing import (
@@ -57,6 +62,10 @@ DRIVER = r"""
 #define __align__(n)
 #define __ldg(p) (*(p))
 struct Dim3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1}, gridDim{1, 1, 1};
 static inline void __syncthreads() {}
 static inline int __syncthreads_or(int p) { return p; }
@@ -69,6 +78,7 @@ static inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; r
 #define __fsub_rn(a, b) ((a) - (b))
 #define __fmul_rn(a, b) ((a) * (b))
 #define __fdiv_rn(a, b) ((a) / (b))
+#define __fsqrt_rn(a) sqrtf(a)
 #define __int2float_rn(i) ((float)(i))
 #define __ffs(x) __builtin_ffs(x)
 #define __popc(x) __builtin_popcount(x)
@@ -171,6 +181,25 @@ void emulate_wide(const float* img, const float* map_x, const float* map_y, floa
                   int bounded, int dy0, int dy1, int dx0, int dx1) {
   remap(img, map_x, map_y, out, H, W, C, plane, pix, map_plane, kind, bounded, dy0, dy1,
         dx0, dx1, true);
+}
+// The radial kind on a (C, H, W) stack: the coordinates of `form` (forward or
+// inverse) from `params` (cy, cx, 1 / r_corner, six constants).
+static RadialFn radial;
+static RadialModel radial_params;
+static void run_radial(void* p) {
+  Args* a = (Args*)p;
+  radial(a->a, a->x, a->H, a->W, a->C, a->plane, radial_params);
+}
+int emulate_radial(const float* img, float* out, int H, int W, int C, int form,
+                   int inverse, const float* params, int wide) {
+  radial = radial_variant(H, W, C, form, inverse != 0, wide != 0);
+  if (radial == nullptr) return 1;
+  radial_params = radial_model(params);
+  Args a{};
+  a.a = img; a.x = out; a.H = H; a.W = W; a.C = C; a.plane = H * W;
+  const dim3 grid = radial_grid(H, W);
+  each_block(grid.x, grid.y, 1, run_radial, &a);
+  return 0;
 }
 #elif defined(EMULATE_HEAL)
 static void run_heal(void* p) {
@@ -473,6 +502,9 @@ def remap_lib(tmp_path_factory):
     dll = _build(tmp_path_factory, "remap.cu", "EMULATE_REMAP", n_ptrs=4, n_ints=12)
     dll.emulate_wide.argtypes = dll.emulate.argtypes
     dll.emulate_wide.restype = None
+    dll.emulate_radial.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                                   + [ctypes.c_void_p, ctypes.c_int])
+    dll.emulate_radial.restype = ctypes.c_int
     return dll
 
 
@@ -681,6 +713,63 @@ def test_lanczos4_weights_near_whole_phases(remap_lib):
     my = (ys + torch.where(ys % 2 == 0, 1 - eps[:h, None], eps[:h, None])).contiguous()
     out = _remap_emulated(remap_lib, img, mx, my, "lanczos4", None)
     _assert_remap_close(out, img, mx, my, "lanczos4", None)
+
+
+# CA removal's radial models: Poly3 at the mf102 configuration's k1 and at
+# +-0.3, Poly5 and PTLens.
+RADIAL_MODELS = {
+    "poly3_mf102_r": (Poly3CorrectionModel, (0.000714,)),
+    "poly3_mf102_b": (Poly3CorrectionModel, (-0.000714,)),
+    "poly3_strong": (Poly3CorrectionModel, (0.3,)),
+    "poly3_strong_neg": (Poly3CorrectionModel, (-0.3,)),
+    "poly5": (Poly5CorrectionModel, (0.015, -0.008)),
+    "ptlens": (PtLensCorrectionModel, (0.01, -0.02, 0.015)),
+}
+
+
+def _radial_emulated(remap_lib, img, form, inverse, wide=False):
+    """The radial kind's device code on an (H, W) plane or a (C, H, W) stack."""
+    h, w = img.shape[-2:]
+    channels = 1 if img.ndim == 2 else img.shape[0]
+    params = K._radial_params(form, h, w)
+    out = torch.full_like(img, float("nan"))
+    assert remap_lib.emulate_radial(_ptr(img), _ptr(out), h, w, channels,
+                                    list(K.RADIAL_FORMS).index(form[0]), int(inverse),
+                                    params.ctypes.data, int(wide)) == 0
+    assert not bool(torch.isnan(out).any())
+    return out
+
+
+@pytest.mark.parametrize("offsets", ["32-bit", "64-bit"])
+@pytest.mark.parametrize("shape", [(37, 45), (3, 37, 45), (5, 24, 71), (2, 38, 64), (1, 7),
+                                   (2, 3, 1)])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("model", list(RADIAL_MODELS))
+def test_remap_source_radial_kind(remap_lib, model, inverse, shape, offsets):
+    """The radial kind's device code, the coordinates of each model form
+    computed in the kernel, forward and Newton-inverted: ``torch.equal`` to
+    its plain version (``remap_radial_plain``: the maps in the kernel's order
+    of operations, then ``remap_plain``) on an odd-by-odd plane (its centre
+    pixel at r = 0, its middle row and column their own mirrors), a
+    three-frame burst of it, a five-plane stack (a part group after a whole
+    one) with an even and an odd side, an even-by-even pair, a single row and
+    a single column, over tiles that overhang, with 32- and 64-bit offsets.
+    The output starts as NaN, so a pixel that no mirror writes fails."""
+    cls, coeffs = RADIAL_MODELS[model]
+    form = cls(*coeffs).kernel_form()
+    planes = int(np.prod(shape[:-2]))
+    img = _rl_image(shape[-2], shape[-1], 3, seed=planes)
+    img = torch.cat([img * (1 - 0.05 * k) for k in range(-(-planes // 3))], dim=-1)
+    img = img[..., :planes].permute(2, 0, 1).reshape(shape).contiguous()
+    out = _radial_emulated(remap_lib, img, form, inverse, wide=offsets == "64-bit")
+    assert torch.equal(out, K.remap_radial_plain(img, form, inverse))
+
+
+def test_remap_source_radial_refuses_an_unknown_form(remap_lib):
+    img = torch.zeros(4, 4)
+    params = np.zeros(9, np.float32)
+    assert remap_lib.emulate_radial(_ptr(img), _ptr(img), 4, 4, 1, len(K.RADIAL_FORMS), 0,
+                                    params.ctypes.data, 0) == 1
 
 
 @pytest.fixture(scope="module")

@@ -243,6 +243,74 @@ def test_a_burst_builds_the_maps_once_and_one_model_two(recorder, scenes):
     assert [s.name for s in rec.spans].count("ca.remap") == 6
 
 
+class _FormlessPoly3(Poly3CorrectionModel):
+    """A reversible model that states no radial form: its remaps keep the
+    plain coordinate maps."""
+
+    def kernel_form(self):
+        return None
+
+
+@pytest.mark.parametrize("models", ["both_with_forms", "b_without"])
+def test_the_counters_split_between_kernel_and_plain_maps(recorder, scenes, monkeypatch,
+                                                           models):
+    """With the device test passed over (``_kernel_form`` as it answers on the
+    card) and the radial launch stubbed by its plain version, a model with a
+    radial form remaps without a coordinate field: ``ca.maps_in_kernel``
+    counts its two remaps, no ``ca.maps`` span opens; a model without one
+    builds its two plain fields (``ca.maps_built``). The output lies within
+    the one rounding that differs on the CPU (the radius over the corner's:
+    a division here, a multiply by the reciprocal on the card) of the plain
+    path's."""
+    from pysp_tpu_torch.correct.ca import removal
+    from pysp_tpu_torch.ops import cuda_kernels as K
+
+    frame = _program_frame(scenes[SHAPES[1]])
+    model_r = Poly3CorrectionModel(K1["r"])
+    model_b = (Poly3CorrectionModel if models == "both_with_forms" else _FormlessPoly3)(K1["b"])
+    want = remove_ca_from_raw(frame, model_r, model_b).bayer
+    launches = []
+
+    def radial(stack, form, inverse):
+        launches.append((tuple(stack.shape), form[0], inverse))
+        return K.remap_radial_plain(stack, form, inverse)
+
+    monkeypatch.setattr(removal, "_kernel_form", lambda model, stack: model.kernel_form())
+    monkeypatch.setattr(removal, "remap_radial_kernel", radial)
+    recorder.drain()
+    before = tracing.counters()
+    got = remove_ca_from_raw(frame, model_r, model_b).bayer
+    rec = recorder.drain()
+    counted = {k: rec.counters.get(k, 0) - before.get(k, 0)
+               for k in ("ca.maps_in_kernel", "ca.maps_built")}
+    (ca,) = [s for s in rec.spans if s.name == "ca.remove"]
+    children = [s.name for s in rec.spans if s.parent_id == ca.span_id]
+    h, w = SHAPES[1]
+    if models == "both_with_forms":
+        assert launches == [((1, h, w), "poly3", True), ((1, h, w), "poly3", False)] * 2
+        assert counted == {"ca.maps_in_kernel": 4, "ca.maps_built": 0}
+        assert children == ["ca.resample", "ca.remap", "ca.resample", "ca.remap",
+                            "ca.remap", "ca.resample", "ca.remap"]
+    else:
+        assert launches == [((1, h, w), "poly3", True), ((1, h, w), "poly3", False)]
+        assert counted == {"ca.maps_in_kernel": 2, "ca.maps_built": 2}
+        assert children == ["ca.resample", "ca.remap", "ca.resample", "ca.remap",
+                            "ca.maps", "ca.remap", "ca.resample", "ca.maps", "ca.remap"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_a_cpu_frame_takes_the_plain_maps(recorder, scenes):
+    """On CPU tensors every model builds its plain coordinate maps, whatever
+    its form: nothing counts in ``ca.maps_in_kernel``."""
+    before = tracing.counters()
+    remove_ca_from_raw(_program_frame(scenes[SHAPES[1]]), *_models())
+    rec = recorder.drain()
+    assert {k: rec.counters.get(k, 0) - before.get(k, 0)
+            for k in ("ca.maps_in_kernel", "ca.maps_built")} == {"ca.maps_in_kernel": 0,
+                                                                  "ca.maps_built": 4}
+
+
 def test_the_recorder_off_records_nothing(scenes):
     tracing.disable()
     tracing.drain()

@@ -6,7 +6,7 @@ compared on the same card within one call.
 
     python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
                                   [--kernels ahd,rl,postprocess,remap,heal,decision,
-                                             median5,homogeneity,multisection]
+                                             median5,homogeneity,multisection,ca_radial]
                                   [--no-check]
 
 Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
@@ -15,7 +15,7 @@ holds another version of the sources (default: the package's own ``csrc``).
 Without ``--variant`` the package's own build is the only one. The variants
 are visited in the order given and then once more in reverse (a, b, b, a).
 
-``--kernels`` keeps the named groups only (default: all nine).
+``--kernels`` keeps the named groups only (default: all ten).
 
 For every variant it prints the ptxas lines of the chosen kernels and holds
 them against their plain versions: the AHD kernel over the whole frame at
@@ -70,6 +70,14 @@ whole wrapper call), one counting pass alone (20 launches back to back, per
 launch), one plain pass (the (4, 16, H/2, W/2) compare, its sum and the
 narrowing: ``multisection_plain`` of one pass) and, as a
 yardstick for the pass's 96 MB, ``torch``'s ``amax`` of the same planes.
+The ``ca_radial`` group checks the remap kernel's radial kind (CA removal's
+coordinates computed in the kernel) against the plain maps plus the bilinear
+kind (``torch.equal``), forward and inverse, at one 8736x11648 plane with the
+mf102 configuration's Poly3 model and at config 5's CA stack, and times both
+ways there, as lone calls and back to back, beside the bilinear kind alone on
+the plain maps and ``grid_sample`` on them, with the radial kind's bound
+(8 B a pixel and plane; the plain version's float32 operations) and the SASS
+instructions of a thread, which serves up to four mirrored pixels.
 """
 
 from __future__ import annotations
@@ -130,7 +138,7 @@ CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float
 WB = np.array([0.45, 1.0, 0.62], np.float32)
 FULL = (4000, 6000)
 GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision", "median5", "homogeneity",
-          "multisection")
+          "multisection", "ca_radial")
 # The lens warp of the finishing path: about 11 px at the corners of 4000x6000.
 WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
 WARP_CENTER = (0.5, 0.5)
@@ -144,6 +152,10 @@ LANCZOS4_F64_SLACK = 1e-6
 CA_SHAPE = (16, 1000, 1504)
 CA_K1 = 0.01
 SHARD_PLANES = 4
+# The radial kind of the remap kernel at the mf102 configuration's frame and
+# R model, one plane as its CA removal remaps it.
+MF102_SHAPE = (1, 8736, 11648)
+MF102_K1 = 0.000714
 HEAL_SWEEPS = (4, 2)
 HEAL_DENSE = 1e-2
 MAX_PICK_FLIPS = 5e-4   # picks that cbrtf may flip at exact ties (0.05%)
@@ -362,6 +374,57 @@ def check_remap(name: str, state: dict) -> bool:
         ok &= good
         del got, want, exact
     return ok
+
+
+def ca_radial_state(ca: dict) -> dict:
+    """The radial kind's inputs, (stack, model): one 8736x11648 plane with the
+    mf102 configuration's R model, and config 5's CA stack with its Poly3
+    model."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    plane = torch.rand(MF102_SHAPE, generator=g, device="cuda")
+    return {"mf102": (plane, Poly3CorrectionModel(MF102_K1)),
+            "ca16": (ca["ca16"][0], Poly3CorrectionModel(CA_K1))}
+
+
+def plain_maps(stack, model, inverse: bool):
+    """The clipped maps that CA removal builds with plain PyTorch."""
+    coordinates = (model.get_undistorted_coordinates if inverse
+                   else model.get_distorted_coordinates)
+    return _maps_from_offsets(coordinates(stack[0]), *stack.shape[-2:])
+
+
+def check_ca_radial(name: str, state: dict) -> bool:
+    ok = True
+    for key, (stack, model) in state.items():
+        for inverse in (False, True):
+            want = K.remap_kernel(stack, *plain_maps(stack, model, inverse), "bilinear")
+            same = torch.equal(K.remap_radial_kernel(stack, model.kernel_form(), inverse), want)
+            print(f"{name}: ca_radial {key} {tuple(stack.shape)} "
+                  f"{'inverse' if inverse else 'forward'}: bit-exact to the maps path {same}",
+                  flush=True)
+            ok &= same
+            del want
+    return ok
+
+
+def radial_sass_instructions(form: int, inverse: bool):
+    """SASS instructions of the radial kind's 32-bit instantiation from its
+    entry to its last EXIT: a thread's straight line, one scale and the up to
+    four pixels it serves (the IEEE division's slow path, placed after the
+    EXIT, left out); None where the library holds no one function of that
+    (mangled) name."""
+    from tools.sass_count import _LINE, _cuobjdump
+
+    text = subprocess.run([_cuobjdump(), "-sass", str(K._library_path())], check=True,
+                          capture_output=True, text=True).stdout
+    tag = f"RadialCoordsILi{form}ELb{int(inverse)}E"
+    bodies = [b for b in text.split("Function : ")[1:]
+              if "bilinear_kernelIi" in b.split("\n", 1)[0] and tag in b.split("\n", 1)[0]]
+    if len(bodies) != 1:
+        return None
+    ops = [m.group(3) for m in _LINE.finditer(bodies[0]) if m.group(3) != "NOP"]
+    last_exit = max(k for k, op in enumerate(ops) if op.startswith("EXIT"))
+    return last_exit + 1
 
 
 def check_heal(name: str) -> bool:
@@ -632,6 +695,45 @@ def times(name: str, state: dict, groups) -> dict:
             tiny.data_ptr(), tx.data_ptr(), ty.data_ptr(), buf.data_ptr(), 8, 8, 4, 64, 1, 0,
             0, 0, 0, 0, 0, 0, stream))
         out["grid_sample_host_us"] = host_us(grid_sample_call(tiny, tx, ty, False))
+    if "ca_radial" in groups:
+        # the radial kind against the plain maps plus the bilinear kind, lone
+        # calls (median_ms) and back to back (queued_ms; the maps path one
+        # call a spin, its ~130 launches a call outrun the spin at two), with
+        # grid_sample on the plain maps as the library yardstick; the bound:
+        # the plane in and out once (8 B a pixel and plane) and the plain
+        # version's float32 operations
+        from chip_smoke import bound, float_ops, queued_ms
+
+        for key, (stack, model) in state["ca_radial"].items():
+            form = model.kernel_form()
+            for inverse in (False, True):
+                k = f"ca_radial_{key}_{'inverse' if inverse else 'forward'}"
+                mx, my = plain_maps(stack, model, inverse)
+
+                def radial(stack=stack, form=form, inverse=inverse):
+                    return K.remap_radial_kernel(stack, form, inverse)
+
+                def maps_path(stack=stack, model=model, inverse=inverse):
+                    return K.remap_kernel(stack, *plain_maps(stack, model, inverse), "bilinear")
+
+                library = grid_sample_call(stack, mx, my, False)
+                out[f"{k}_ms"] = median_ms(radial)
+                out[f"{k}_queued_ms"] = queued_ms(radial)
+                out[f"{k}_sha"] = digest(radial())
+                out[f"{k}_maps_path_ms"] = median_ms(maps_path, runs=5)
+                out[f"{k}_maps_path_queued_ms"] = queued_ms(maps_path, runs=1)
+                out[f"{k}_maps_remap_queued_ms"] = queued_ms(
+                    lambda: K.remap_kernel(stack, mx, my, "bilinear"))
+                out[f"{k}_grid_sample_ms"] = median_ms(library)
+                out[f"{k}_grid_sample_queued_ms"] = queued_ms(library)
+                small = stack[:1, :64, :64].contiguous()
+                ops = float_ops(lambda: K.remap_radial_plain(small, form, inverse))
+                out[f"{k}_ops_per_px"] = ops / small.numel()
+                out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound(
+                    2 * stack.numel() * 4, ops / small.numel() * stack.numel())
+                out[f"{k}_sass_instructions_a_thread"] = radial_sass_instructions(
+                    list(K.RADIAL_FORMS).index(form[0]), inverse)
+                del mx, my, library
     if "heal" in groups:
         hs = state["heal"]
         planes = hs["planes"]
@@ -733,8 +835,10 @@ def main() -> int:
                  "srgb": develop(f, DevelopConfig(use_pallas=False)),
                  "planes": K.ahd_plain(f.bayer, mat, f.wb_reciprocal(), f.is_hdr, 0)}
         del lin
-    if "remap" in groups:
+    if {"remap", "ca_radial"} & set(groups):
         state["ca"] = ca_stack_state()
+    if "ca_radial" in groups:
+        state["ca_radial"] = ca_radial_state(state["ca"])
     if "heal" in groups:
         state["heal"] = heal_state()
         print(f"heal inputs: planes {tuple(state['heal']['planes'].shape)}, "
@@ -751,7 +855,7 @@ def main() -> int:
             "remap": ("remap_kernel", "lanczos4_kernel", "bilinear_kernel"),
             "heal": ("heal",), "decision": ("decision_kernel",),
             "median5": ("median5_kernel",), "homogeneity": ("homogeneity_kernel",),
-            "multisection": ("multisection_kernel",)}
+            "multisection": ("multisection_kernel",), "ca_radial": ("RadialCoords",)}
     entry_tags = [tag for g in groups for tag in tags[g]]
     order = variants + variants[::-1] if len(variants) > 1 else variants
     seen = set()
@@ -775,7 +879,8 @@ def main() -> int:
                       "remap": lambda n: check_remap(n, state), "heal": check_heal,
                       "decision": check_decision, "median5": check_median5,
                       "homogeneity": check_homogeneity,
-                      "multisection": lambda n: check_multisection(n, state["multisection"])}
+                      "multisection": lambda n: check_multisection(n, state["multisection"]),
+                      "ca_radial": lambda n: check_ca_radial(n, state["ca_radial"])}
             if not args.no_check:
                 for g in groups:
                     ok &= checks[g](name)
