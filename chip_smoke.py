@@ -317,6 +317,7 @@ from pysp_tpu_torch import (
 )
 from pysp_tpu_torch.colorimetry.transforms import (
     cam_to_lin_srgb_matrix,
+    color_tail_channels,
     lin_srgb_to_srgb,
     rgb_to_lab_channels,
 )
@@ -340,12 +341,13 @@ from pysp_tpu_torch.correct.hdr import fuse_exposures_to_raw
 from pysp_tpu_torch.demosaic.ahd import (
     ahd_candidates,
     ahd_decision,
+    _homogeneity_kernel_count,
     ahd_decision_plain,
     demosaic_ahd_channels,
     postprocess_color,
     postprocess_color_channels,
 )
-from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega, develop_channels_mega
+from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega
 from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
@@ -362,7 +364,7 @@ from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.ops.resample import remap_bilinear
 from pysp_tpu_torch.ops.stencil import median2, median5
-from pysp_tpu_torch.pipeline.develop import DevelopConfig, _color_tail_channels, develop
+from pysp_tpu_torch.pipeline.develop import DevelopConfig, develop
 from pysp_tpu_torch.utils.testing import (
     HEAL_TILE_KINDS,
     LOSSY_RAW_FORMATS,
@@ -550,11 +552,11 @@ def expect_launches(path: str, launches: dict, **expected) -> None:
 
 def zero_launch_counts() -> None:
     for name in COUNTERS:
-        setattr(K, f"{name}_kernel_launches", 0)
+        K.launch_counts[name] = 0
 
 
 def launch_counts() -> dict:
-    return {name: getattr(K, f"{name}_kernel_launches") for name in COUNTERS}
+    return {name: K.launch_counts[name] for name in COUNTERS}
 
 
 def device_busy(fn, runs: int = 3):
@@ -652,11 +654,11 @@ def check_kernels_small() -> None:
         for is_hdr in (False, True):
             frame = frame_on_card(h, w, seed=1 + int(is_hdr), is_hdr=is_hdr, noise=0.03)
             mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+            wb = frame.wb_reciprocal()
             flipped = None
             for stages in (0, 1, 2):
                 want = torch.stack(demosaic_ahd_channels(frame, stages))
-                planes = demosaic_ahd_mega(frame, stages)
-                got = torch.stack(planes)
+                got = planes = demosaic_ahd_mega(frame, mat, wb, stages)
                 differs = (got != want).any(dim=0)
                 if stages == 0:
                     flipped = differs
@@ -665,8 +667,8 @@ def check_kernels_small() -> None:
                 stray = int((differs & ~near).sum())
                 ring = int(border_frame(differs, AHD_BORDER).sum())
                 p, _, err = interior_stats(got, want)
-                external = torch.stack(_color_tail_channels(*planes, mat, True, True), dim=-1)
-                fused = develop_channels_mega(frame, stages, True, True)
+                external = torch.stack(color_tail_channels(*planes, mat, True, True), dim=-1)
+                fused = demosaic_ahd_mega(frame, mat, wb, stages, (True, True))
                 tail_err = (fused - external).abs().max().item()
                 log(f"AHD kernel vs plain {h}x{w} hdr={is_hdr} stages={stages}, whole frame: "
                     f"{float(differs.float().mean()):.6%} of pixels differ ({ring} of them in "
@@ -1528,10 +1530,10 @@ def tiers_at_main_shapes(frame: RawFrame, chroma: torch.Tensor, fields, err: dic
     stage_ms = {
         "candidates": median_ms(lambda: ahd_candidates(frame.bayer, wb)),
         "decision": median_ms(
-            lambda: ahd_decision_plain(*fields, mat, wb, hdr, use_pallas=True)),
+            lambda: ahd_decision_plain(*fields, mat, wb, hdr, _homogeneity_kernel_count)),
         f"postprocess_x{STAGED_STAGES}": median_ms(chroma_stages),
         "tail": median_ms(lambda: torch.stack(
-            _color_tail_channels(*planes, mat, True, True), dim=-1)),
+            color_tail_channels(*planes, mat, True, True), dim=-1)),
     }
     log("staged develop's stages one by one, median of 10 by CUDA events (decision: plain "
         "CIELAB, the homogeneity kernel twice, plain box sums; the pick's blend is not "
@@ -2541,7 +2543,7 @@ def surface_at_main_shapes(path: str, frame: RawFrame, out: torch.Tensor, card: 
 
     def tail():
         srgb = [lin_srgb_to_srgb(compress_highlights(torch.clamp(c, min=0.0)))
-                for c in _color_tail_channels(*rec, mat, False, False)]
+                for c in color_tail_channels(*rec, mat, False, False)]
         return torch.stack(srgb, dim=-1)
 
     px = frame.height * frame.width

@@ -129,6 +129,33 @@ def cam_to_lin_srgb_matrix(cam_mat: Tensor, cam_white: Tensor) -> Tensor:
     )
 
 
+def color_tail_channels(
+    r: Tensor, g: Tensor, b: Tensor, mat: Tensor,
+    clip_highlights: bool, gamma_encode: bool,
+):
+    """The develop's channelwise colour tail: clip -> the cam->lin-sRGB
+    ``mat`` -> sRGB gamma. The plain version of the AHD kernel's fused tail."""
+    if clip_highlights:
+        r = torch.clamp(r, 0.0, 1.0)
+        g = torch.clamp(g, 0.0, 1.0)
+        b = torch.clamp(b, 0.0, 1.0)
+    ir = mat[0, 0] * r + mat[0, 1] * g + mat[0, 2] * b
+    ig = mat[1, 0] * r + mat[1, 1] * g + mat[1, 2] * b
+    ib = mat[2, 0] * r + mat[2, 1] * g + mat[2, 2] * b
+
+    if gamma_encode:
+        def gamma(x):
+            x = torch.clamp(x, 0.0, 1.0)
+            return torch.where(
+                x <= 0.0031308,
+                x * 12.92,
+                1.055 * torch.pow(torch.clamp(x, min=1e-12), 1.0 / 2.4) - 0.055,
+            )
+
+        ir, ig, ib = gamma(ir), gamma(ig), gamma(ib)
+    return ir, ig, ib
+
+
 def cam_to_rgb_norm(
     rgb: Tensor,
     cam_mat: Tensor,

@@ -9,11 +9,12 @@ tonemapped chroma), 3x3 box-summed maps with a binary direction pick, and
 iterative chroma-median postprocessing.
 
 This is the port's CPU path and the plain version the AHD kernel is held
-against over the whole frame (``ahd_channels`` plus ``pipeline.develop``'s
-colour tail). With ``use_pallas`` on CUDA tensors it is the staged route: the
-homogeneity counts come from the homogeneity kernel and the chroma-median
-stages from the postprocess kernel, both bit-identical to their plain
-versions, so the route equals the plain one exactly. It develops what the AHD
+against over the whole frame (``ahd_channels`` plus
+``colorimetry.transforms.color_tail_channels``). ``ahd_channels(...,
+staged=True)`` is the staged route: the homogeneity counts come from the
+homogeneity kernel and the chroma-median stages from the postprocess kernel,
+both bit-identical to their plain versions (which their wrappers run on CPU
+tensors), so the route equals the plain one exactly. It develops what the AHD
 kernel does not take: more than two chroma-median stages and frames under the
 kernel's smallest side.
 """
@@ -43,14 +44,13 @@ _H = (_H / _H.sum()).astype(np.float32)
 
 def _build_homogeneity_map(
     r: Tensor, g: Tensor, b: Tensor, mat: Tensor, wb: Tensor, is_hdr: bool,
-    is_vertical: bool, use_pallas: bool = False,
+    is_vertical: bool, count=homogeneity_map_channels,
 ) -> Tensor:
-    """LAB homogeneity for one direction.
+    """LAB homogeneity for one direction, counted by ``count``
+    (:func:`homogeneity_map_channels` or :func:`_homogeneity_kernel_count`).
 
     WB is multiplied in a second time here (the candidate planes already carry
-    it from the interpolation stage), as the reference does. With
-    ``use_pallas`` the count of CUDA planes comes from the homogeneity kernel
-    (bit-identical to :func:`homogeneity_map_channels`)."""
+    it from the interpolation stage), as the reference does."""
     rr, gg, bb = r * wb[0], g * wb[1], b * wb[2]
     ir = mat[0, 0] * rr + mat[0, 1] * gg + mat[0, 2] * bb
     ig = mat[1, 0] * rr + mat[1, 1] * gg + mat[1, 2] * bb
@@ -66,29 +66,30 @@ def _build_homogeneity_map(
         lum = luma
     else:
         lum, la, lb = rgb_to_lab_channels(ir, ig, ib)
+    return count(lum, la, lb, is_vertical)
 
-    if use_pallas and lum.device.type == "cuda":
-        from ..ops.cuda_kernels import homogeneity_kernel
 
-        return homogeneity_kernel(
-            lum.contiguous(), la.contiguous(), lb.contiguous(), is_vertical
-        )
-    return homogeneity_map_channels(lum, la, lb, is_vertical)
+def _homogeneity_kernel_count(lum: Tensor, a: Tensor, b: Tensor, is_vertical: bool) -> Tensor:
+    """The staged route's count: the homogeneity kernel, bit-identical to
+    :func:`homogeneity_map_channels`, which its wrapper runs on CPU planes."""
+    from ..ops.cuda_kernels import homogeneity_kernel
+
+    return homogeneity_kernel(lum.contiguous(), a.contiguous(), b.contiguous(), is_vertical)
 
 
 def ahd_decision_plain(
     r_h: Tensor, g_h: Tensor, b_h: Tensor, r_v: Tensor, g_v: Tensor, b_v: Tensor,
-    mat: Tensor, wb: Tensor, is_hdr: bool, use_pallas: bool = False,
+    mat: Tensor, wb: Tensor, is_hdr: bool, count=homogeneity_map_channels,
 ) -> Tensor:
     """The H/V pick from the six candidate fields: 1.0 where the horizontal
     candidate's box-summed homogeneity is below the vertical one's. The plain
     version of the decision kernel (``ops.cuda_kernels.decision_kernel``).
 
-    The counts are integers, so the unnormalized sums compare exactly. With
-    ``use_pallas`` the two counts of CUDA fields come from the homogeneity
-    kernel, which changes no value."""
-    map_h = box_sum3(_build_homogeneity_map(r_h, g_h, b_h, mat, wb, is_hdr, False, use_pallas))
-    map_v = box_sum3(_build_homogeneity_map(r_v, g_v, b_v, mat, wb, is_hdr, True, use_pallas))
+    The counts are integers, so the unnormalized sums compare exactly; the
+    staged route's ``count`` (:func:`_homogeneity_kernel_count`) changes no
+    value."""
+    map_h = box_sum3(_build_homogeneity_map(r_h, g_h, b_h, mat, wb, is_hdr, False, count))
+    map_v = box_sum3(_build_homogeneity_map(r_v, g_v, b_v, mat, wb, is_hdr, True, count))
     return (map_h < map_v).to(torch.float32)
 
 
@@ -116,11 +117,12 @@ def postprocess_color_channels(r: Tensor, g: Tensor, b: Tensor):
 
 
 def postprocess_color(image: Tensor, use_pallas: bool = False) -> Tensor:
-    """One chroma-median stage on an (H, W, 3) image. With ``use_pallas`` a
-    CUDA image goes through the postprocess kernel's (H, W, 3) entry
-    (``ops.cuda_kernels.postprocess_color_image_kernel``, bit-identical);
-    otherwise the plain stage runs on the three channels."""
-    if use_pallas and image.device.type == "cuda":
+    """One chroma-median stage on an (H, W, 3) image. With ``use_pallas`` it
+    goes through the postprocess kernel's (H, W, 3) entry
+    (``ops.cuda_kernels.postprocess_color_image_kernel``, bit-identical, the
+    plain stage on a CPU image); otherwise the plain stage runs on the three
+    channels."""
+    if use_pallas:
         from ..ops.cuda_kernels import postprocess_color_image_kernel
 
         return postprocess_color_image_kernel(image.contiguous())
@@ -198,28 +200,30 @@ def ahd_candidates(bayer: Tensor, wb: Tensor):
 
 def ahd_channels(
     bayer: Tensor, mat: Tensor, wb: Tensor, is_hdr: bool,
-    postprocess_stages: int = 1, use_pallas: bool = False,
+    postprocess_stages: int = 1, staged: bool = False,
 ):
     """AHD of a canonical-RGGB mosaic (H, W) to separate (r, g, b) channels.
 
     ``mat`` is the cam->lin-sRGB matrix and ``wb`` the reciprocal WB gains.
-    With ``use_pallas`` the homogeneity counts and the chroma-median stages go
+    ``staged``: the homogeneity counts and the chroma-median stages go
     through their kernel wrappers, which launch the CUDA kernels on CUDA
     tensors and run the plain versions on CPU ones."""
+    if staged:
+        from ..ops.cuda_kernels import postprocess_color_kernel as stage
+
+        count = _homogeneity_kernel_count
+    else:
+        count, stage = homogeneity_map_channels, postprocess_color_channels
     r_h, g_h, b_h, r_v, g_v, b_v = ahd_candidates(bayer, wb)
 
-    pick = ahd_decision_plain(r_h, g_h, b_h, r_v, g_v, b_v, mat, wb, is_hdr, use_pallas)
+    pick = ahd_decision_plain(r_h, g_h, b_h, r_v, g_v, b_v, mat, wb, is_hdr, count)
     inv = 1.0 - pick
     out_r = r_h * pick + r_v * inv
     out_g = g_h * pick + g_v * inv
     out_b = b_h * pick + b_v * inv
 
-    if use_pallas:
-        from ..ops.cuda_kernels import postprocess_color_kernel as pp
-    else:
-        pp = postprocess_color_channels
     for _ in range(max(int(postprocess_stages), 0)):
-        out_r, out_g, out_b = pp(out_r, out_g, out_b)
+        out_r, out_g, out_b = stage(out_r, out_g, out_b)
 
     return out_r, out_g, out_b
 
@@ -227,11 +231,12 @@ def ahd_channels(
 def demosaic_ahd_channels(
     frame: RawFrame, postprocess_stages: int = 1, use_pallas: bool = False
 ):
-    """AHD demosaic of ``frame`` returning separate (r, g, b) channels."""
+    """AHD demosaic of ``frame`` returning separate (r, g, b) channels;
+    ``use_pallas`` takes the staged route (:func:`ahd_channels`)."""
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
     return ahd_channels(
         frame.bayer, mat, frame.wb_reciprocal(), frame.is_hdr,
-        postprocess_stages, use_pallas,
+        postprocess_stages, staged=use_pallas,
     )
 
 

@@ -17,10 +17,10 @@ from ..ops.stencil import pad_reflect, pad_replicate, upsample2x_bilinear_cv2
 Tensor = torch.Tensor
 
 
-def _quarter_res_channels(frame: RawFrame):
-    """(r, g, b) at quarter resolution, WB applied, R and B re-centred."""
+def _quarter_res_channels(frame: RawFrame, wb: Tensor):
+    """(r, g, b) at quarter resolution, the reciprocal WB gains ``wb``
+    applied, R and B re-centred."""
     r, g1, b, g2 = bayer_to_rgbg(frame.bayer)
-    wb = frame.wb_reciprocal()
 
     g = (g1 + g2) * 0.5 * wb[1]
 
@@ -36,9 +36,10 @@ def _quarter_res_channels(frame: RawFrame):
     return r_center * wb[0], g, b_center * wb[2]
 
 
-def demosaic_draft_channels(frame: RawFrame):
-    """Draft demosaic returning separate (r, g, b) channels."""
-    r, g, b = _quarter_res_channels(frame)
+def demosaic_draft_channels(frame: RawFrame, wb: Tensor):
+    """Draft demosaic with the reciprocal WB gains ``wb``, returning separate
+    (r, g, b) channels."""
+    r, g, b = _quarter_res_channels(frame, wb)
     return (
         upsample2x_bilinear_cv2(r),
         upsample2x_bilinear_cv2(g),
@@ -46,19 +47,11 @@ def demosaic_draft_channels(frame: RawFrame):
     )
 
 
-def develop_channels_draft(frame: RawFrame, clip_highlights: bool, gamma_encode: bool):
-    """Fused Draft develop: polyphase upsample + colour tail at quarter res.
-
-    The four 2x-bilinear output phases are computed as 4-tap stencils at
-    quarter resolution, the (pointwise) colour tail runs there, and the
-    full-res image is assembled once per channel: the same taps as
-    :func:`demosaic_draft_channels` plus the tail, in one other association
-    order (about 1 ulp). Returns colour-tailed (r, g, b) full-res channels."""
-    from ..colorimetry.transforms import cam_to_lin_srgb_matrix
-    from ..ops.polyphase import quad_to_bayer
-    from ..pipeline.develop import _color_tail_channels
-
-    r_c, g, b_c = _quarter_res_channels(frame)
+def draft_phases(frame: RawFrame, wb: Tensor):
+    """The fused Draft develop's (r, g, b) quads: the four 2x-bilinear output
+    phases of each channel as 4-tap stencils at quarter resolution, with the
+    reciprocal WB gains ``wb``."""
+    r_c, g, b_c = _quarter_res_channels(frame, wb)
 
     def up_phases(p):
         pp = pad_replicate(p, 1)
@@ -77,25 +70,30 @@ def develop_channels_draft(frame: RawFrame, clip_highlights: bool, gamma_encode:
         p11 = 0.5625 * c + 0.1875 * dn + 0.1875 * rt + 0.0625 * dr
         return ((p00, p01), (p10, p11))
 
-    rq, gq, bq = up_phases(r_c), up_phases(g), up_phases(b_c)
-    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    return up_phases(r_c), up_phases(g), up_phases(b_c)
 
-    tailed = [[[None, None], [None, None]] for _ in range(3)]
-    for py in (0, 1):
-        for px in (0, 1):
-            channels = _color_tail_channels(
-                rq[py][px], gq[py][px], bq[py][px], mat, clip_highlights, gamma_encode
-            )
-            for k, v in enumerate(channels):
-                tailed[k][py][px] = v
-    return tuple(quad_to_bayer(tailed[k]) for k in range(3))
+
+def develop_channels_draft(
+    frame: RawFrame, mat: Tensor, wb: Tensor, clip_highlights: bool, gamma_encode: bool,
+):
+    """Fused Draft develop: polyphase upsample + colour tail at quarter res,
+    with the cam->lin-sRGB ``mat`` and the reciprocal WB gains ``wb``.
+
+    The (pointwise) colour tail runs on :func:`draft_phases`, and the
+    full-res image is assembled once per channel: the same taps as
+    :func:`demosaic_draft_channels` plus the tail, in one other association
+    order (about 1 ulp). Returns colour-tailed (r, g, b) full-res channels."""
+    from ..ops.polyphase import color_tail_quads
+
+    return color_tail_quads(draft_phases(frame, wb), mat, clip_highlights, gamma_encode)
 
 
 def demosaic_draft(frame: RawFrame) -> DevelopedImage:
-    r, g, b = demosaic_draft_channels(frame)
+    wb = frame.wb_reciprocal()
+    r, g, b = demosaic_draft_channels(frame, wb)
     return DevelopedImage(
         image=torch.stack([r, g, b], dim=-1).to(torch.float32),
-        wb_coeff=frame.wb_reciprocal(),
+        wb_coeff=wb,
         cam_mat=frame.cam_mat,
         cam_white=frame.cam_white,
         ev=frame.ev,

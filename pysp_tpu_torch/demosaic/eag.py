@@ -190,21 +190,12 @@ def _phase_upsample_quad(plane: Tensor, position: BayerPatternPosition):
     )
 
 
-def develop_channels_eag(frame: RawFrame, clip_highlights: bool, gamma_encode: bool):
-    """Fused Fast develop: the whole EAG pipeline + colour tail in phase space.
-
-    Every stage stays on the four CFA phase planes: G fill and blur3 are phase
-    stencils, the photosite-phase R/B convolutions already produce phases, the
-    (pointwise) colour tail runs per phase, and the full-res image is
-    assembled once per channel. The same taps as :func:`demosaic_eag_channels`
-    plus the tail, up to conv and association rounding order."""
-    from ..colorimetry.transforms import cam_to_lin_srgb_matrix
-    from ..ops.polyphase import quad_to_bayer
-    from ..pipeline.develop import _color_tail_channels
-
+def eag_phases(frame: RawFrame, wb: Tensor):
+    """The fused Fast develop's (r, g, b) quads, with the reciprocal WB gains
+    ``wb``: the whole EAG pipeline on the four CFA phase planes (G fill and
+    blur3 as phase stencils; the photosite-phase R/B convolutions already
+    produce phases)."""
     r, g1, b, g2 = bayer_to_rgbg(frame.bayer)
-    wb = frame.wb_reciprocal()
-
     gr, gb = _eag_g_phases(g1, g2)
     w1 = wb[1]
     gq = ((gr * w1, g1 * w1), (g2 * w1, gb * w1))
@@ -216,27 +207,31 @@ def develop_channels_eag(frame: RawFrame, clip_highlights: bool, gamma_encode: b
     rq = _phase_upsample_quad(r * wb[0], BayerPatternPosition.TOP_LEFT)
     bq = _phase_upsample_quad(b * wb[2], BayerPatternPosition.BOTTOM_RIGHT)
 
-    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-    tailed = [[[None, None], [None, None]] for _ in range(3)]
-    for py in (0, 1):
-        for px in (0, 1):
-            channels = _color_tail_channels(
-                rq[py][px] + ghf[py][px],
-                gq[py][px],
-                bq[py][px] + ghf[py][px],
-                mat,
-                clip_highlights,
-                gamma_encode,
-            )
-            for k, v in enumerate(channels):
-                tailed[k][py][px] = v
-    return tuple(quad_to_bayer(tailed[k]) for k in range(3))
+    def with_hf(q):
+        return tuple(tuple(q[py][px] + ghf[py][px] for px in (0, 1)) for py in (0, 1))
+
+    return with_hf(rq), gq, with_hf(bq)
 
 
-def demosaic_eag_channels(frame: RawFrame):
-    """Fast demosaic returning separate (r, g, b) channels."""
+def develop_channels_eag(
+    frame: RawFrame, mat: Tensor, wb: Tensor, clip_highlights: bool, gamma_encode: bool,
+):
+    """Fused Fast develop: the whole EAG pipeline + colour tail in phase space,
+    with the cam->lin-sRGB ``mat`` and the reciprocal WB gains ``wb``.
+
+    The (pointwise) colour tail runs on each phase of :func:`eag_phases`, and
+    the full-res image is assembled once per channel. The same taps as
+    :func:`demosaic_eag_channels` plus the tail, up to conv and association
+    rounding order."""
+    from ..ops.polyphase import color_tail_quads
+
+    return color_tail_quads(eag_phases(frame, wb), mat, clip_highlights, gamma_encode)
+
+
+def demosaic_eag_channels(frame: RawFrame, wb: Tensor):
+    """Fast demosaic with the reciprocal WB gains ``wb``, returning separate
+    (r, g, b) channels."""
     r, g1, b, g2 = bayer_to_rgbg(frame.bayer)
-    wb = frame.wb_reciprocal()
 
     g_up = resample_g_to_full_resolution(g1, g2) * wb[1]
     r_up, b_up = resample_rb(r * wb[0], b * wb[2], g_up)
@@ -245,10 +240,11 @@ def demosaic_eag_channels(frame: RawFrame):
 
 def demosaic_eag(frame: RawFrame) -> DevelopedImage:
     """Fast demosaic entry point."""
-    r_up, g_up, b_up = demosaic_eag_channels(frame)
+    wb = frame.wb_reciprocal()
+    r_up, g_up, b_up = demosaic_eag_channels(frame, wb)
     return DevelopedImage(
         image=torch.stack([r_up, g_up, b_up], dim=-1).to(torch.float32),
-        wb_coeff=frame.wb_reciprocal(),
+        wb_coeff=wb,
         cam_mat=frame.cam_mat,
         cam_white=frame.cam_white,
         ev=frame.ev,

@@ -39,14 +39,13 @@ edited source rebuilds), which is loaded with ``ctypes``. Kernels launch on
 PyTorch's current stream and allocate nothing; the wrappers allocate outputs.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version instead;
-given CUDA tensors it launches the kernel or raises. Each wrapper counts its
-launches in a module-level integer (``ahd_kernel_launches``,
-``postprocess_kernel_launches``, ``rl_kernel_launches``,
-``remap_kernel_launches``, ``heal_kernel_launches``,
-``median5_kernel_launches``, ``homogeneity_kernel_launches``,
-``decision_kernel_launches``, ``multisection_kernel_launches``), incremented only where the kernel launches,
-under a lock: the shards of ``parallel/`` launch from several threads. Read
-them through ``utils.tracing.counters()``, which hands each back as
+given CUDA tensors it checks them and launches the kernel through
+:func:`_launch` or raises. ``_ENTRIES`` names each C entry of the library
+with its ctypes arguments and the launch counter it adds to. The counters are
+the dict ``launch_counts`` (``{"ahd": n, "postprocess": n, ...}``),
+incremented only where a kernel launches, under a lock: the shards of
+``parallel/`` launch from several threads. Read them through
+``utils.tracing.counters()``, which hands each back as
 ``kernels.<name>.launches``, with the recorder's own counters; a build of the
 library is the span ``kernels.build`` and counts in ``kernels.builds``.
 """
@@ -103,15 +102,29 @@ HEAL_MAX_SWEEPS = 8
 # The multisection kernel's most branches a pass (its counters a thread).
 MULTISECTION_MAX_BRANCHES = 16
 
-ahd_kernel_launches = 0
-postprocess_kernel_launches = 0
-rl_kernel_launches = 0
-remap_kernel_launches = 0
-heal_kernel_launches = 0
-median5_kernel_launches = 0
-homogeneity_kernel_launches = 0
-decision_kernel_launches = 0
-multisection_kernel_launches = 0
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLOATS = ctypes.POINTER(ctypes.c_float)
+# Each C entry of the library: the launch counter it adds to, its name in a
+# launch error, and its arguments before the last one, the CUDA stream. Every
+# entry returns a cudaError.
+_ENTRIES = {
+    "pysp_ahd": ("ahd", "AHD kernel", (_P, _P, _P, _I, _I, _I, _I, _I)),
+    "pysp_postprocess_color": ("postprocess", "postprocess kernel", (_P,) * 6 + (_I, _I)),
+    "pysp_postprocess_color_hwc": ("postprocess", "postprocess kernel", (_P, _P, _I, _I)),
+    "pysp_rl_iter": ("rl", "RL kernel", (_P, _P, _P, _I, _I, _I, _L, _I, _FLOATS, _I)),
+    "pysp_remap": ("remap", "remap kernel", (_P,) * 4 + (_I,) * 3 + (_L, _I, _L) + (_I,) * 6),
+    "pysp_remap_radial": ("remap", "radial remap kernel",
+                          (_P, _P, _I, _I, _I, _L, _I, _I, _FLOATS)),
+    "pysp_heal": ("heal", "heal kernel", (_P,) * 4 + (_I,) * 4),
+    "pysp_median5": ("median5", "median5 kernel", (_P, _P, _I, _I)),
+    "pysp_homogeneity": ("homogeneity", "homogeneity kernel", (_P,) * 4 + (_I,) * 3),
+    "pysp_ahd_decision": ("decision", "decision kernel", (_P,) * 8 + (_I,) * 3),
+    "pysp_multisection": ("multisection", "multisection kernel",
+                          (_P, _I, _I, _L, _P, _P, _P, _I, ctypes.c_float, _I)),
+}
+# Launches of each kernel since the process started, every kernel's key from
+# the start.
+launch_counts = {counter: 0 for counter, _, _ in _ENTRIES.values()}
 
 # Shard threads (``parallel/shard.py``) launch at once: the counts and the
 # first build are taken under these locks.
@@ -120,10 +133,9 @@ _load_lock = threading.Lock()
 
 
 def _count_launch(kernel: str) -> None:
-    """One more launch in ``<kernel>_kernel_launches``."""
-    name = f"{kernel}_kernel_launches"
+    """One more launch in ``launch_counts[kernel]``."""
     with _count_lock:
-        globals()[name] += 1
+        launch_counts[kernel] += 1
 
 
 # The loaded library and what its build printed; set by load_library().
@@ -211,33 +223,10 @@ def load_library() -> ctypes.CDLL:
         if log:
             build_log, build_seconds = log, seconds
         lib = ctypes.CDLL(str(path))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pysp_ahd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.pysp_ahd.restype = i32
-        lib.pysp_postprocess_color.argtypes = [ptr] * 6 + [i32, i32, ptr]
-        lib.pysp_postprocess_color.restype = i32
-        lib.pysp_postprocess_color_hwc.argtypes = [ptr, ptr, i32, i32, ptr]
-        lib.pysp_postprocess_color_hwc.restype = i32
-        i64 = ctypes.c_longlong
-        lib.pysp_rl_iter.argtypes = [ptr, ptr, ptr, i32, i32, i32, i64, i32,
-                                     ctypes.POINTER(ctypes.c_float), i32, ptr]
-        lib.pysp_rl_iter.restype = i32
-        lib.pysp_remap.argtypes = [ptr] * 4 + [i32] * 3 + [i64, i32, i64] + [i32] * 6 + [ptr]
-        lib.pysp_remap.restype = i32
-        lib.pysp_remap_radial.argtypes = [ptr, ptr] + [i32] * 3 + [i64, i32, i32,
-                                                                ctypes.POINTER(ctypes.c_float), ptr]
-        lib.pysp_remap_radial.restype = i32
-        lib.pysp_heal.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        lib.pysp_heal.restype = i32
-        lib.pysp_median5.argtypes = [ptr, ptr, i32, i32, ptr]
-        lib.pysp_median5.restype = i32
-        lib.pysp_homogeneity.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-        lib.pysp_homogeneity.restype = i32
-        lib.pysp_ahd_decision.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
-        lib.pysp_ahd_decision.restype = i32
-        lib.pysp_multisection.argtypes = [ptr, i32, i32, i64, ptr, ptr, ptr, i32,
-                                          ctypes.c_float, i32, ptr]
-        lib.pysp_multisection.restype = i32
+        for entry, (_, _, argtypes) in _ENTRIES.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [*argtypes, _P]
+            fn.restype = _I
         _lib = lib
         return lib
 
@@ -255,9 +244,19 @@ def _check(t: Tensor, name: str, shape=None, device=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on_error(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+def _launch(entry: str, device: torch.device, *calls: tuple) -> None:
+    """Launch the C entry ``entry`` once for each tuple of arguments in
+    ``calls``, in turn, on ``device``'s current stream; raises at the first
+    launch that fails and counts each launch."""
+    kernel, what, _ = _ENTRIES[entry]
+    fn = getattr(load_library(), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for args in calls:
+            err = fn(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"{what} launch failed: cudaError {err}")
+            _count_launch(kernel)
 
 
 # --- AHD ------------------------------------------------------------------------
@@ -339,15 +338,8 @@ def ahd_kernel(
     else:
         out = torch.empty((3, h, w), dtype=torch.float32, device=bayer.device)
     params = _ahd_params(mat, wb)
-    lib = load_library()
-    with torch.cuda.device(bayer.device):
-        stream = torch.cuda.current_stream(bayer.device).cuda_stream
-        err = lib.pysp_ahd(
-            bayer.data_ptr(), params.data_ptr(), out.data_ptr(), h, w, stages,
-            int(bool(is_hdr)), flags, stream,
-        )
-    _raise_on_error(err, "AHD kernel")
-    _count_launch("ahd")
+    _launch("pysp_ahd", bayer.device, (bayer.data_ptr(), params.data_ptr(), out.data_ptr(),
+                                       h, w, stages, int(bool(is_hdr)), flags))
     return out
 
 
@@ -355,13 +347,13 @@ def ahd_plain(bayer, mat, wb, is_hdr, stages, tail=None) -> Tensor:
     """The AHD kernel's plain version over the whole frame, in the kernel's
     output layout: ``demosaic.ahd.ahd_channels``, then develop's colour tail
     when ``tail`` is given."""
+    from ..colorimetry.transforms import color_tail_channels
     from ..demosaic.ahd import ahd_channels
-    from ..pipeline.develop import _color_tail_channels
 
     r, g, b = ahd_channels(bayer, mat, wb, is_hdr, stages)
     if tail is None:
         return torch.stack([r, g, b], dim=0)
-    r, g, b = _color_tail_channels(r, g, b, mat, *tail)
+    r, g, b = color_tail_channels(r, g, b, mat, *tail)
     return torch.stack([r, g, b], dim=-1)
 
 
@@ -383,15 +375,9 @@ def postprocess_color_kernel(r: Tensor, g: Tensor, b: Tensor):
     _check(b, "b", r.shape, r.device)
     h, w = r.shape
     out = torch.empty((3, h, w), dtype=torch.float32, device=r.device)
-    lib = load_library()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.pysp_postprocess_color(
-            r.data_ptr(), g.data_ptr(), b.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), h, w, stream,
-        )
-    _raise_on_error(err, "postprocess kernel")
-    _count_launch("postprocess")
+    _launch("pysp_postprocess_color", r.device, (
+        r.data_ptr(), g.data_ptr(), b.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), h, w))
     return out[0], out[1], out[2]
 
 
@@ -409,12 +395,7 @@ def postprocess_color_image_kernel(image: Tensor) -> Tensor:
     _check(image, "image")
     h, w, _ = image.shape
     out = torch.empty_like(image)
-    lib = load_library()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.pysp_postprocess_color_hwc(image.data_ptr(), out.data_ptr(), h, w, stream)
-    _raise_on_error(err, "postprocess kernel")
-    _count_launch("postprocess")
+    _launch("pysp_postprocess_color_hwc", image.device, (image.data_ptr(), out.data_ptr(), h, w))
     return out
 
 
@@ -469,20 +450,12 @@ def rl_kernel(image: Tensor, taps, iterations: int) -> Tensor:
     h, w, c, plane, pix = _layout(image, channels_last=True)
     host_taps = (ctypes.c_float * len(taps))(*taps.tolist())
     bufs = (torch.empty_like(image), torch.empty_like(image))
-    lib = load_library()
-    est = image
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        for it in range(int(iterations)):
-            out = bufs[it % 2]
-            err = lib.pysp_rl_iter(
-                est.data_ptr(), image.data_ptr(), out.data_ptr(), h, w, c, plane, pix,
-                host_taps, len(taps), stream,
-            )
-            _raise_on_error(err, "RL kernel")
-            _count_launch("rl")
-            est = out
-    return est
+    # the estimate in two buffers that take turns, from the image
+    ests = [image] + [bufs[it % 2] for it in range(int(iterations))]
+    _launch("pysp_rl_iter", image.device, *(
+        (est.data_ptr(), image.data_ptr(), out.data_ptr(), h, w, c, plane, pix, host_taps,
+         len(taps)) for est, out in zip(ests, ests[1:])))
+    return ests[-1]
 
 
 def rl_plain(image: Tensor, taps, iterations: int) -> Tensor:
@@ -550,16 +523,10 @@ def remap_kernel(
     map_plane = h * w if map_x.ndim == 3 else 0
     (dy0, dy1), (dx0, dx1) = bounds if bounds is not None else ((0, 0), (0, 0))
     out = torch.empty_like(img)
-    lib = load_library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.pysp_remap(
-            img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(), out.data_ptr(),
-            h, w, c, plane, pix, map_plane, REMAP_KINDS.index(kind),
-            int(bounds is not None), int(dy0), int(dy1), int(dx0), int(dx1), stream,
-        )
-    _raise_on_error(err, "remap kernel")
-    _count_launch("remap")
+    _launch("pysp_remap", img.device, (
+        img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(), out.data_ptr(),
+        h, w, c, plane, pix, map_plane, REMAP_KINDS.index(kind),
+        int(bounds is not None), int(dy0), int(dy1), int(dx0), int(dx1)))
     return out
 
 
@@ -678,15 +645,9 @@ def remap_radial_kernel(img: Tensor, form, inverse: bool) -> Tensor:
     h, w, c, plane, _ = _layout(img, False)
     params = _radial_params(form, h, w)
     out = torch.empty_like(img)
-    lib = load_library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.pysp_remap_radial(
-            img.data_ptr(), out.data_ptr(), h, w, c, plane, list(RADIAL_FORMS).index(form[0]),
-            int(bool(inverse)), params.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), stream,
-        )
-    _raise_on_error(err, "radial remap kernel")
-    _count_launch("remap")
+    _launch("pysp_remap_radial", img.device, (
+        img.data_ptr(), out.data_ptr(), h, w, c, plane, list(RADIAL_FORMS).index(form[0]),
+        int(bool(inverse)), params.ctypes.data_as(_FLOATS)))
     return out
 
 
@@ -738,15 +699,9 @@ def heal_kernel(planes: Tensor, masks: Tensor, fill_iterations: int = 4,
         )
     _, h, w = planes.shape
     out = torch.empty_like(planes)
-    lib = load_library()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.pysp_heal(
-            planes.data_ptr(), masks.data_ptr(), means.data_ptr(), out.data_ptr(),
-            h, w, int(fill_iterations), int(smooth_iterations), stream,
-        )
-    _raise_on_error(err, "heal kernel")
-    _count_launch("heal")
+    _launch("pysp_heal", planes.device, (
+        planes.data_ptr(), masks.data_ptr(), means.data_ptr(), out.data_ptr(),
+        h, w, int(fill_iterations), int(smooth_iterations)))
     return out
 
 
@@ -775,12 +730,7 @@ def median5_kernel(x: Tensor) -> Tensor:
     _check(x, "x")
     h, w = x.shape
     out = torch.empty_like(x)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pysp_median5(x.data_ptr(), out.data_ptr(), h, w, stream)
-    _raise_on_error(err, "median5 kernel")
-    _count_launch("median5")
+    _launch("pysp_median5", x.device, (x.data_ptr(), out.data_ptr(), h, w))
     return out
 
 
@@ -800,15 +750,9 @@ def homogeneity_kernel(lum: Tensor, a: Tensor, b: Tensor, is_vertical: bool) -> 
     _check(b, "b", lum.shape, lum.device)
     h, w = lum.shape
     out = torch.empty_like(lum)
-    lib = load_library()
-    with torch.cuda.device(lum.device):
-        stream = torch.cuda.current_stream(lum.device).cuda_stream
-        err = lib.pysp_homogeneity(
-            lum.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), h, w,
-            int(bool(is_vertical)), stream,
-        )
-    _raise_on_error(err, "homogeneity kernel")
-    _count_launch("homogeneity")
+    _launch("pysp_homogeneity", lum.device, (
+        lum.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), h, w,
+        int(bool(is_vertical))))
     return out
 
 
@@ -840,15 +784,9 @@ def decision_kernel(
     h, w = r_h.shape
     params = _ahd_params(mat, wb)
     out = torch.empty_like(r_h)
-    lib = load_library()
-    with torch.cuda.device(r_h.device):
-        stream = torch.cuda.current_stream(r_h.device).cuda_stream
-        err = lib.pysp_ahd_decision(
-            *(f.data_ptr() for f in fields), params.data_ptr(), out.data_ptr(), h, w,
-            int(bool(is_hdr)), stream,
-        )
-    _raise_on_error(err, "decision kernel")
-    _count_launch("decision")
+    _launch("pysp_ahd_decision", r_h.device, (
+        *(f.data_ptr() for f in fields), params.data_ptr(), out.data_ptr(), h, w,
+        int(bool(is_hdr))))
     return out
 
 
@@ -896,22 +834,18 @@ def multisection_kernel(delta: Tensor, lo: Tensor, hi: Tensor, target: float, it
         delta = delta.contiguous()
     p, h, w = delta.shape
     branches = int(branches)
-    lib = load_library()
 
-    def launch(bracket: Tensor, counts: Tensor, narrow: bool) -> None:
-        _check(bracket, "bracket", (2, p), delta.device)
-        err = lib.pysp_multisection(
-            delta.data_ptr(), p, h * w, delta.stride(0), bracket.data_ptr(), counts.data_ptr(),
-            counts[p * branches:].data_ptr(), branches, float(target), int(narrow),
-            torch.cuda.current_stream(delta.device).cuda_stream,
-        )
-        _raise_on_error(err, "multisection kernel")
-        _count_launch("multisection")
+    def args(bracket: Tensor, counts: Tensor, narrow: bool) -> tuple:
+        return (delta.data_ptr(), p, h * w, delta.stride(0), bracket.data_ptr(),
+                counts.data_ptr(), counts[p * branches:].data_ptr(), branches, float(target),
+                int(narrow))
 
     def count(lo: Tensor, hi: Tensor) -> Tensor:
         # one pass's counts (P, B), and the ticket that a counting launch leaves alone
         counts = torch.zeros(p * branches + 1, dtype=torch.int32, device=delta.device)
-        launch(torch.stack([lo, hi]), counts, narrow=False)
+        bracket = torch.stack([lo, hi])
+        _check(bracket, "bracket", (2, p), delta.device)
+        _launch("pysp_multisection", delta.device, args(bracket, counts, False))
         return counts[:-1].view(p, branches)
 
     with torch.cuda.device(delta.device):
@@ -919,9 +853,10 @@ def multisection_kernel(delta: Tensor, lo: Tensor, hi: Tensor, target: float, it
             return multisection_plain(delta, lo, hi, target, iters, branches, psum_counts,
                                       count)
         bracket = torch.stack([lo, hi])
+        _check(bracket, "bracket", (2, p), delta.device)
         # a pass's counts (P, B) and the ticket of its last block, a row a pass
         counts = torch.zeros((int(iters), p * branches + 1), dtype=torch.int32,
                              device=delta.device)
-        for it in range(int(iters)):
-            launch(bracket, counts[it], narrow=True)
+        _launch("pysp_multisection", delta.device,
+                *(args(bracket, counts[it], True) for it in range(int(iters))))
         return bracket[0], bracket[1]

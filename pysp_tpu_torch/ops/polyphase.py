@@ -35,3 +35,21 @@ def quad_to_bayer(quad: Quad) -> Tensor:
     even = torch.stack([p00, p01], dim=-1).reshape(*lead, h2, w2 * 2)
     odd = torch.stack([p10, p11], dim=-1).reshape(*lead, h2, w2 * 2)
     return torch.stack([even, odd], dim=-2).reshape(*lead, h2 * 2, w2 * 2)
+
+
+def color_tail_quads(quads, mat: Tensor, clip_highlights: bool, gamma_encode: bool):
+    """The develop's colour tail (``colorimetry.transforms.color_tail_channels``)
+    on each phase of the (r, g, b) ``quads``, then each channel assembled to
+    full resolution: the tail of the fused Draft and Fast develops."""
+    from ..colorimetry.transforms import color_tail_channels
+
+    rq, gq, bq = quads
+    tailed = [[[None, None], [None, None]] for _ in range(3)]
+    for py in (0, 1):
+        for px in (0, 1):
+            channels = color_tail_channels(
+                rq[py][px], gq[py][px], bq[py][px], mat, clip_highlights, gamma_encode
+            )
+            for k, v in enumerate(channels):
+                tailed[k][py][px] = v
+    return tuple(quad_to_bayer(tailed[k]) for k in range(3))

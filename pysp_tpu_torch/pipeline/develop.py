@@ -8,24 +8,28 @@ rebuilt from the unclipped ones, ``correct/highlights.py``, then a soft knee
 before gamma). ``develop_with_stats`` adds the sensor and output statistics
 of ``utils/tracing.py``.
 
-``use_pallas`` keeps its name and meaning: use the hand-written kernels. On a
-CUDA frame, Best then develops in one launch of the AHD kernel, which computes
-the whole frame, border included; more chroma-median stages than that kernel
-takes, and frames under its smallest side, go through the staged AHD route on
-the homogeneity and postprocess kernels. A kernel that cannot build or launch
-raises.
-With ``highlights="reconstruct"`` a CUDA Best frame develops through one
-launch of the AHD kernel in its demosaic-only mode (the (3, H, W) planes, no
-clip, matrix or gamma inside), and the reconstruction and the colour tail
-follow in plain PyTorch.
-On a CPU frame the plain PyTorch path runs, as the JAX package runs XLA off
-the TPU. Draft and Fast are plain PyTorch on every device, as they are plain
-XLA in the JAX package.
+``use_pallas`` keeps its name and meaning: use the hand-written kernels.
+``demosaic.develop_route`` picks a develop's route from what it can see (the
+tier, the highlight mode, the frame's device and shape, ``use_pallas`` and
+the AHD kernel's gate), and nothing else decides it. On a CUDA frame Best
+then develops in one launch of the AHD kernel, which computes the whole
+frame, border included; more chroma-median stages than that kernel takes,
+and frames under its smallest side, go through the staged AHD route on the
+homogeneity and postprocess kernels. A kernel that cannot build or launch
+raises. With ``highlights="reconstruct"`` a CUDA Best frame develops through
+one launch of the AHD kernel in its demosaic-only mode (the (3, H, W)
+planes, no clip, matrix or gamma inside), and the reconstruction and the
+colour tail follow in plain PyTorch. On a CPU frame the plain PyTorch path
+runs, as the JAX package runs XLA off the TPU. Draft and Fast are plain
+PyTorch on every device, as they are plain XLA in the JAX package.
+``develop_to_image`` (and ``demosaic``) demosaic alone: the staged route on
+the card, as in the JAX package.
 
 With the recorder of ``utils/tracing.py`` on, a develop is the span
 ``develop`` (timed on the device too), with ``develop.color_matrix`` (the
-cam->lin-sRGB matrix and the reciprocal WB gains: the small launches before
-the AHD kernel), ``develop.demosaic`` (the AHD kernel's wrapper, or the
+cam->lin-sRGB matrix, computed once a develop on every route: before
+Best's demosaic, the small launches ahead of the AHD kernel; after Draft's
+and Fast's planes), ``develop.demosaic`` (the AHD kernel's wrapper, or the
 plain tier) and ``develop.tail`` (the plain colour tail, where it runs)
 inside; none of them reads the thread's CPU clock (``span(cpu=False)``).
 """
@@ -35,11 +39,16 @@ import dataclasses
 
 import torch
 
-from ..colorimetry.transforms import cam_to_lin_srgb_matrix
+from ..colorimetry.transforms import cam_to_lin_srgb_matrix, color_tail_channels
 from ..const import BayerPattern, QualityDemosaic
 from ..core.bayer import reversible_transform_rggb
 from ..core.frame import DevelopedImage, RawFrame, unstack_frames
-from ..demosaic import demosaic
+from ..demosaic import Route, demosaic, develop_route
+from ..demosaic.ahd import ahd_channels
+from ..demosaic.ahd_mega import demosaic_ahd_mega
+from ..demosaic.draft import demosaic_draft_channels, draft_phases
+from ..demosaic.eag import demosaic_eag_channels, eag_phases
+from ..ops.polyphase import color_tail_quads
 from ..utils.tracing import span
 
 Tensor = torch.Tensor
@@ -61,13 +70,12 @@ class DevelopConfig:
     highlights: str = "clip"
 
 
-def _use_kernel(frame: RawFrame, cfg: DevelopConfig) -> bool:
-    return (
-        cfg.quality == QualityDemosaic.Best
-        and cfg.use_pallas
-        and frame.bayer.device.type == "cuda"
-        and frame.bayer.ndim == 2
-    )
+# Draft's and Fast's functions of (frame, wb): (the fused develop's phase
+# planes, the channels).
+_TIERS = {
+    QualityDemosaic.Draft: (draft_phases, demosaic_draft_channels),
+    QualityDemosaic.Fast: (eag_phases, demosaic_eag_channels),
+}
 
 
 def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
@@ -79,52 +87,6 @@ def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
             image=reversible_transform_rggb(dev.image, frame.source_pattern)
         )
     return dev
-
-
-def _demosaic_channels(frame: RawFrame, cfg: DevelopConfig):
-    from ..demosaic.ahd import demosaic_ahd_channels
-    from ..demosaic.draft import demosaic_draft_channels
-    from ..demosaic.eag import demosaic_eag_channels
-
-    if cfg.quality == QualityDemosaic.Best:
-        if _use_kernel(frame, cfg):
-            from ..demosaic.ahd_mega import demosaic_ahd_mega
-
-            # The AHD kernel; the staged route for frames it does not take.
-            return demosaic_ahd_mega(frame, cfg.postprocess_stages)
-        return demosaic_ahd_channels(frame, cfg.postprocess_stages, cfg.use_pallas)
-    if cfg.quality == QualityDemosaic.Fast:
-        return demosaic_eag_channels(frame)
-    if cfg.quality == QualityDemosaic.Draft:
-        return demosaic_draft_channels(frame)
-    raise NotImplementedError(f"Quality mode not implemented: {cfg.quality}")
-
-
-def _color_tail_channels(
-    r: Tensor, g: Tensor, b: Tensor, mat: Tensor,
-    clip_highlights: bool, gamma_encode: bool,
-):
-    """Channelwise colour tail: clip -> cam->lin-sRGB matrix -> sRGB gamma.
-    The plain version of the AHD kernel's fused tail."""
-    if clip_highlights:
-        r = torch.clamp(r, 0.0, 1.0)
-        g = torch.clamp(g, 0.0, 1.0)
-        b = torch.clamp(b, 0.0, 1.0)
-    ir = mat[0, 0] * r + mat[0, 1] * g + mat[0, 2] * b
-    ig = mat[1, 0] * r + mat[1, 1] * g + mat[1, 2] * b
-    ib = mat[2, 0] * r + mat[2, 1] * g + mat[2, 2] * b
-
-    if gamma_encode:
-        def gamma(x):
-            x = torch.clamp(x, 0.0, 1.0)
-            return torch.where(
-                x <= 0.0031308,
-                x * 12.92,
-                1.055 * torch.pow(torch.clamp(x, min=1e-12), 1.0 / 2.4) - 0.055,
-            )
-
-        ir, ig, ib = gamma(ir), gamma(ig), gamma(ib)
-    return ir, ig, ib
 
 
 def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
@@ -141,60 +103,60 @@ def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Tensor:
     frame's WB gains and ``lim_sat``, the cam->lin-sRGB matrix with no clip
     before it, the soft knee of ``max(c, 0)``, then gamma."""
     with span("develop", device=frame.bayer.device, cpu=False):
-        out = srgb = None
-        if cfg.highlights == "reconstruct":
-            srgb = _reconstruct_channels(frame, cfg)
-        elif _use_kernel(frame, cfg):
-            from ..demosaic.ahd_mega import develop_channels_mega
-
-            out = develop_channels_mega(
-                frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
-            )
-        if out is None and srgb is None and frame.bayer.ndim == 2:
-            if cfg.quality == QualityDemosaic.Draft:
-                from ..demosaic.draft import develop_channels_draft
-
-                with span("develop.demosaic", cpu=False):
-                    srgb = develop_channels_draft(frame, cfg.clip_highlights, cfg.gamma_encode)
-            elif cfg.quality == QualityDemosaic.Fast:
-                from ..demosaic.eag import develop_channels_eag
-
-                with span("develop.demosaic", cpu=False):
-                    srgb = develop_channels_eag(frame, cfg.clip_highlights, cfg.gamma_encode)
-        if out is None:
-            if srgb is None:
-                with span("develop.demosaic", cpu=False):
-                    r, g, b = _demosaic_channels(frame, cfg)
-                with span("develop.color_matrix", cpu=False):
-                    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-                with span("develop.tail", cpu=False):
-                    srgb = _color_tail_channels(
-                        r, g, b, mat, cfg.clip_highlights, cfg.gamma_encode
-                    )
+        route = develop_route(cfg.quality, cfg.use_pallas, frame.bayer.device,
+                              frame.bayer.shape, cfg.postprocess_stages, cfg.highlights)
+        tail = (cfg.clip_highlights, cfg.gamma_encode)
+        # Best's demosaic needs the matrix. Draft and Fast take it after their
+        # planes, whose launches keep the card busy while the host launches
+        # the matrix's small ones.
+        mat = _color_matrix(frame) if cfg.quality == QualityDemosaic.Best else None
+        wb = frame.wb_reciprocal()
+        with span("develop.demosaic", cpu=False):
+            if route is Route.AHD_KERNEL:
+                out = demosaic_ahd_mega(frame, mat, wb, cfg.postprocess_stages, tail)
+            elif route is Route.AHD_KERNEL_PLANES:
+                rgb = demosaic_ahd_mega(frame, mat, wb, cfg.postprocess_stages).unbind(0)
+            elif route is Route.FUSED:
+                rgb = _TIERS[cfg.quality][0](frame, wb)
+            elif route is Route.CHANNELS:
+                rgb = _TIERS[cfg.quality][1](frame, wb)
+            else:
+                rgb = ahd_channels(frame.bayer, mat, wb, frame.is_hdr, cfg.postprocess_stages,
+                                   staged=route is Route.AHD_STAGED)
+        if route is not Route.AHD_KERNEL:
+            if mat is None:
+                mat = _color_matrix(frame)
+            with span("develop.tail", cpu=False):
+                if route is Route.FUSED:
+                    srgb = color_tail_quads(rgb, mat, *tail)
+                elif cfg.highlights == "reconstruct":
+                    srgb = _reconstruct_tail(*rgb, frame, mat, wb, cfg.gamma_encode)
+                else:
+                    srgb = color_tail_channels(*rgb, mat, *tail)
             out = torch.stack(srgb, dim=-1).to(torch.float32)
         if frame.source_pattern != BayerPattern.Rggb:
             out = reversible_transform_rggb(out, frame.source_pattern)
         return out
 
 
-def _reconstruct_channels(frame: RawFrame, cfg: DevelopConfig):
-    """The develop's (r, g, b) with the clipped channels reconstructed."""
+def _color_matrix(frame: RawFrame) -> Tensor:
+    """The frame's cam->lin-sRGB matrix: once a develop, in its span."""
+    with span("develop.color_matrix", cpu=False):
+        return cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+
+
+def _reconstruct_tail(r, g, b, frame: RawFrame, mat, wb, gamma_encode: bool):
+    """The clipped channels reconstructed against ``wb`` and ``lim_sat``,
+    then the matrix with no pre-matrix clip: super-white survives it, and a
+    soft knee brings it under 1.0 with tonal separation before gamma."""
     from ..colorimetry.transforms import lin_srgb_to_srgb
     from ..correct.highlights import compress_highlights, reconstruct_highlights_channels
 
-    with span("develop.demosaic", cpu=False):
-        r, g, b = _demosaic_channels(frame, cfg)
-    with span("develop.color_matrix", cpu=False):
-        wb = frame.wb_reciprocal()
-        mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-    with span("develop.tail", cpu=False):
-        r, g, b = reconstruct_highlights_channels(r, g, b, wb, frame.lim_sat)
-        # no pre-matrix clip: super-white survives the matrix, then a soft knee
-        # brings it under 1.0 with tonal separation before gamma
-        srgb = [compress_highlights(torch.clamp(c, min=0.0))
-                for c in _color_tail_channels(r, g, b, mat, False, False)]
-        if cfg.gamma_encode:
-            srgb = [lin_srgb_to_srgb(c) for c in srgb]
+    r, g, b = reconstruct_highlights_channels(r, g, b, wb, frame.lim_sat)
+    srgb = [compress_highlights(torch.clamp(c, min=0.0))
+            for c in color_tail_channels(r, g, b, mat, False, False)]
+    if gamma_encode:
+        srgb = [lin_srgb_to_srgb(c) for c in srgb]
     return srgb
 
 

@@ -56,9 +56,9 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from ..const import QualityDemosaic
 from ..core.device import CARD, resolve_device
 from ..core.frame import RawFrame
+from ..demosaic import develop_route
 from ..utils.tracing import count, new_item, span
 from .develop import DevelopConfig, develop
 
@@ -162,7 +162,9 @@ def _developed(sources, cfg, decode_workers, prefetch, loader, device):
     lanes = None
     if device.type == "cuda":
         lanes = _CudaLanes(device)
-        if cfg.use_pallas and cfg.quality == QualityDemosaic.Best:
+        # whether the develop's route launches kernels does not depend on the
+        # frame's shape, which no decode has given yet
+        if develop_route(cfg.quality, cfg.use_pallas, device, ()).uses_kernels:
             from ..ops.cuda_kernels import load_library
 
             load_library()

@@ -213,17 +213,15 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """The counters, and each kernel launch counter of ``ops/cuda_kernels.py``
-    (``<name>_kernel_launches``) as ``kernels.<name>.launches``: the stable
+    """The counters, and each kernel launch count of ``ops/cuda_kernels.py``
+    (``launch_counts[<name>]``) as ``kernels.<name>.launches``: the stable
     way to read them."""
     from ..ops import cuda_kernels
 
     with _counters_lock:
         out = dict(_counters)
-    suffix = "_kernel_launches"
-    for key, value in vars(cuda_kernels).items():
-        if key.endswith(suffix) and isinstance(value, int):
-            out[f"kernels.{key[:-len(suffix)]}.launches"] = value
+    for name, value in cuda_kernels.launch_counts.items():
+        out[f"kernels.{name}.launches"] = value
     return out
 
 

@@ -26,11 +26,14 @@ from pysp_tpu.demosaic.ahd import demosaic_ahd_channels as jax_ahd
 from pysp_tpu.demosaic.ahd import postprocess_color as jax_postprocess_image
 from pysp_tpu.demosaic.ahd import postprocess_color_channels as jax_postprocess
 from pysp_tpu.utils.testing import make_scene, mosaic_rggb, psnr
-from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
+from pysp_tpu_torch.colorimetry import transforms
+from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix, color_tail_channels
+from pysp_tpu_torch.const import QualityDemosaic
 from pysp_tpu_torch.core.frame import RawFrame
-from pysp_tpu_torch.demosaic import homogeneity
+from pysp_tpu_torch.demosaic import Route, develop_route, homogeneity
 from pysp_tpu_torch.demosaic.ahd import (
     ahd_candidates,
+    ahd_channels,
     ahd_decision,
     ahd_decision_plain,
     demosaic_ahd_channels,
@@ -39,7 +42,8 @@ from pysp_tpu_torch.demosaic.ahd import (
 )
 from pysp_tpu_torch.ops.stencil import median5
 from pysp_tpu_torch.ops import cuda_kernels as K
-from pysp_tpu_torch.pipeline.develop import _color_tail_channels
+from pysp_tpu_torch.pipeline import develop as develop_module
+from pysp_tpu_torch.pipeline.develop import DevelopConfig, develop
 
 torch.set_num_threads(1)
 mega = importlib.import_module("pysp_tpu_torch.demosaic.ahd_mega")
@@ -103,25 +107,34 @@ def test_stitch_on_cpu_equals_plain_whole_frame(is_hdr, stages, shape):
     mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
     wb = tf.wb_reciprocal()
     want = demosaic_ahd_channels(tf, stages)
-    got = mega.demosaic_ahd_mega(tf, stages)
+    got = mega.demosaic_ahd_mega(tf, mat, wb, stages)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert torch.equal(torch.stack(got), K.ahd_plain(tf.bayer, mat, wb, is_hdr, stages))
+    assert torch.equal(got, K.ahd_plain(tf.bayer, mat, wb, is_hdr, stages))
 
     for tail in ((True, True), (False, False), (True, False)):
-        want_img = torch.stack(_color_tail_channels(*want, mat, *tail), dim=-1)
-        got_img = mega.develop_channels_mega(tf, stages, *tail)
+        want_img = torch.stack(color_tail_channels(*want, mat, *tail), dim=-1)
+        got_img = mega.demosaic_ahd_mega(tf, mat, wb, stages, tail)
         assert torch.equal(got_img, want_img)
         assert torch.equal(got_img, K.ahd_plain(tf.bayer, mat, wb, is_hdr, stages, tail))
 
 
 def test_frames_outside_the_kernel_path_fall_back():
     """More stages than the kernel takes go whole to the staged route; so do
-    frames with a side under ``AHD_MIN_SIDE``, which the gate refuses."""
+    frames with a side under ``AHD_MIN_SIDE``, which the gate refuses. The
+    wrapper refuses them itself."""
     _, big = _frames(256, 256, seed=8)
-    assert mega.develop_channels_mega(big, K.AHD_MAX_STAGES + 1, True, True) is None
-    for g, w in zip(mega.demosaic_ahd_mega(big, 3), demosaic_ahd_channels(big, 3)):
+    best = QualityDemosaic.Best
+    assert develop_route(best, True, "cuda", (256, 256), K.AHD_MAX_STAGES + 1) is Route.AHD_STAGED
+    assert develop_route(best, True, "cuda", (2, 64), 1) is Route.AHD_STAGED
+    assert develop_route(best, True, "cuda", (256, 256), K.AHD_MAX_STAGES) is Route.AHD_KERNEL
+    mat = cam_to_lin_srgb_matrix(big.cam_mat, big.cam_white)
+    staged = ahd_channels(big.bayer, mat, big.wb_reciprocal(), False, 3, staged=True)
+    for g, w in zip(staged, demosaic_ahd_channels(big, 3)):
         assert torch.equal(g, w)
+    meta = [t.to("meta") for t in (big.bayer, mat, big.wb_reciprocal())]
+    with pytest.raises(ValueError, match="stages"):
+        K.ahd_kernel(*meta, False, K.AHD_MAX_STAGES + 1)
     assert K.AHD_MIN_SIDE == 4
     assert K.ahd_kernel_admits((4, 6), 2) and K.ahd_kernel_admits((4000, 6000), 0)
     assert not K.ahd_kernel_admits((2, 64), 1) and not K.ahd_kernel_admits((64, 2), 1)
@@ -130,7 +143,7 @@ def test_frames_outside_the_kernel_path_fall_back():
 
 
 def _launch_counts():
-    return tuple(getattr(K, f"{name}_kernel_launches")
+    return tuple(K.launch_counts[name]
                  for name in ("ahd", "postprocess", "median5", "homogeneity", "decision"))
 
 
@@ -231,6 +244,81 @@ def test_staged_route_with_use_pallas_equals_plain_on_cpu(is_hdr, stages):
     _, tf = _frames(64, 96, seed=5, is_hdr=is_hdr)
     before = _launch_counts()
     got = demosaic_ahd_channels(tf, stages, use_pallas=True)
-    for g, w in zip(got, demosaic_ahd_channels(tf, stages, use_pallas=False)):
-        assert torch.equal(g, w)
+    want = demosaic_ahd_channels(tf, stages, use_pallas=False)
+    mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
+    staged = ahd_channels(tf.bayer, mat, tf.wb_reciprocal(), is_hdr, stages, staged=True)
+    for g, s, w in zip(got, staged, want):
+        assert torch.equal(g, w) and torch.equal(s, w)
     assert _launch_counts() == before
+
+
+# --- the develop's route and its colour matrix -------------------------------------
+
+
+def _cascade_route(quality, use_pallas, device, shape, stages, highlights, tail):
+    """The route of a develop (``tail``) or of ``demosaic`` alone, written out
+    apart from the route function as a cascade of tests: Best with the kernels
+    on a CUDA (H, W) frame takes the AHD kernel where its gate admits the
+    frame and the stages, and the staged route otherwise; Draft and Fast
+    develop fused on an (H, W) frame unless they reconstruct."""
+    on_card = use_pallas and device == "cuda"
+    best = quality == QualityDemosaic.Best
+    if not tail:
+        return (Route.AHD_STAGED if on_card else Route.AHD_PLAIN) if best else Route.CHANNELS
+    use_kernel = best and on_card and len(shape) == 2
+    admits = len(shape) == 2 and stages <= K.AHD_MAX_STAGES and all(
+        n % 2 == 0 and n >= K.AHD_MIN_SIDE for n in shape)
+    if use_kernel and admits:
+        return Route.AHD_KERNEL_PLANES if highlights == "reconstruct" else Route.AHD_KERNEL
+    if not best:
+        flat = len(shape) == 2 and highlights != "reconstruct"
+        return Route.FUSED if flat else Route.CHANNELS
+    return Route.AHD_STAGED if on_card else Route.AHD_PLAIN
+
+
+@pytest.mark.parametrize("tail", [True, False])
+@pytest.mark.parametrize("highlights", ["clip", "reconstruct"])
+@pytest.mark.parametrize("stages", [1, K.AHD_MAX_STAGES + 1])
+@pytest.mark.parametrize("shape", [(64, 96), (2, 64), (63, 96), (3, 64, 96)])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("quality", list(QualityDemosaic))
+def test_develop_route_matches_the_cascade(quality, use_pallas, device, shape, stages,
+                                           highlights, tail):
+    """Every combination of what the route function observes picks the
+    cascade's route. It needs no card: it reads the device's type only."""
+    want = _cascade_route(quality, use_pallas, device, shape, stages, highlights, tail)
+    got = develop_route(quality, use_pallas, device, shape, stages, highlights, tail)
+    assert got is want
+    assert got.uses_kernels == (quality == QualityDemosaic.Best and use_pallas
+                                and device == "cuda")
+
+
+# A develop's route on a CPU frame, forced where the CPU would not take it (the
+# kernel wrappers run their plain versions there), with its config.
+ROUTE_CASES = {
+    Route.AHD_KERNEL: DevelopConfig(),
+    Route.AHD_KERNEL_PLANES: DevelopConfig(highlights="reconstruct"),
+    Route.AHD_STAGED: DevelopConfig(postprocess_stages=3),
+    Route.AHD_PLAIN: DevelopConfig(),
+    Route.FUSED: DevelopConfig(quality=QualityDemosaic.Draft),
+    Route.CHANNELS: DevelopConfig(quality=QualityDemosaic.Fast, highlights="reconstruct"),
+}
+
+
+@pytest.mark.parametrize("route", list(Route), ids=lambda r: r.name)
+def test_a_develop_computes_the_colour_matrix_once(monkeypatch, route):
+    """Every route takes the matrix and the WB gains that ``develop`` computed
+    (one ``cam_to_lin_srgb_matrix`` a develop), and a forced route gives the
+    plain route's image on the CPU."""
+    _, tf = _frames(32, 48, seed=11)
+    cfg = ROUTE_CASES[route]
+    want = develop(tf, cfg)
+    calls = []
+    matrix = transforms.cam_to_rgb_norm_matrix
+    monkeypatch.setattr(transforms, "cam_to_rgb_norm_matrix",
+                        lambda *a: calls.append(1) or matrix(*a))
+    monkeypatch.setattr(develop_module, "develop_route", lambda *a: route)
+    got = develop(tf, cfg)
+    assert len(calls) == 1
+    assert torch.equal(got, want)

@@ -156,7 +156,7 @@ def test_median_detector_on_cpu_planes_never_loads_the_kernels(monkeypatch):
         raise AssertionError("the CPU detector loaded the CUDA kernels")
 
     monkeypatch.setattr(K, "load_library", no_library)
-    before = K.multisection_kernel_launches
+    before = K.launch_counts["multisection"]
     with jax.disable_jit():
         jf, tf = _pair(_mosaic(96, 128, seed=4, hot=6))
         jd, td = _median_deltas(jf, tf)
@@ -168,7 +168,7 @@ def test_median_detector_on_cpu_planes_never_loads_the_kernels(monkeypatch):
     strong = (want_q * 1.5).reshape(4, 1, 1)
     near = np.abs(np.asarray(jd) - strong) <= 1e-6 * strong
     np.testing.assert_array_equal(got[~near], want[~near])
-    assert K.multisection_kernel_launches == before
+    assert K.launch_counts["multisection"] == before
 
 
 def test_find_shared_pixels_equal():

@@ -73,9 +73,9 @@ def _frame(h, w, seed, is_hdr, device, noise=0.0):
 ])
 def test_postprocess_kernel_bit_exact(cuda, shape):
     chans = list(torch.from_numpy(chroma_case(*shape, seed=shape[0])).to(cuda))
-    before = K.postprocess_kernel_launches
+    before = K.launch_counts["postprocess"]
     got = K.postprocess_color_kernel(*chans)
-    assert K.postprocess_kernel_launches == before + 1
+    assert K.launch_counts["postprocess"] == before + 1
     for g, w in zip(got, postprocess_color_channels(*chans)):
         assert torch.equal(g, w)
 
@@ -103,12 +103,14 @@ def test_ahd_kernel_against_plain(cuda, is_hdr, stages, shape):
     every pixel but the flipped ones equals the plain version's bit for bit;
     with S stages every pixel outside the 4 S px dilation of that set."""
     frame = _frame(*shape, seed=shape[0], is_hdr=is_hdr, device=cuda, noise=0.03)
-    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-              K.postprocess_kernel_launches)
-    got0 = torch.stack(demosaic_ahd_mega(frame, 0))
-    got = torch.stack(demosaic_ahd_mega(frame, stages))
-    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-            K.postprocess_kernel_launches) == (before[0] + 2, before[1], before[2])
+    before = (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+              K.launch_counts["postprocess"])
+    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
+    wb = frame.wb_reciprocal()
+    got0 = demosaic_ahd_mega(frame, mat, wb, 0)
+    got = demosaic_ahd_mega(frame, mat, wb, stages)
+    assert (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+            K.launch_counts["postprocess"]) == (before[0] + 2, before[1], before[2])
     flipped = (got0 != torch.stack(demosaic_ahd_channels(frame, 0))).any(dim=0)
     assert float(flipped.float().mean()) <= MAX_AHD_FLIPS
     want = torch.stack(demosaic_ahd_channels(frame, stages))
@@ -139,9 +141,9 @@ def test_small_frames_take_the_ahd_kernel_whole(cuda, shape):
     the AHD kernel like any other, and the image is the plain one's but for
     tie flips."""
     frame = _frame(*shape, seed=5, is_hdr=False, device=cuda)
-    before = (K.ahd_kernel_launches, K.postprocess_kernel_launches)
+    before = (K.launch_counts["ahd"], K.launch_counts["postprocess"])
     got = develop(frame)
-    assert (K.ahd_kernel_launches, K.postprocess_kernel_launches) == (before[0] + 1, before[1])
+    assert (K.launch_counts["ahd"], K.launch_counts["postprocess"]) == (before[0] + 1, before[1])
     want = develop(frame, DevelopConfig(use_pallas=False))
     assert float(((got - want).abs() > 1e-4).any(dim=-1).float().mean()) <= 0.01
     assert psnr(got.cpu().numpy(), want.cpu().numpy()) >= 50
@@ -199,9 +201,9 @@ def test_rl_kernel_against_plain(cuda, sigma, iters, channels):
 
     img = _rl_image(203, 330, channels, cuda)
     taps = get_1d_gaussian_filter(sigma)
-    before = K.rl_kernel_launches
+    before = K.launch_counts["rl"]
     got = K.rl_kernel(img, taps, iters)
-    assert K.rl_kernel_launches == before + iters
+    assert K.launch_counts["rl"] == before + iters
     assert torch.equal(got, K.rl_plain(img, taps, iters))
 
 
@@ -213,14 +215,14 @@ def test_rl_gate_on_the_card(cuda):
 
     taps = get_1d_gaussian_filter(2.0)
     small = _rl_image(64, 80, 1, cuda)[:10].contiguous()
-    before = K.rl_kernel_launches
+    before = K.launch_counts["rl"]
     out = gaussian_rt_deconvolution(small, 2.0, 3)
-    assert K.rl_kernel_launches == before
+    assert K.launch_counts["rl"] == before
     assert torch.equal(out, K.rl_plain(small, taps, 3))
     with pytest.raises(ValueError, match="RL kernel"):
         K.rl_kernel(small, taps, 3)
     gaussian_rt_deconvolution(_rl_image(64, 80, 3, cuda), 2.0, 3)
-    assert K.rl_kernel_launches == before + 3
+    assert K.launch_counts["rl"] == before + 3
 
 
 def _remap_maps(h, w, channels, device):
@@ -246,9 +248,9 @@ def test_remap_kernel_against_plain(cuda, kind, bounds, channels, maps):
     mx, my = _remap_maps(h, w, channels if maps == "per_channel" else 1, cuda)
     if maps == "shared":
         mx, my = mx[0], my[0]
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     got = K.remap_kernel(img, mx, my, kind, bounds, channels_last=channels > 1)
-    assert K.remap_kernel_launches == before + 1
+    assert K.launch_counts["remap"] == before + 1
     _assert_remap_close(got, img, mx, my, kind, bounds, channels > 1)
 
 
@@ -301,9 +303,9 @@ def test_remap_bilinear_stacks(cuda, planes, layout, maps, bounds):
         img = img[..., 0].contiguous()
     elif not channels_last:
         img = img.permute(2, 0, 1).contiguous()
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     got = K.remap_kernel(img, mx, my, "bilinear", bounds, channels_last)
-    assert K.remap_kernel_launches == before + 1
+    assert K.launch_counts["remap"] == before + 1
     assert torch.equal(got, K.remap_plain(img, mx, my, "bilinear", bounds, channels_last))
 
 
@@ -337,13 +339,13 @@ def test_finishing_path_with_kernels_against_plain(cuda):
     def sharpen(deconv):
         return lin_srgb_to_srgb(torch.clamp(unsharp_mask_lab(deconv, 2.0, 0.5), 0.0, 1.0))
 
-    before = (K.rl_kernel_launches, K.remap_kernel_launches)
+    before = (K.launch_counts["rl"], K.launch_counts["remap"])
     got = apply_opcode_3_warp(sharpen(gaussian_rt_deconvolution_yuv(lin, 1.0, 20)), block)
-    assert (K.rl_kernel_launches, K.remap_kernel_launches) == (before[0] + 20, before[1] + 1)
+    assert (K.launch_counts["rl"], K.launch_counts["remap"]) == (before[0] + 20, before[1] + 1)
     y = 0.299 * lin[..., 0] + 0.587 * lin[..., 1] + 0.114 * lin[..., 2]
     y_mod = K.rl_plain(y, get_1d_gaussian_filter(1.0), 20)
     want = _plain_warp(sharpen(lin * (y_mod / y)[..., None]), co, center)
-    assert (K.rl_kernel_launches, K.remap_kernel_launches) == (before[0] + 20, before[1] + 1)
+    assert (K.launch_counts["rl"], K.launch_counts["remap"]) == (before[0] + 20, before[1] + 1)
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= 1e-4
 
@@ -364,24 +366,24 @@ def test_bounded_and_prior_warps_with_kernels_against_plain(cuda):
     mx, my = _remap_maps(h, w, 3, cuda)
     planes = img.permute(2, 0, 1).contiguous()
     for kind in ("bilinear", "lanczos4"):
-        before = K.remap_kernel_launches
+        before = K.launch_counts["remap"]
         got = remap_bounded(planes, mx, my, (-3, 1), (-2, 3), kind)
-        assert K.remap_kernel_launches == before + 1
+        assert K.launch_counts["remap"] == before + 1
         want = remap_bounded(planes, mx, my, (-3, 1), (-2, 3), kind, use_pallas=False)
-        assert K.remap_kernel_launches == before + 1
+        assert K.launch_counts["remap"] == before + 1
         assert (got - want).abs().max().item() <= REMAP_ATOL[kind]
     co, center = (1.0, -0.02, 0.0, 0.0, 0.0, 0.0), (0.5, 0.5)
     block = encode_warp_rectilinear([co] * 3, center)
     prior = stack_warp_prior((h, w), (mx[0], my[0]), None, (mx[2], my[2]))
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     got = apply_opcode_3_warp(img, block, prior=prior)
-    assert K.remap_kernel_launches == before + 3
+    assert K.launch_counts["remap"] == before + 3
     want = []
     for idx in range(3):
         tx, ty = compute_offset_remapping_table(prior[idx][0], prior[idx][1], co, w, h, center)
         want.append(K.remap_plain(img[..., idx].contiguous(), tx.clamp(0, w - 1),
                                   ty.clamp(0, h - 1), "lanczos4"))
-    assert K.remap_kernel_launches == before + 3
+    assert K.launch_counts["remap"] == before + 3
     assert (got - torch.stack(want, dim=-1)).abs().max().item() <= REMAP_ATOL["lanczos4"]
 
 
@@ -404,9 +406,9 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("shape", [(256, 384), (253, 381), (3, 5), (1, 1)])
 def test_heal_kernel_bit_exact(cuda, shape, density, sweeps):
     planes, mask = (torch.from_numpy(a).to(cuda) for a in heal_case(*shape, density, shape[1]))
-    before = K.heal_kernel_launches
+    before = K.launch_counts["heal"]
     got = K.heal_kernel(planes, mask, *sweeps)
-    assert K.heal_kernel_launches == before + 1
+    assert K.launch_counts["heal"] == before + 1
     assert torch.equal(got, K.heal_plain(planes, mask, *sweeps))
 
 
@@ -439,9 +441,9 @@ def test_repair_bad_pixels_and_its_gate_on_the_card(cuda):
     masks = find_erroneous_pixels_median(frame, quantile=0.99)
     planes = bayer_to_planes(frame.bayer)
     for iterations, launched in ((4, 1), (7, 0)):
-        before = K.heal_kernel_launches
+        before = K.launch_counts["heal"]
         got = bayer_to_planes(repair_bad_pixels(frame, masks, iterations).bayer)
-        assert K.heal_kernel_launches == before + launched
+        assert K.launch_counts["heal"] == before + launched
         assert torch.equal(got, masked_fill_inpaint(planes, masks, iterations))
     with pytest.raises(ValueError, match="sweeps"):
         K.heal_kernel(planes, masks, 7, 2)
@@ -490,9 +492,9 @@ def test_corrections_pipeline_with_the_kernels_against_plain(cuda):
     frame = RawFrame.synthetic(bayer, cam_mat=CAM, wb_neutral=WB, device=cuda)
     flat = RawFrame.synthetic(flat.astype(np.float32), device=cuda)
     cfg3 = PipelineConfig(flat_field=True, repair_hot_pixels=True)
-    before = (K.heal_kernel_launches, K.ahd_kernel_launches)
+    before = (K.launch_counts["heal"], K.launch_counts["ahd"])
     got = develop_pipeline(frame, cfg3, flat=flat)
-    assert (K.heal_kernel_launches, K.ahd_kernel_launches) == (before[0] + 1, before[1] + 1)
+    assert (K.launch_counts["heal"], K.launch_counts["ahd"]) == (before[0] + 1, before[1] + 1)
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert psnr(got.cpu().numpy(), _pipeline_plain(frame, cfg3, flat).cpu().numpy()) >= 50
 
@@ -501,9 +503,9 @@ def test_corrections_pipeline_with_the_kernels_against_plain(cuda):
               for k in range(5)]
     burst = stack_frames(frames)
     cfg4 = PipelineConfig(fuse_hdr=True, repair_hot_pixels=True, hot_pixel_shared_ratio=0.5)
-    before = (K.heal_kernel_launches, K.ahd_kernel_launches)
+    before = (K.launch_counts["heal"], K.launch_counts["ahd"])
     got = develop_pipeline(burst, cfg4)
-    assert (K.heal_kernel_launches, K.ahd_kernel_launches) == (before[0] + 5, before[1] + 1)
+    assert (K.launch_counts["heal"], K.launch_counts["ahd"]) == (before[0] + 5, before[1] + 1)
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert psnr(got.cpu().numpy(), _pipeline_plain(burst, cfg4).cpu().numpy()) >= 50
 
@@ -570,9 +572,9 @@ def test_multisection_kernel_bit_exact(cuda, monkeypatch, kind, shape):
     if kind == "frame":
         frame = RawFrame.synthetic(_hot_mosaic(2 * shape[0], 2 * shape[1], seed=shape[1]),
                                    device=cuda)
-        before = K.multisection_kernel_launches
+        before = K.launch_counts["multisection"]
         masks = find_erroneous_pixels_median(frame)
-        assert K.multisection_kernel_launches == before + 4
+        assert K.launch_counts["multisection"] == before + 4
         assert torch.equal(masks, _with_plain_passes(monkeypatch, find_erroneous_pixels_median,
                                                      frame))
         delta = _detector_delta(frame)
@@ -582,9 +584,9 @@ def test_multisection_kernel_bit_exact(cuda, monkeypatch, kind, shape):
         assert not delta.is_contiguous() and delta[0].is_contiguous()
     else:
         delta = torch.from_numpy(multisection_case(*shape, kind, seed=shape[0])).to(cuda)
-    before = K.multisection_kernel_launches
+    before = K.launch_counts["multisection"]
     got = _bisect_quantile(delta, 0.9999)
-    assert K.multisection_kernel_launches == before + 4
+    assert K.launch_counts["multisection"] == before + 4
     want = _with_plain_passes(monkeypatch, _bisect_quantile, delta, 0.9999)
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
@@ -618,9 +620,9 @@ def _assert_burst_detection_bit_exact(cuda, monkeypatch, shape):
     masks = consensus()
     assert torch.equal(masks, _with_plain_passes(monkeypatch, consensus))
     assert int(masks.sum()) > 0
-    before = K.multisection_kernel_launches
+    before = K.launch_counts["multisection"]
     got = develop_pipeline(stack_frames(frames), cfg)
-    assert K.multisection_kernel_launches == before + 20
+    assert K.launch_counts["multisection"] == before + 20
     assert torch.equal(got, _with_plain_passes(monkeypatch, develop_pipeline,
                                                stack_frames(frames), cfg))
 
@@ -681,9 +683,9 @@ def test_median5_kernel_bit_exact(cuda, shape):
 
     rgb = torch.from_numpy(make_scene(*shape, seed=shape[0])).to(cuda)
     x = (rgb[..., 0] - rgb[..., 1]).contiguous()
-    before = K.median5_kernel_launches
+    before = K.launch_counts["median5"]
     got = K.median5_kernel(x)
-    assert K.median5_kernel_launches == before + 1
+    assert K.launch_counts["median5"] == before + 1
     assert torch.equal(got, median5(x))
 
 
@@ -705,9 +707,9 @@ def test_homogeneity_kernel_bit_exact(cuda, shape, is_vertical):
 
     rgb = torch.from_numpy(make_scene(*shape, seed=shape[1])).to(cuda)
     lum, a, b = (p.contiguous() for p in rgb_to_lab_channels(*rgb.unbind(-1)))
-    before = K.homogeneity_kernel_launches
+    before = K.launch_counts["homogeneity"]
     got = K.homogeneity_kernel(lum, a, b, is_vertical)
-    assert K.homogeneity_kernel_launches == before + 1
+    assert K.launch_counts["homogeneity"] == before + 1
     assert torch.equal(got, homogeneity_map_channels(lum, a, b, is_vertical))
 
 
@@ -734,9 +736,9 @@ def test_decision_kernel_against_plain(cuda, shape, is_hdr):
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
     wb = frame.wb_reciprocal()
     fields = [f.contiguous() for f in ahd_candidates(frame.bayer, wb)]
-    before = K.decision_kernel_launches
+    before = K.launch_counts["decision"]
     got = ahd_decision(*fields, mat, wb, is_hdr)
-    assert K.decision_kernel_launches == before + 1
+    assert K.launch_counts["decision"] == before + 1
     want = ahd_decision_plain(*fields, mat, wb, is_hdr)
     assert float((got != want).float().mean()) <= MAX_PICK_FLIPS
     assert bool(((got == 0) | (got == 1)).all())
@@ -767,11 +769,11 @@ def test_staged_route_with_the_kernels_equals_plain(cuda, is_hdr):
     staged route, two homogeneity launches and one postprocess launch per
     stage, bit-identical to the plain route."""
     frame = _frame(256, 320, seed=6, is_hdr=is_hdr, device=cuda)
-    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-              K.postprocess_kernel_launches)
+    before = (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+              K.launch_counts["postprocess"])
     got = develop(frame, DevelopConfig(postprocess_stages=3))
-    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-            K.postprocess_kernel_launches) == (before[0], before[1] + 2, before[2] + 3)
+    assert (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+            K.launch_counts["postprocess"]) == (before[0], before[1] + 2, before[2] + 3)
     assert torch.equal(got, develop(frame, DevelopConfig(postprocess_stages=3,
                                                          use_pallas=False)))
 
@@ -780,11 +782,11 @@ def test_best_develop_is_one_launch(cuda):
     """A Best develop launches the AHD kernel once and neither the homogeneity
     nor the postprocess kernel."""
     frame = _frame(256, 320, seed=3, is_hdr=False, device=cuda)
-    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-              K.postprocess_kernel_launches)
+    before = (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+              K.launch_counts["postprocess"])
     develop(frame)
-    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-            K.postprocess_kernel_launches) == (before[0] + 1, before[1], before[2])
+    assert (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+            K.launch_counts["postprocess"]) == (before[0] + 1, before[1], before[2])
 
 
 @pytest.mark.parametrize("quality", ["Draft", "Fast"])
@@ -844,9 +846,9 @@ def test_ca_removal_on_the_card_equals_plain(cuda, monkeypatch, case):
     model_r = (PtLensCorrectionModel(0.01, -0.02, 0.015) if case == "ptlens"
                else Poly3CorrectionModel(0.02))
     model_b = None if case == "r_only" else Poly5CorrectionModel(-0.01, 0.004)
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     got = remove_ca_from_raw(frame, model_r, model_b)
-    assert K.remap_kernel_launches == before + (2 if model_b is None else 4)
+    assert K.launch_counts["remap"] == before + (2 if model_b is None else 4)
     want = _ca_removal_plain(monkeypatch, frame, model_r, model_b)
     assert got.bayer.device.type == "cuda" and torch.equal(got.bayer, want.bayer)
     if case == "burst":
@@ -911,9 +913,9 @@ def test_radial_remap_kernel_equals_the_maps_path(cuda, name, inverse, shape):
     mx, my = _maps_from_offsets(coordinates(stack[0]), h, w)
     want = K.remap_kernel(stack, mx, my, "bilinear")
     del mx, my
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     got = K.remap_radial_kernel(stack, model.kernel_form(), inverse)
-    assert K.remap_kernel_launches == before + 1
+    assert K.launch_counts["remap"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(K.remap_radial_plain(stack, model.kernel_form(), inverse), want)
 
@@ -1002,9 +1004,9 @@ def test_postprocess_image_entry_bit_exact(cuda, shape):
 
     image = torch.from_numpy(chroma_case(*shape, seed=shape[1])).to(cuda).permute(1, 2, 0)
     image = image.contiguous()
-    before = K.postprocess_kernel_launches
+    before = K.launch_counts["postprocess"]
     got = postprocess_color(image, use_pallas=True)
-    assert K.postprocess_kernel_launches == before + 1
+    assert K.launch_counts["postprocess"] == before + 1
     assert torch.equal(got, postprocess_color(image))
 
 
@@ -1074,11 +1076,11 @@ def test_reconstruct_develop_is_one_launch_and_matches_plain(cuda, is_hdr):
     frame = RawFrame.synthetic(np.clip(mosaic * lim, 0, lim).astype(np.float32), cam_mat=CAM,
                                wb_neutral=WB, lim_sat=lim, is_hdr=is_hdr, device=cuda)
     cfg = DevelopConfig(highlights="reconstruct")
-    before = (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-              K.postprocess_kernel_launches)
+    before = (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+              K.launch_counts["postprocess"])
     got = develop(frame, cfg)
-    assert (K.ahd_kernel_launches, K.homogeneity_kernel_launches,
-            K.postprocess_kernel_launches) == (before[0] + 1, before[1], before[2])
+    assert (K.launch_counts["ahd"], K.launch_counts["homogeneity"],
+            K.launch_counts["postprocess"]) == (before[0] + 1, before[1], before[2])
     want = develop(frame, DevelopConfig(highlights="reconstruct", use_pallas=False))
     assert got.shape == (256, 320, 3) and bool(torch.isfinite(got).all())
     assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0 + 1e-6
@@ -1090,9 +1092,9 @@ def test_staged_reconstruct_develop_equals_plain(cuda):
     frame = _frame(256, 320, seed=8, is_hdr=False, device=cuda)
     frame = frame.replace(bayer=torch.clamp(frame.bayer * 1.6, 0, 1))
     cfg = DevelopConfig(highlights="reconstruct", postprocess_stages=3)
-    before = K.homogeneity_kernel_launches, K.postprocess_kernel_launches
+    before = K.launch_counts["homogeneity"], K.launch_counts["postprocess"]
     got = develop(frame, cfg)
-    assert (K.homogeneity_kernel_launches, K.postprocess_kernel_launches) == (
+    assert (K.launch_counts["homogeneity"], K.launch_counts["postprocess"]) == (
         before[0] + 2, before[1] + 3)
     want = develop(frame, DevelopConfig(highlights="reconstruct", postprocess_stages=3,
                                         use_pallas=False))
@@ -1159,9 +1161,9 @@ def test_stream_on_the_card_equals_the_sequential_develop(cuda, tmp_path, prefet
 
     paths = _stream_dngs(tmp_path, 32)
     cfg = DevelopConfig()
-    before = K.ahd_kernel_launches
+    before = K.launch_counts["ahd"]
     got = list(develop_stream(paths, cfg, prefetch=prefetch))
-    assert K.ahd_kernel_launches == before + 32
+    assert K.launch_counts["ahd"] == before + 32
     assert [s for s, _ in got] == paths
     for src, img in got:
         want = develop(load_raw(src), cfg).cpu().numpy()
@@ -1231,10 +1233,10 @@ def test_mesh_on_the_card_matches_the_cpu_mesh(cuda, quality):
     cfg = DevelopConfig(quality=getattr(QualityDemosaic, quality))
     card_mesh, cpu_mesh = make_mesh((1, 2), [cuda] * 2), make_mesh((1, 2), ["cpu"] * 2)
     frame = _frame(256, 192, 5, False, cuda, noise=0.01)
-    before = K.ahd_kernel_launches
+    before = K.launch_counts["ahd"]
     got = develop_spatial(frame, cfg, card_mesh)
     assert got.is_cuda
-    assert K.ahd_kernel_launches - before == (2 if quality == "Best" else 0)
+    assert K.launch_counts["ahd"] - before == (2 if quality == "Best" else 0)
     want = develop_spatial(frame.to("cpu"), cfg, cpu_mesh)
     if quality == "Best":
         assert torch.equal(got[16:-16], develop(frame, cfg)[16:-16])

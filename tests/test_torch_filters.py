@@ -170,6 +170,6 @@ def test_rl_kernel_gate_is_the_jax_kernels():
 def test_rl_kernel_wrapper_on_cpu_is_the_plain_loop():
     x = torch.from_numpy(_image(40, 44, 3, seed=14))
     taps = TB.get_1d_gaussian_filter(1.0)
-    before = K.rl_kernel_launches
+    before = K.launch_counts["rl"]
     assert torch.equal(K.rl_kernel(x, taps, 4), K.rl_plain(x, taps, 4))
-    assert K.rl_kernel_launches == before
+    assert K.launch_counts["rl"] == before

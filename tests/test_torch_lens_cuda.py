@@ -88,7 +88,7 @@ def test_the_chain_spans_on_the_card(counts):
     _chain(counts)
     torch.cuda.synchronize()
     tracing.drain()
-    launches = K.remap_kernel_launches
+    launches = K.launch_counts["remap"]
     tracing.enable()
     try:
         before = tracing.counters()
@@ -96,7 +96,7 @@ def test_the_chain_spans_on_the_card(counts):
     finally:
         tracing.disable()
     rec = tracing.drain()
-    assert K.remap_kernel_launches - launches == 5
+    assert K.launch_counts["remap"] - launches == 5
     names = [s.name for s in rec.spans]
     assert names.count("ca.remap") == 4 and names.count("warp.remap") == 1
     # the Poly3 models' coordinates are computed in the remap kernel: no

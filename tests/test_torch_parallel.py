@@ -256,7 +256,7 @@ def test_make_mesh_shapes_and_refusals():
 
 def test_launch_counts_survive_racing_threads():
     """Shard threads count launches at once: no increment is lost."""
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -270,8 +270,8 @@ def test_launch_counts_survive_racing_threads():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
-        K.remap_kernel_launches = before + 16 * 2000
-    assert K.remap_kernel_launches == before + 16 * 2000
+        K.launch_counts["remap"] = before + 16 * 2000
+    assert K.launch_counts["remap"] == before + 16 * 2000
 
 
 # --- the sharded develops against the JAX package ----------------------------------------

@@ -112,7 +112,7 @@ def test_resample_g_to_full_resolution_bit_exact(weighting):
 
 def test_resample_r_and_b_alone_equal_resample_rb():
     _, tf = _frames(seed=3)
-    r_up, g_up, b_up = eag.demosaic_eag_channels(tf)
+    r_up, g_up, b_up = eag.demosaic_eag_channels(tf, tf.wb_reciprocal())
     planes = tf.bayer[0::2, 0::2] * tf.wb_reciprocal()[0], tf.bayer[1::2, 1::2] * tf.wb_reciprocal()[2]
     assert torch.equal(eag.resample_r(planes[0], g_up), r_up)
     assert torch.equal(eag.resample_b(planes[1], g_up), b_up)
@@ -121,13 +121,22 @@ def test_resample_r_and_b_alone_equal_resample_rb():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_demosaic_draft_channels_bit_exact(seed):
     jf, tf = _frames(seed=seed)
-    _assert_channels_equal(draft.demosaic_draft_channels(tf), jax_draft.demosaic_draft_channels(jf))
+    _assert_channels_equal(draft.demosaic_draft_channels(tf, tf.wb_reciprocal()),
+                           jax_draft.demosaic_draft_channels(jf))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_demosaic_eag_channels_bit_exact(seed):
     jf, tf = _frames(seed=seed)
-    _assert_channels_equal(eag.demosaic_eag_channels(tf), jax_eag.demosaic_eag_channels(jf))
+    _assert_channels_equal(eag.demosaic_eag_channels(tf, tf.wb_reciprocal()),
+                           jax_eag.demosaic_eag_channels(jf))
+
+
+def _mat_wb(tf):
+    """The cam->lin-sRGB matrix and the reciprocal WB gains, as develop computes them."""
+    from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
+
+    return cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white), tf.wb_reciprocal()
 
 
 @pytest.mark.parametrize("tail", TAILS)
@@ -135,14 +144,14 @@ def test_develop_channels_draft_matches_jax(tail):
     """The fused Draft develop against its own JAX function (it differs from
     the ``*_channels`` form by one association order)."""
     jf, tf = _frames(seed=4)
-    _assert_channels_close(draft.develop_channels_draft(tf, *tail),
+    _assert_channels_close(draft.develop_channels_draft(tf, *_mat_wb(tf), *tail),
                            jax_draft.develop_channels_draft(jf, *tail), _atol(tail[1]))
 
 
 @pytest.mark.parametrize("tail", TAILS)
 def test_develop_channels_eag_matches_jax(tail):
     jf, tf = _frames(seed=5)
-    _assert_channels_close(eag.develop_channels_eag(tf, *tail),
+    _assert_channels_close(eag.develop_channels_eag(tf, *_mat_wb(tf), *tail),
                            jax_eag.develop_channels_eag(jf, *tail), _atol(tail[1]))
 
 
@@ -150,17 +159,16 @@ def test_develop_channels_eag_matches_jax(tail):
 def test_fused_develop_is_close_to_the_channels_form(quality):
     """The fused forms are the ``*_channels`` forms plus the tail up to
     association order: within 1e-6 of each other before the gamma."""
-    from pysp_tpu_torch.colorimetry.transforms import cam_to_lin_srgb_matrix
-    from pysp_tpu_torch.pipeline.develop import _color_tail_channels
+    from pysp_tpu_torch.colorimetry.transforms import color_tail_channels
 
     _, tf = _frames(seed=6)
-    mat = cam_to_lin_srgb_matrix(tf.cam_mat, tf.cam_white)
+    mat, wb = _mat_wb(tf)
     if quality == "Draft":
-        fused = draft.develop_channels_draft(tf, True, False)
-        staged = _color_tail_channels(*draft.demosaic_draft_channels(tf), mat, True, False)
+        fused = draft.develop_channels_draft(tf, mat, wb, True, False)
+        staged = color_tail_channels(*draft.demosaic_draft_channels(tf, wb), mat, True, False)
     else:
-        fused = eag.develop_channels_eag(tf, True, False)
-        staged = _color_tail_channels(*eag.demosaic_eag_channels(tf), mat, True, False)
+        fused = eag.develop_channels_eag(tf, mat, wb, True, False)
+        staged = color_tail_channels(*eag.demosaic_eag_channels(tf, wb), mat, True, False)
     for f, s in zip(fused, staged):
         assert (f - s).abs().max().item() <= ATOL
 

@@ -24,7 +24,8 @@ from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb
 
 torch.set_num_threads(1)
 
-KERNELS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity", "decision")
+KERNELS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity", "decision",
+           "multisection")
 
 
 @pytest.fixture
@@ -168,13 +169,13 @@ def test_no_span_is_lost_from_racing_threads(recorder):
     assert got.counters["test.race"] - before == n_threads * per
 
 
-def test_counters_read_the_launch_globals(monkeypatch):
+def test_counters_read_the_launch_counts(monkeypatch):
     for k, name in enumerate(KERNELS):
-        monkeypatch.setattr(K, f"{name}_kernel_launches", 10 + k)
+        monkeypatch.setitem(K.launch_counts, name, 10 + k)
     got = tracing.counters()
     assert {f"kernels.{n}.launches": 10 + k for k, n in enumerate(KERNELS)}.items() <= got.items()
-    assert all(getattr(K, f"{n}_kernel_launches") == got[f"kernels.{n}.launches"]
-               for n in KERNELS)
+    assert all(K.launch_counts[n] == got[f"kernels.{n}.launches"] for n in KERNELS)
+    assert set(K.launch_counts) == set(KERNELS)
 
 
 def test_a_kernel_build_is_a_span_and_a_count(recorder, monkeypatch, tmp_path):

@@ -124,9 +124,9 @@ def test_remap_plain_matches_the_jax_remap_kernel(kind, maps):
 def test_remap_kernel_wrapper_checks_and_cpu_route():
     img = _t(_image(20, 24, 3, seed=4))
     mx, my = (_t(m) for m in _maps(20, 24, seed=4))
-    before = K.remap_kernel_launches
+    before = K.launch_counts["remap"]
     got = K.remap_kernel(img, mx, my, "lanczos4", channels_last=True)
-    assert K.remap_kernel_launches == before
+    assert K.launch_counts["remap"] == before
     assert torch.equal(got, K.remap_plain(img, mx, my, "lanczos4", channels_last=True))
     assert got.shape == img.shape
     with pytest.raises(ValueError, match="kind"):

@@ -46,7 +46,9 @@ innermost loops of the kernel's SASS with their instruction counts
 Then it prints one JSON line with the times at 4000x6000 (CUDA events, median
 of 10 after 2 warm-ups) and a SHA-256 of each output, so that two variants can
 be compared bit for bit: the AHD kernel with 0, 1 and 2 stages and the fused
-tail, the Best develop; one RL iteration at sigma 1 and sigma 2 and 20
+tail, the Best develop, and the host's time of one AHD wrapper call and of its
+bare ctypes launch on an 8x8 frame (what the card waits for between two
+launches); one RL iteration at sigma 1 and sigma 2 and 20
 iterations at sigma 1; one postprocess stage on the r, g, b planes of the
 frame's demosaic; the remap of the developed (H, W, 3) image by Lanczos4, also
 with a map for each channel and on the random map; the bilinear remap of that
@@ -633,6 +635,17 @@ def times(name: str, state: dict, groups) -> dict:
         cfg = DevelopConfig()
         out["develop_ms"] = [median_ms(lambda: develop(f, cfg), runs=5, warmup=1)
                              for _ in range(3)]
+        # the host's time of an AHD wrapper call (tail fused) on an 8x8 frame,
+        # and of its bare launch through ctypes
+        tiny = frame(8, 8, seed=3)
+        tmat, twb = cam_to_lin_srgb_matrix(tiny.cam_mat, tiny.cam_white), tiny.wb_reciprocal()
+        out["ahd_wrapper_host_us"] = host_us(
+            lambda: K.ahd_kernel(tiny.bayer, tmat, twb, False, 1, tail))
+        params, buf = K._ahd_params(tmat, twb), torch.empty((8, 8, 3), device="cuda")
+        lib, stream = K.load_library(), torch.cuda.current_stream().cuda_stream
+        flags = K._F_TAIL | K._F_INTERLEAVED | K._F_CLIP | K._F_GAMMA
+        out["ahd_launch_host_us"] = host_us(lambda: lib.pysp_ahd(
+            tiny.bayer.data_ptr(), params.data_ptr(), buf.data_ptr(), 8, 8, 1, 0, flags, stream))
     if "rl" in groups:
         luma = state["luma"]
         for sigma in (1.0, 2.0):
