@@ -106,9 +106,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      stack_frames -> remove_ca_from_raw(Poly3(0.01), Poly3(0.01)) -> develop
      (Best, 1 stage) -> apply_opcode_3_warp`` (Lanczos4) of every frame ->
      ``save_image`` of the first and the last. Asserts the launches (remap
-     4 + 16, AHD 16, the others 0), that the CA stage equals the same stage
-     through ``remap_plain`` and the burst's CA the frames' one by one bit for
-     bit, that the R and B planes lie closer to the clean scene after the
+     4 + 16, AHD 16, EAG 3, the others 0), that the CA stage equals the same
+     stage through ``remap_plain`` and the plain resamples and the burst's CA
+     the frames' one by one bit for bit, that the R and B planes lie closer to the clean scene after the
      correction, that every developed frame is finite, (H, W, 3) and within
      [0, 1] (after the warp within Lanczos4's overshoot), and each >= 50 dB
      against the same composition from the plain versions. Then the blind fits
@@ -210,8 +210,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      ``develop_burst_sharded`` on (4, 1) and ``develop_burst_spatial`` on
      (2, 2) of the 16 frames at Best against ``develop_burst``; (e) both
      sharded examples' ``main`` on the card. Asserts each phase's launches
-     of the AHD, heal, remap and multisection kernels (4 a detected frame or
-     row shard) and none of the others; (a) and (d)
+     of the AHD, heal, remap, multisection (4 a detected frame or row shard)
+     and EAG kernels (3 a CA removal or row shard) and none of the others; (a) and (d)
      every frame (for ``develop_burst_spatial`` every row farther than the
      halo from the frame's top and bottom) within 3e-5 of its counterpart,
      (b) and (c) those rows within 3e-5 and >= 40 dB over the whole frame,
@@ -249,6 +249,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``multisection_plain``'s (``torch.equal``), a counting pass (20 launches
    back to back, per launch) against its 96 MB over 3.35 TB/s and a plain
    pass, and the four passes of one wrapper call against the plain four.
+   The EAG kernels of CA removal (the green fill and R's and B's upsample) at
+   mf102's 8736x11648 frame, at config 5's stack and at small odd bursts
+   against their plain versions (``torch.equal``), and at the first two
+   timed as lone calls and back to back beside their plain versions and
+   their bounds by bytes.
    Beside it: the decision kernel's issue
    floor (its SASS's instructions a pick), the median5 kernel's min/max floor
    (the FMNMX of its SASS a pixel at half the issue rate) and the homogeneity kernel's achieved TB/s beside ``torch``'s own copy
@@ -348,7 +353,11 @@ from pysp_tpu_torch.demosaic.ahd import (
     postprocess_color_channels,
 )
 from pysp_tpu_torch.demosaic.ahd_mega import demosaic_ahd_mega
-from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution
+from pysp_tpu_torch.demosaic.eag import (
+    resample_channel_plain,
+    resample_g_to_full_resolution,
+    resample_g_to_full_resolution_plain,
+)
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter
 from pysp_tpu_torch.filters.sharpen import gaussian_rt_deconvolution_yuv, unsharp_mask_lab
@@ -362,6 +371,7 @@ from pysp_tpu_torch.io.raw_loader import (
 )
 from pysp_tpu_torch.io.tiff import write_synthetic_dng
 from pysp_tpu_torch.ops import cuda_kernels as K
+from pysp_tpu_torch.ops.phase_kernels import BayerPatternPosition as P
 from pysp_tpu_torch.ops.resample import remap_bilinear
 from pysp_tpu_torch.ops.stencil import median2, median5
 from pysp_tpu_torch.pipeline.develop import DevelopConfig, develop
@@ -535,9 +545,12 @@ def bound(nbytes: float, ops: float):
 
 
 COUNTERS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity",
-            "decision", "multisection")
+            "decision", "multisection", "eag_resample")
 # The multisection kernel's launches a detected frame (or row shard of one).
 DETECT_PASSES = 4
+# The EAG kernels' launches a CA removal (or row shard of one) with two
+# models: the green fill, then R's and B's upsample.
+CA_RESAMPLES = 3
 
 
 def expect_launches(path: str, launches: dict, **expected) -> None:
@@ -1910,15 +1923,22 @@ CHAIN_H, CHAIN_W = 8736, 11648     # the composed 102 MP chain
 @contextlib.contextmanager
 def plain_remaps():
     """The CA removal and the lens warp with the remap kernel's plain version
-    in its place, the CA removal on its plain coordinate maps; the launch
-    counts do not move."""
-    saved = ca_removal.remap_kernel, rectilinear.remap_kernel, ca_removal._kernel_form
+    in its place, the CA removal on its plain coordinate maps and with the
+    EAG resamples' plain versions; the launch counts do not move."""
+    names = ("_kernel_form", "resample_g_to_full_resolution", "resample_r", "resample_b")
+    saved = rectilinear.remap_kernel, ca_removal.remap_kernel, *(
+        getattr(ca_removal, name) for name in names)
     ca_removal.remap_kernel = rectilinear.remap_kernel = K.remap_plain
     ca_removal._kernel_form = lambda model, stack: None
+    ca_removal.resample_g_to_full_resolution = resample_g_to_full_resolution_plain
+    ca_removal.resample_r = lambda r, g: resample_channel_plain(r, g, P.TOP_LEFT)
+    ca_removal.resample_b = lambda b, g: resample_channel_plain(b, g, P.BOTTOM_RIGHT)
     try:
         yield
     finally:
-        ca_removal.remap_kernel, rectilinear.remap_kernel, ca_removal._kernel_form = saved
+        rectilinear.remap_kernel, ca_removal.remap_kernel = saved[:2]
+        for name, fn in zip(names, saved[2:]):
+            setattr(ca_removal, name, fn)
 
 
 def plant_ca(plane: torch.Tensor, k1: float) -> torch.Tensor:
@@ -2011,16 +2031,17 @@ def ca_path(tmp: str):
         f"clock, kernel launches {launches}")
     if burst.bayer.device.type != DEVICE:
         raise AssertionError("load_raw / stack_frames did not put the burst on the card")
-    expect_launches("ca", launches, remap=4 + CA_FRAMES, ahd=CA_FRAMES)
+    expect_launches("ca", launches, remap=4 + CA_FRAMES, ahd=CA_FRAMES,
+                    eag_resample=CA_RESAMPLES)
 
-    # (a) The CA stage with the kernel is its plain version, bit for bit.
+    # (a) The CA stage with the kernels is its plain version, bit for bit.
     with plain_remaps():
         plain = remove_ca_from_raw(burst, model, model).bayer
     same = torch.equal(corrected.bayer, plain)
-    log(f"CA stage ({CA_FRAMES}x{CA_H}x{CA_W}) with the remap kernel vs remap_plain on the "
-        f"card: bit-exact {same}")
+    log(f"CA stage ({CA_FRAMES}x{CA_H}x{CA_W}) with the remap and EAG kernels vs remap_plain "
+        f"and the plain resamples on the card: bit-exact {same}")
     if not same:
-        raise AssertionError("the CA stage with the remap kernel differs from plain")
+        raise AssertionError("the CA stage with the kernels differs from plain")
     # (b) The burst's CA is the frames' one by one.
     frames = unstack_frames(burst)
     same = all(torch.equal(remove_ca_from_raw(f, model, model).bayer, c)
@@ -2234,7 +2255,8 @@ def chain_102mp(rgb: np.ndarray):
     corrected = remove_ca_from_raw(healed, model, model)
     with plain_remaps():
         same = torch.equal(remove_ca_from_raw(healed, model, model).bayer, corrected.bayer)
-    log(f"102 MP CA stage with the remap kernel vs remap_plain: bit-exact {same}")
+    log(f"102 MP CA stage with the remap and EAG kernels vs remap_plain and the plain "
+        f"resamples: bit-exact {same}")
     if not same:
         raise AssertionError("the 102 MP CA stage differs from plain")
     dev = develop(corrected, CA_CFG)
@@ -2254,6 +2276,67 @@ def chain_102mp(rgb: np.ndarray):
         + f"; {CHAIN_H * CHAIN_W / 1e6 / (t['chain'] / 1e3):.1f} MP/s; peak device memory "
         f"{t['peak_gb']:.2f} GB")
     return t, hot
+
+
+# Small odd bursts (N, H, W) of mosaics for the EAG kernels beside the main
+# paths' shapes: one quad of quads, odd quarter planes off the upsample's 16 x
+# 64 quads a block, and one whose aligned rows take its 16-byte path.
+EAG_SMALL = ((1, 4, 4), (3, 34, 130), (2, 102, 516), (2, 100, 400))
+
+
+def eag_at_main_shapes(burst: RawFrame, rgb102: np.ndarray) -> dict:
+    """Phase 4 for CA removal's EAG kernels: the fill on a mosaic's green
+    phases (strided views, read in place) and the upsample of R and B on the
+    filled green, each against its plain version (``torch.equal``) at mf102's
+    8736x11648 frame (the 102 MP scene), at config 5's stack of 16 x
+    1000x1504 and at ``EAG_SMALL``; at the first two each timed as a lone call
+    and back to back beside its plain version and its bound (the fill reads
+    the mosaic's rows and writes the green, 8 B a pixel; an upsample reads
+    the green and the quarter plane and writes the channel, 9 B). Returns its
+    record: the fill at 102 MP, the other kernels and shapes under it."""
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    mosaics = [("small", torch.rand(shape, generator=gen, device=DEVICE))
+               for shape in EAG_SMALL]
+    mosaics += [("mf102", torch.from_numpy(mosaic_rggb(rgb102)).to(DEVICE)[None]),
+                ("config5", burst.bayer)]
+    parts = {}
+    for key, mosaic in mosaics:
+        r, g1, b, g2 = bayer_to_rgbg(mosaic)
+        green = K.eag_fill_kernel(g1, g2)
+        calls = {"fill": (lambda: K.eag_fill_kernel(g1, g2),
+                          lambda: resample_g_to_full_resolution_plain(g1, g2), 8)}
+        for label, position, sub in (("upsample_r", P.TOP_LEFT, r.contiguous()),
+                                     ("upsample_b", P.BOTTOM_RIGHT, b.contiguous())):
+            calls[label] = (lambda sub=sub, position=position:
+                            K.eag_upsample_kernel(sub, green, position),
+                            lambda sub=sub, position=position:
+                            resample_channel_plain(sub, green, position), 9)
+        for label, (kernel, plain, bytes_a_px) in calls.items():
+            if not torch.equal(kernel(), plain()):
+                raise AssertionError(f"the EAG {label} kernel at {tuple(mosaic.shape)} differs "
+                                     f"from plain")
+            if key == "small":
+                continue
+            least = bound(bytes_a_px * mosaic.numel(), float_ops(plain))
+            parts[f"{label}_{key}"] = {
+                "shape": list(mosaic.shape), "max_abs_err": 0.0, "ms": median_ms(kernel),
+                "queued_ms": queued_ms(kernel), "plain_ms": median_ms(plain, runs=3, warmup=1),
+                "bound_ms": least[0], "bound_by": least[1], "library_ms": None}
+        del r, g1, b, g2, green, calls
+    del mosaics
+    for label, t in parts.items():
+        log(f"EAG {label} {tuple(t['shape'])}: bit-exact against plain (and at "
+            f"{len(EAG_SMALL)} small bursts); {t['ms']:.4f} ms a lone call, "
+            f"{t['queued_ms']:.4f} ms back to back ({t['queued_ms'] / t['bound_ms']:.2f}x its "
+            f"bound of {t['bound_ms']:.4f} ms by {t['bound_by']}), plain {t['plain_ms']:.3f} ms "
+            f"(CUDA events; plain median of 3 after 1)")
+    rec = {"name": "eag_resample", "route": "cuda",
+           "source": "pysp_tpu_torch/csrc/eag_resample.cu",
+           "replaces": "pysp_tpu_torch/demosaic/eag.py::resample_g_to_full_resolution_plain, "
+                       "resample_channel_plain",
+           "counter": "eag_resample", **parts.pop("fill_mf102")}
+    rec.update(parts)
+    return rec
 
 
 # --- the surface path: OpcodeList1/2 at load, highlight reconstruction, statistics ----
@@ -3244,7 +3327,7 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
                                         ca_model_b=model, warp_block=block5)
 
     got = counted("a", sharded_a, heal=CA_FRAMES, remap=4 * 4 + CA_FRAMES, ahd=CA_FRAMES,
-                  multisection=DETECT_PASSES * CA_FRAMES)
+                  multisection=DETECT_PASSES * CA_FRAMES, eag_resample=4 * CA_RESAMPLES)
     want, shared = config5_unsharded(hot5, block5)
     errs = [max_abs(g, w_) for g, w_ in zip(got, want)]
     log(f"parallel (a): config 5 with {n_sites} hot sites ({int(shared.sum())} sites in the "
@@ -3295,7 +3378,7 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     got = counted("b, 102 MP", sharded_b, heal=4, remap=4 * 5, ahd=4,
-                  multisection=DETECT_PASSES * 4)
+                  multisection=DETECT_PASSES * 4, eag_resample=4 * CA_RESAMPLES)
     out["peak_gb_102mp"] = torch.cuda.max_memory_allocated() / 1e9
     want = unsharded_b()
     err = max_abs(got[halo:-halo], want[halo:-halo])
@@ -3382,12 +3465,14 @@ def parallel_path(card: str, burst5: RawFrame, block5: bytes, burst4: RawFrame,
 
     # (e) Both sharded examples' main on the card (one card: (1, 1) meshes).
     with tempfile.TemporaryDirectory() as tmp:
-        imgs = counted("e, burst example", lambda: burst_production_torch.main(tmp), remap=4)
+        imgs = counted("e, burst example", lambda: burst_production_torch.main(tmp), remap=4,
+                       eag_resample=CA_RESAMPLES)
         pngs = [f for f in os.listdir(tmp) if f.startswith("out_")]
         if imgs.device.type != DEVICE or len(pngs) != 4:
             raise AssertionError("the burst example did not develop on the card and write 4 PNGs")
     img, err = counted("e, large-frame example", large_frame_sharded_torch.main,
-                       heal=2, remap=10, ahd=2, multisection=DETECT_PASSES * 2)
+                       heal=2, remap=10, ahd=2, multisection=DETECT_PASSES * 2,
+                       eag_resample=2 * CA_RESAMPLES)
     log(f"parallel (e): both examples' main on the card: 4 PNGs; the large frame "
         f"{tuple(img.shape)}, interior {err:.3g} from its monolithic pipeline")
     out["seconds"] = time.perf_counter() - t_path
@@ -3479,6 +3564,7 @@ def main() -> int:
     ca["shard_stack_bilinear"] = shard_stack_bilinear(burst5)
     rgb102 = make_scene(CHAIN_H, CHAIN_W, seed=31)
     _, hot102 = chain_102mp(rgb102)
+    records.append(eag_at_main_shapes(burst5, rgb102))
     parallel_launches, parallel = parallel_path(card, burst5, block5, burst4, rgb102, hot102)
     del burst5, burst4, rgb102
     for rec in records:
@@ -3525,9 +3611,10 @@ def main() -> int:
                                             if lib else "no library call"))
             if "queued_ms" in r:
                 line += (f"; back to back {r['queued_ms']:.4f} ms, "
-                         f"{r['queued_ms'] / r['bound_ms']:.2f}x its bound, "
-                         f"{r['queued_ms'] / r['library_queued_ms']:.2f}x {name} "
-                         f"({r['library_queued_ms']:.4f} ms)")
+                         f"{r['queued_ms'] / r['bound_ms']:.2f}x its bound")
+                if r.get("library_queued_ms"):
+                    line += (f", {r['queued_ms'] / r['library_queued_ms']:.2f}x {name} "
+                             f"({r['library_queued_ms']:.4f} ms)")
             log(line)
     log(json.dumps({"kernels": records}))
     log(card)

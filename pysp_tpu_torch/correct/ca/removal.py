@@ -8,7 +8,10 @@ roughly following DOI 10.1109/ACCESS.2021.3096201):
   on the device) -> model fit (host NumPy);
 - removal: upsample G alone; warp G onto the R/B grids (inverse model +
   bilinear remap), G-guided upsample of R/B, forward-warp back onto the G grid,
-  re-sample at the Bayer phase and overwrite the raw planes.
+  re-sample at the Bayer phase and overwrite the raw planes. On CUDA tensors
+  the upsamples are the EAG kernels of ``ops.cuda_kernels`` (the G fill and
+  each channel's upsample, one launch each over the burst), bit for bit their
+  plain versions in ``demosaic/eag.py``, which CPU tensors run.
 
 One path for a frame and a burst, on every device: a frame is a burst of one.
 The coordinate maps depend only on the model and the shape, so each remap is
@@ -41,7 +44,10 @@ full-resolution green, then each of R and B upsampled with it) and
 ``ca.remap`` (one remap kernel launch) inside; every one is also timed on the
 device, and none reads the thread's CPU clock. The counter
 ``ca.maps_in_kernel`` counts the remaps whose coordinates the kernel computed:
-for two Poly3 models on the card it is 4 a call and ``ca.maps_built`` 0.
+for two Poly3 models on the card it is 4 a call and ``ca.maps_built`` 0. The
+counter ``ca.resample_in_kernel`` counts the resamples that launched an EAG
+kernel (``demosaic.eag.resamples_in_kernel``): 3 a call with two models on the
+card, 0 on the CPU.
 """
 from __future__ import annotations
 
@@ -52,7 +58,12 @@ import torch
 
 from ...core.bayer import bayer_to_rgbg, rgbg_to_bayer
 from ...core.frame import RawFrame
-from ...demosaic.eag import resample_b, resample_g_to_full_resolution, resample_r
+from ...demosaic.eag import (
+    resample_b,
+    resample_g_to_full_resolution,
+    resample_r,
+    resamples_in_kernel,
+)
 from ...ops.cuda_kernels import remap_kernel, remap_radial_kernel
 from ...utils.tracing import count, span
 from .instability import compute_structural_instability
@@ -159,8 +170,14 @@ def remove_ca_from_raw(
         wb = frame.wb_reciprocal().reshape(-1, 3)[:, :, None, None]   # (N, 3, 1, 1)
 
         r, g1, b, g2 = bayer_to_rgbg(bayer)                           # (N, h2, w2)
-        with span("ca.resample", device=device, cpu=False):
-            g_res = resample_g_to_full_resolution(g1, g2)             # (N, fh, fw)
+
+        def resample(fn, *planes):
+            if resamples_in_kernel(planes[0]):
+                count("ca.resample_in_kernel")
+            with span("ca.resample", device=device, cpu=False):
+                return fn(*planes)
+
+        g_res = resample(resample_g_to_full_resolution, g1, g2)      # (N, fh, fw)
         fh, fw = g_res.shape[-2], g_res.shape[-1]
 
         def remap(stack, model, inverse):
@@ -177,10 +194,6 @@ def remove_ca_from_raw(
                 xy = _maps_from_offsets(coordinates(g_res[0]), fh, fw)
             with span("ca.remap", device=device, cpu=False):
                 return remap_kernel(stack, *xy, "bilinear")
-
-        def resample(fn, plane, g_at):
-            with span("ca.resample", device=device, cpu=False):
-                return fn(plane, g_at)
 
         if lens_model_r is not None:
             g_at_r = remap(g_res, lens_model_r, inverse=True)

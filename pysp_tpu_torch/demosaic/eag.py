@@ -4,9 +4,14 @@ resampling it shares with AHD.
 Counterpart of ``pysp_tpu/demosaic/eag.py``. Green is filled to full resolution
 by edge-weighted bilinear interpolation; R and B are recovered by
 photosite-phase Gaussian upsampling of the (channel - G) difference plus
-re-injection of green high frequencies. All stages are shifts and 3x3
-correlations in plain PyTorch on every device: the JAX package has no kernel
-for this tier either.
+re-injection of green high frequencies. The stages are shifts and 3x3
+correlations in plain PyTorch: the JAX package has no kernel for this tier
+either. The resamples that CA removal calls (:func:`resample_g_to_full_resolution`,
+:func:`resample_r`, :func:`resample_b`, :func:`resample_rb`) launch the EAG
+kernels of ``ops.cuda_kernels`` where :func:`resamples_in_kernel` holds (CUDA
+tensors), bit for bit their plain versions here
+(``resample_g_to_full_resolution_plain``, ``resample_channel_plain``), which
+run on CPU tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 
 from ..core.bayer import bayer_to_rgbg, rgbg_to_bayer
 from ..core.frame import DevelopedImage, RawFrame
+from ..ops.cuda_kernels import eag_fill_kernel, eag_upsample_kernel
 from ..ops.phase_kernels import BayerPatternPosition, get_rgbg_kernel
 from ..ops.stencil import (
     GAUSSIAN3_SIGMA1,
@@ -84,7 +90,7 @@ def _eag_g_phases(
     return r, b
 
 
-def resample_g_to_full_resolution(
+def resample_g_to_full_resolution_plain(
     g1: Tensor, g2: Tensor, use_bilinear_weighting: bool = True
 ) -> Tensor:
     """Fill G to sensor resolution from the two green phases.
@@ -94,6 +100,22 @@ def resample_g_to_full_resolution(
     borders)."""
     r, b = _eag_g_phases(g1, g2, use_bilinear_weighting)
     return rgbg_to_bayer(r, g1, b, g2)
+
+
+def resamples_in_kernel(t: Tensor) -> bool:
+    """Whether the resamples of ``t``'s planes launch the EAG kernels: on
+    CUDA tensors, one launch a resample over every frame."""
+    return t.is_cuda
+
+
+def resample_g_to_full_resolution(
+    g1: Tensor, g2: Tensor, use_bilinear_weighting: bool = True
+) -> Tensor:
+    """:func:`resample_g_to_full_resolution_plain`, on CUDA tensors by the
+    EAG fill kernel."""
+    if resamples_in_kernel(g1):
+        return eag_fill_kernel(g1, g2, use_bilinear_weighting)
+    return resample_g_to_full_resolution_plain(g1, g2, use_bilinear_weighting)
 
 
 def _phase_upsample(plane: Tensor, position: BayerPatternPosition) -> Tensor:
@@ -120,28 +142,40 @@ def resample_channel(
     return _phase_upsample(subpixel, position) + g_hf_pass
 
 
-def resample_rb(r: Tensor, b: Tensor, g_upscaled: Tensor) -> Tuple[Tensor, Tensor]:
-    """Resample R and B to full resolution."""
-    g_hf_cut = g_upscaled - gaussian_blur3(g_upscaled)
-    g_r, _g1, g_b, _g2 = bayer_to_rgbg(g_upscaled)
-    return (
-        resample_channel(r, g_r, g_hf_cut, BayerPatternPosition.TOP_LEFT),
-        resample_channel(b, g_b, g_hf_cut, BayerPatternPosition.BOTTOM_RIGHT),
-    )
+def resample_channel_plain(
+    subpixel: Tensor, g_upscaled: Tensor, position: BayerPatternPosition
+) -> Tensor:
+    """:func:`resample_channel` with the high frequencies of the
+    full-resolution green ``g_upscaled`` (itself less its 3x3 Gaussian blur)."""
+    return _phase_upsample(subpixel, position) + (g_upscaled - gaussian_blur3(g_upscaled))
+
+
+def _resample(subpixel: Tensor, g_upscaled: Tensor, position: BayerPatternPosition) -> Tensor:
+    if resamples_in_kernel(subpixel):
+        return eag_upsample_kernel(subpixel, g_upscaled, position)
+    return resample_channel_plain(subpixel, g_upscaled, position)
 
 
 def resample_r(r: Tensor, g_upscaled: Tensor) -> Tensor:
-    """Resample R alone."""
-    g_hf_cut = g_upscaled - gaussian_blur3(g_upscaled)
-    g_r = bayer_to_rgbg(g_upscaled)[0]
-    return resample_channel(r, g_r, g_hf_cut, BayerPatternPosition.TOP_LEFT)
+    """Resample R alone: :func:`resample_channel_plain` at TOP_LEFT, on CUDA
+    tensors by the EAG upsample kernel."""
+    return _resample(r, g_upscaled, BayerPatternPosition.TOP_LEFT)
 
 
 def resample_b(b: Tensor, g_upscaled: Tensor) -> Tensor:
-    """Resample B alone."""
+    """Resample B alone: :func:`resample_channel_plain` at BOTTOM_RIGHT, on
+    CUDA tensors by the EAG upsample kernel."""
+    return _resample(b, g_upscaled, BayerPatternPosition.BOTTOM_RIGHT)
+
+
+def resample_rb(r: Tensor, b: Tensor, g_upscaled: Tensor) -> Tuple[Tensor, Tensor]:
+    """Resample R and B to full resolution; the plain path blurs the green
+    once for both."""
+    if resamples_in_kernel(r):
+        return resample_r(r, g_upscaled), resample_b(b, g_upscaled)
     g_hf_cut = g_upscaled - gaussian_blur3(g_upscaled)
-    g_b = bayer_to_rgbg(g_upscaled)[2]
-    return resample_channel(b, g_b, g_hf_cut, BayerPatternPosition.BOTTOM_RIGHT)
+    return (_phase_upsample(r, BayerPatternPosition.TOP_LEFT) + g_hf_cut,
+            _phase_upsample(b, BayerPatternPosition.BOTTOM_RIGHT) + g_hf_cut)
 
 
 def _blur3_phases(quad):

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels for Hopper and their Python wrappers.
 
-Nine kernels, all CUDA C++ under ``pysp_tpu_torch/csrc/``: one for every
+Ten kernel sources, all CUDA C++ under ``pysp_tpu_torch/csrc/``: one for every
 function of the JAX package that reaches ``pl.pallas_call``,
 
 - ``ahd.cu``: the whole AHD demosaic plus the optional develop colour tail,
@@ -25,11 +25,14 @@ function of the JAX package that reaches ``pl.pallas_call``,
 - ``decision.cu``: the fused AHD direction pick, counterpart of
   ``pysp_tpu/ops/pallas_kernels.py::ahd_decision_pallas``;
 
-and one without a Pallas counterpart:
+and two without a Pallas counterpart:
 
 - ``multisection.cu``: one pass of the hot-pixel detector's count
   multisection, with the narrowing of the bracket after it
-  (``correct.bad_pixels._bisect_quantile``).
+  (``correct.bad_pixels._bisect_quantile``);
+- ``eag_resample.cu``: the EAG resamples of CA removal, the full-resolution
+  green fill (``eag_fill_kernel``) and a channel's upsample with the green's
+  high frequencies (``eag_upsample_kernel``), each one launch over a burst.
 
 At the first CUDA call the sources are compiled with ``nvcc`` for ``sm_90a``
 (one process for each source, all at once) into one shared library with a
@@ -75,7 +78,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("ahd.cu", "postprocess.cu", "rl.cu", "remap.cu", "heal.cu", "median5.cu",
-            "homogeneity.cu", "decision.cu", "multisection.cu")
+            "homogeneity.cu", "decision.cu", "multisection.cu", "eag_resample.cu")
 _HEADERS = ("median5_columns.cuh", "ahd_lab.cuh", "tile_loops.cuh")
 # -fmad=false: no FMA contraction, so the kernels round where the plain
 # PyTorch versions (separate multiply and add kernels) round.
@@ -121,6 +124,9 @@ _ENTRIES = {
     "pysp_ahd_decision": ("decision", "decision kernel", (_P,) * 8 + (_I,) * 3),
     "pysp_multisection": ("multisection", "multisection kernel",
                           (_P, _I, _I, _L, _P, _P, _P, _I, ctypes.c_float, _I)),
+    "pysp_eag_fill": ("eag_resample", "EAG fill kernel", (_P,) * 3 + (_I,) * 3 + (_L,) * 3 + (_I,)),
+    "pysp_eag_upsample": ("eag_resample", "EAG upsample kernel",
+                          (_P,) * 3 + (_I,) * 4 + (_FLOATS,)),
 }
 # Launches of each kernel since the process started, every kernel's key from
 # the start.
@@ -231,7 +237,7 @@ def load_library() -> ctypes.CDLL:
         return lib
 
 
-def _check(t: Tensor, name: str, shape=None, device=None) -> None:
+def _check(t: Tensor, name: str, shape=None, device=None, contiguous=True) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -240,7 +246,7 @@ def _check(t: Tensor, name: str, shape=None, device=None) -> None:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -860,3 +866,78 @@ def multisection_kernel(delta: Tensor, lo: Tensor, hi: Tensor, target: float, it
         _launch("pysp_multisection", delta.device,
                 *(args(bracket, counts[it], True) for it in range(int(iters))))
         return bracket[0], bracket[1]
+
+
+# --- CA removal's EAG resamples ----------------------------------------------------------
+
+# The quad positions of the planes the upsample kernel takes (R and B).
+EAG_POSITIONS = (BayerPatternPosition.TOP_LEFT, BayerPatternPosition.BOTTOM_RIGHT)
+# The most frames one launch takes (the grid's third dimension).
+EAG_MAX_FRAMES = 65535
+
+
+@functools.lru_cache(maxsize=None)
+def _eag_taps(position: BayerPatternPosition) -> np.ndarray:
+    """The upsample kernel's host constants (``Taps`` in
+    ``csrc/eag_resample.cu``): ``get_rgbg_kernel(position)`` in its order,
+    then ``GAUSSIAN3_SIGMA1``."""
+    parts = [*get_rgbg_kernel(position), GAUSSIAN3_SIGMA1]
+    return np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
+
+
+def _frames(t: Tensor, name: str, rest) -> Tensor:
+    """``t`` (..., h, w) as (N, h, w), a view where its layout allows."""
+    if t.ndim < 2 or t.numel() == 0:
+        raise ValueError(f"{name} must be a non-empty (..., H, W), got {tuple(t.shape)}")
+    flat = t.reshape(-1, *rest)
+    if flat.shape[0] > EAG_MAX_FRAMES:
+        raise ValueError(f"{name} holds {flat.shape[0]} frames, more than {EAG_MAX_FRAMES}")
+    return flat
+
+
+def eag_fill_kernel(g1: Tensor, g2: Tensor, use_bilinear_weighting: bool = True) -> Tensor:
+    """The full-resolution green (..., 2h, 2w) of a mosaic from its green
+    phases ``g1`` and ``g2`` (..., h, w) float32 by the EAG fill kernel, one
+    launch over every frame; the phases may be strided views of the mosaic
+    (``core.bayer.bayer_to_rgbg``'s) and are read in place. Bit-identical to
+    ``demosaic.eag.resample_g_to_full_resolution_plain``."""
+    if g1.shape != g2.shape:
+        raise ValueError(f"g1 and g2 must be alike, got {tuple(g1.shape)} and {tuple(g2.shape)}")
+    lead, (h, w) = g1.shape[:-2], g1.shape[-2:]
+    g1, g2 = _frames(g1, "g1", (h, w)), _frames(g2, "g2", (h, w))
+    if g1.stride() != g2.stride():
+        g1, g2 = g1.contiguous(), g2.contiguous()
+    _check(g1, "g1", contiguous=False)
+    _check(g2, "g2", device=g1.device, contiguous=False)
+    out = torch.empty((g1.shape[0], 2 * h, 2 * w), dtype=torch.float32, device=g1.device)
+    _launch("pysp_eag_fill", g1.device, (
+        g1.data_ptr(), g2.data_ptr(), out.data_ptr(), g1.shape[0], h, w, *g1.stride(),
+        int(bool(use_bilinear_weighting))))
+    return out.view(*lead, 2 * h, 2 * w)
+
+
+def eag_upsample_kernel(sub: Tensor, g: Tensor, position) -> Tensor:
+    """A channel at full resolution (..., 2h, 2w) from its quarter-res plane
+    ``sub`` (..., h, w) at the quad ``position`` (TOP_LEFT for R, BOTTOM_RIGHT
+    for B) and the full-resolution green ``g`` (..., 2h, 2w), float32, by the
+    EAG upsample kernel, one launch over every frame: the photosite-phase
+    upsample of ``sub`` plus ``g`` less its 3x3 Gaussian blur. h and w must be
+    at least 2 (the reflect-101 border of the quarter plane). Bit-identical to
+    ``demosaic.eag.resample_channel_plain``."""
+    position = BayerPatternPosition(position)
+    if position not in EAG_POSITIONS:
+        raise ValueError(f"the upsample kernel takes the positions {EAG_POSITIONS}, got {position}")
+    h, w = sub.shape[-2:] if sub.ndim >= 2 else (0, 0)
+    if h < 2 or w < 2 or tuple(g.shape) != (*sub.shape[:-2], 2 * h, 2 * w):
+        raise ValueError(f"sub must be (..., h, w) with h, w >= 2 and g (..., 2h, 2w), got "
+                         f"{tuple(sub.shape)} and {tuple(g.shape)}")
+    lead = g.shape[:-2]
+    sub = _frames(sub, "sub", (h, w)).contiguous()
+    g = _frames(g, "g", (2 * h, 2 * w)).contiguous()
+    _check(sub, "sub")
+    _check(g, "g", device=sub.device)
+    out = torch.empty_like(g)
+    _launch("pysp_eag_upsample", sub.device, (
+        sub.data_ptr(), g.data_ptr(), out.data_ptr(), sub.shape[0], h, w, int(position),
+        _eag_taps(position).ctypes.data_as(_FLOATS)))
+    return out.view(*lead, 2 * h, 2 * w)

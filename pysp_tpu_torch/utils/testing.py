@@ -2,8 +2,8 @@
 
 Copied from ``pysp_tpu/utils/testing.py`` (the functions the port's smoke run
 and tests use, ``ring_chart`` the CA scene among them), so that they import
-without JAX, plus the test cases of the heal, postprocess and multisection
-kernels, which the smoke run, ``tools/time_kernels.py`` and the tests share, and the synthetic raw files of every format the loaders
+without JAX, plus the test cases of the heal, postprocess, multisection and
+EAG resample kernels, which the smoke run, ``tools/time_kernels.py`` and the tests share, and the synthetic raw files of every format the loaders
 read (``raw_format_case``) with a reader for the PNGs the port writes
 (``read_png``).
 """
@@ -151,6 +151,39 @@ def multisection_case(h2: int, w2: int, kind: str, seed: int) -> np.ndarray:
         nan[0::2] = False
         delta[nan] = np.nan
     return delta
+
+
+EAG_KINDS = ("noise", "levels", "zeros", "special")
+
+
+def eag_case(shape, kind: str, seed: int) -> np.ndarray:
+    """float32 samples of ``shape`` for the EAG resamples: ``noise`` in [0, 1);
+    ``levels``, the values 0, 1 and 2 (so that many infills meet four equal
+    greens, a sum of deltas of 0, and ties); ``zeros``, -0.0 at 95% of the
+    samples and +0.0 at the rest (a sum begun at 0.0 instead of at its first
+    tap turns -0.0 into +0.0); ``special``, noise with NaN, inf and -inf at
+    3% of the samples."""
+    rng = np.random.default_rng(seed)
+    if kind == "levels":
+        return rng.integers(0, 3, shape).astype(np.float32)
+    if kind == "zeros":
+        return np.where(rng.random(shape) < 0.95, -0.0, 0.0).astype(np.float32)
+    if kind not in EAG_KINDS:
+        raise ValueError(f"kind must be one of {EAG_KINDS}, got {kind!r}")
+    x = rng.random(shape, dtype=np.float32)
+    if kind == "special":
+        sites = rng.random(shape) < 0.03
+        x[sites] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), int(sites.sum()))
+    return x
+
+
+def same_bits(got: np.ndarray, want: np.ndarray) -> bool:
+    """float32 arrays bit for bit, signed zeros included, with NaN in the same
+    places (a NaN's payload is not compared)."""
+    nan = np.isnan(want)
+    return (np.array_equal(np.isnan(got), nan)
+            and np.array_equal(np.where(nan, 0, got).astype(np.float32).view(np.int32),
+                               np.where(nan, 0, want).astype(np.float32).view(np.int32)))
 
 
 def chroma_case(h: int, w: int, seed: int) -> np.ndarray:

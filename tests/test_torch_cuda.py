@@ -820,22 +820,36 @@ def test_staged_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # --- chromatic aberration ---------------------------------------------------------------
 
 
+def _plain_resamples(m, module):
+    """Put the EAG resamples' plain versions in place of the kernels in
+    ``module`` (a monkeypatch context ``m``)."""
+    from pysp_tpu_torch.demosaic import eag
+    from pysp_tpu_torch.ops.phase_kernels import BayerPatternPosition as P
+
+    m.setattr(module, "resample_g_to_full_resolution", eag.resample_g_to_full_resolution_plain)
+    m.setattr(module, "resample_r", lambda r, g: eag.resample_channel_plain(r, g, P.TOP_LEFT))
+    m.setattr(module, "resample_b", lambda b, g: eag.resample_channel_plain(b, g, P.BOTTOM_RIGHT))
+
+
 def _ca_removal_plain(monkeypatch, frame, model_r, model_b):
-    """``remove_ca_from_raw`` with the plain coordinate maps of every model
-    and the remap kernel's plain version in place of the kernel."""
+    """``remove_ca_from_raw`` with the plain coordinate maps of every model,
+    the remap kernel's plain version in place of the kernel and the EAG
+    resamples' plain versions in place of theirs."""
     from pysp_tpu_torch.correct.ca import removal
 
     with monkeypatch.context() as m:
         m.setattr(removal, "_kernel_form", lambda model, stack: None)
         m.setattr(removal, "remap_kernel", K.remap_plain)
+        _plain_resamples(m, removal)
         return removal.remove_ca_from_raw(frame, model_r, model_b)
 
 
 @pytest.mark.parametrize("case", ["single", "burst", "r_only", "odd_planes", "ptlens"])
 def test_ca_removal_on_the_card_equals_plain(cuda, monkeypatch, case):
     """CA removal through the remap kernel, its coordinates computed in the
-    kernel, is the plain maps' plain remap bit for bit: 4 launches a call
-    with two models (2 with one), for a frame or a burst."""
+    kernel, and the EAG resample kernels is the plain maps' plain remap with
+    the plain resamples bit for bit: 4 remap and 3 resample launches a call
+    with two models (2 and 2 with one), for a frame or a burst."""
     from pysp_tpu_torch import (Poly3CorrectionModel, Poly5CorrectionModel,
                                 PtLensCorrectionModel, remove_ca_from_raw)
     from pysp_tpu_torch.core.frame import stack_frames
@@ -846,9 +860,10 @@ def test_ca_removal_on_the_card_equals_plain(cuda, monkeypatch, case):
     model_r = (PtLensCorrectionModel(0.01, -0.02, 0.015) if case == "ptlens"
                else Poly3CorrectionModel(0.02))
     model_b = None if case == "r_only" else Poly5CorrectionModel(-0.01, 0.004)
-    before = K.launch_counts["remap"]
+    before = K.launch_counts["remap"], K.launch_counts["eag_resample"]
     got = remove_ca_from_raw(frame, model_r, model_b)
-    assert K.launch_counts["remap"] == before + (2 if model_b is None else 4)
+    assert (K.launch_counts["remap"] - before[0], K.launch_counts["eag_resample"] - before[1]) == (
+        (2, 2) if model_b is None else (4, 3))
     want = _ca_removal_plain(monkeypatch, frame, model_r, model_b)
     assert got.bayer.device.type == "cuda" and torch.equal(got.bayer, want.bayer)
     if case == "burst":
@@ -948,6 +963,132 @@ def test_a_model_without_a_kernel_form_builds_the_plain_maps_on_the_card(cuda, m
                                                                   "ca.maps_built": 2}
     want = _ca_removal_plain(monkeypatch, frame, model_r, model_b)
     assert torch.equal(got.bayer, want.bayer)
+
+
+# CA removal's EAG resamples: mf102's quarter planes (one 8736x11648 frame),
+# config 5's stack (16 x 1000x1504), small and odd bursts.
+EAG_CARD_SHAPES = [(1, 4368, 5824), (16, 500, 752), (1, 2, 2), (1, 3, 5), (3, 17, 65),
+                   (2, 51, 258), (1, 50, 202)]
+
+
+@pytest.mark.parametrize("shape", EAG_CARD_SHAPES)
+def test_eag_resample_kernels_equal_plain(cuda, shape):
+    """The EAG fill kernel on the green phases of a mosaic (strided views) and
+    the upsample kernel for R and B are their plain versions on the card bit
+    for bit, one launch each over the burst."""
+    from pysp_tpu_torch.core.bayer import bayer_to_rgbg
+    from pysp_tpu_torch.demosaic.eag import (resample_channel_plain,
+                                             resample_g_to_full_resolution_plain)
+
+    n, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(n * h + w)
+    mosaic = torch.rand((n, 2 * h, 2 * w), generator=gen, device=cuda)
+    _, g1, _, g2 = bayer_to_rgbg(mosaic)
+    before = K.launch_counts["eag_resample"]
+    g = K.eag_fill_kernel(g1, g2)
+    assert torch.equal(g.view(torch.int32),
+                       resample_g_to_full_resolution_plain(g1, g2).view(torch.int32))
+    for position in K.EAG_POSITIONS:
+        sub = torch.rand((n, h, w), generator=gen, device=cuda)
+        got = K.eag_upsample_kernel(sub, g, position)
+        assert torch.equal(got.view(torch.int32),
+                           resample_channel_plain(sub, g, position).view(torch.int32))
+    assert K.launch_counts["eag_resample"] == before + 3
+
+
+@pytest.mark.parametrize("kind", ["levels", "zeros", "special"])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_eag_resample_kernels_on_ties_zeros_and_specials(cuda, kind, weighted):
+    """Four equal greens (a sum of deltas of 0), signed zeros, NaN and
+    infinite samples on the card: the kernels' bits are the plain versions'
+    (NaN in the same places), with the weighted infill and the plain mean."""
+    from pysp_tpu_torch.core.bayer import bayer_to_rgbg
+    from pysp_tpu_torch.demosaic.eag import (resample_channel_plain,
+                                             resample_g_to_full_resolution_plain)
+    from pysp_tpu_torch.utils.testing import eag_case, same_bits
+
+    n, h, w = 2, 51, 258
+    mosaic = torch.from_numpy(eag_case((n, 2 * h, 2 * w), kind, seed=5)).to(cuda)
+    _, g1, _, g2 = bayer_to_rgbg(mosaic)
+    g = K.eag_fill_kernel(g1, g2, weighted)
+    assert same_bits(g.cpu().numpy(),
+                     resample_g_to_full_resolution_plain(g1, g2, weighted).cpu().numpy())
+    sub = torch.from_numpy(eag_case((n, h, w), kind, seed=6)).to(cuda)
+    for position in K.EAG_POSITIONS:
+        assert same_bits(K.eag_upsample_kernel(sub, g, position).cpu().numpy(),
+                         resample_channel_plain(sub, g, position).cpu().numpy())
+
+
+def test_eag_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from pysp_tpu_torch.ops.phase_kernels import BayerPatternPosition as P
+
+    g1 = torch.rand(4, 6, device=cuda)
+    with pytest.raises(ValueError, match="alike"):
+        K.eag_fill_kernel(g1, g1[:, :5])
+    with pytest.raises(TypeError, match="float32"):
+        K.eag_fill_kernel(g1.double(), g1.double())
+    sub, g = torch.rand(4, 6, device=cuda), torch.rand(8, 12, device=cuda)
+    with pytest.raises(ValueError, match="positions"):
+        K.eag_upsample_kernel(sub, g, P.TOP_RIGHT)
+    with pytest.raises(ValueError, match="h, w >= 2"):
+        K.eag_upsample_kernel(sub[:1], g[:2], P.TOP_LEFT)
+    with pytest.raises(ValueError, match="h, w >= 2"):
+        K.eag_upsample_kernel(sub, g[:, :10], P.TOP_LEFT)
+
+
+def test_ca_removal_at_mf102_equals_plain(cuda, monkeypatch):
+    """The mf102 configuration's CA stage, its two Poly3 models on one
+    8736x11648 frame, is the plain path's bit for bit, and counts 3 resamples
+    in their kernels (0 on the CPU at a small size)."""
+    from pysp_tpu_torch import Poly3CorrectionModel, remove_ca_from_raw
+    from pysp_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device=cuda).manual_seed(102)
+    frame = RawFrame.synthetic(torch.rand((8736, 11648), generator=gen, device=cuda),
+                               cam_mat=CAM, wb_neutral=WB, device=cuda)
+    models = Poly3CorrectionModel(0.000714), Poly3CorrectionModel(-0.000714)
+    small = _frame(64, 96, seed=1, is_hdr=False, device="cpu")
+    tracing.drain()
+    tracing.enable()
+    try:
+        before = tracing.counters().get("ca.resample_in_kernel", 0)
+        got = remove_ca_from_raw(frame, *models)
+        on_card = tracing.counters().get("ca.resample_in_kernel", 0) - before
+        remove_ca_from_raw(small, *models)
+        on_cpu = tracing.counters().get("ca.resample_in_kernel", 0) - before - on_card
+    finally:
+        tracing.disable()
+        tracing.drain()
+    assert (on_card, on_cpu) == (3, 0)
+    want = _ca_removal_plain(monkeypatch, frame, *models)
+    assert torch.equal(got.bayer, want.bayer)
+
+
+def test_ca_row_shard_on_the_card_equals_plain(cuda, monkeypatch):
+    """A row shard of the row-sharded chain (``spatial_pipeline``'s CA
+    window: a row block of the frame with its halo, whose green phases are
+    read in place) through the EAG kernels is its plain resamples' bit for
+    bit."""
+    from pysp_tpu_torch import Poly3CorrectionModel
+    from pysp_tpu_torch.parallel import spatial_pipeline as sp
+
+    frame = _frame(256, 320, seed=9, is_hdr=False, device=cuda, noise=0.01)
+    model_r, model_b = Poly3CorrectionModel(0.01), Poly3CorrectionModel(-0.01)
+    setup_r, setup_b = sp._ca_setup(model_r, 256, 320), sp._ca_setup(model_b, 256, 320)
+    assert setup_r is not None and setup_b is not None
+    block, b0 = frame.bayer[62:194], 62
+
+    def window():
+        return sp._remove_ca_window(block, model_r, model_b, frame.wb_reciprocal(), (256, 320),
+                                    b0, setup_r, setup_b)
+
+    before = K.launch_counts["eag_resample"]
+    got = window()
+    assert K.launch_counts["eag_resample"] == before + 3
+    with monkeypatch.context() as m:
+        _plain_resamples(m, sp)
+        want = window()
+    assert torch.equal(got, want)
 
 
 def test_template_match_batch_on_the_card_matches_the_cpu(cuda):

@@ -34,14 +34,17 @@ from pysp_tpu_torch.correct.ca.models import (
 from pysp_tpu_torch.demosaic.ahd import postprocess_color_channels
 from pysp_tpu_torch.ops import cuda_kernels as K
 from pysp_tpu_torch.utils.testing import (
+    EAG_KINDS,
     HEAL_TILE_KINDS,
     chroma_case,
+    eag_case,
     heal_case,
     heal_tile_case,
     make_scene,
     mosaic_rggb,
     multisection_case,
     psnr,
+    same_bits,
 )
 
 torch.set_num_threads(1)
@@ -272,6 +275,46 @@ void emulate(const float* x, float* bracket, int* counts, int* ticket, int P, in
              long long stride, int branches, float target, int narrow, int blocks) {
   MultisectionArgs a{x, bracket, counts, ticket, P, n, stride, branches, target, narrow};
   each_block((unsigned)blocks, (unsigned)P, 1, run_multisection, &a);
+}
+#elif defined(EMULATE_EAG)
+struct FillArgs {
+  const float *g1, *g2; float* out; int h, w; long long frame, row, col; int weighted;
+};
+static void run_fill(void* p) {
+  FillArgs* a = (FillArgs*)p;
+  if (a->weighted)
+    eag_fill_kernel<true>(a->g1, a->g2, a->out, a->h, a->w, a->frame, a->row, a->col);
+  else
+    eag_fill_kernel<false>(a->g1, a->g2, a->out, a->h, a->w, a->frame, a->row, a->col);
+}
+// The green fill of N frames whose phases have the strides frame, row, col.
+void emulate(const float* g1, const float* g2, float* out, int N, int h, int w,
+             long long frame, long long row, long long col, int weighted) {
+  FillArgs a{g1, g2, out, h, w, frame, row, col, weighted};
+  each_block(cdiv(w, kFillQW), cdiv(h, kFillQH), (unsigned)N, run_fill, &a);
+}
+struct UpsampleArgs {
+  const float *sub, *g; float* out; int h, w, position, aligned; Taps k;
+};
+static void run_upsample(void* p) {
+  UpsampleArgs* a = (UpsampleArgs*)p;
+  if (a->position == 0)
+    eag_upsample_kernel<0, 0>(a->sub, a->g, a->out, a->h, a->w, a->k, a->aligned);
+  else
+    eag_upsample_kernel<1, 1>(a->sub, a->g, a->out, a->h, a->w, a->k, a->aligned);
+}
+// The upsample of N frames at `position` (0 or 3) with the host's 45 Taps
+// floats; `aligned` as the launcher takes it. Returns 1 for another position.
+int emulate_upsample(const float* sub, const float* g, float* out, int N, int h, int w,
+                     int position, const float* params) {
+  if (position != 0 && position != 3) return 1;
+  UpsampleArgs a{sub, g, out, h, w, position, 0, {}};
+  memcpy(&a.k, params, sizeof(Taps));
+  const void* const quarter[1] = {sub};
+  const void* const full[2] = {g, out};
+  a.aligned = rows_aligned(w, quarter, 1) && rows_aligned(2 * w, full, 2);
+  each_block(cdiv(2 * w, kTW), cdiv(2 * h, kTH), (unsigned)N, run_upsample, &a);
+  return 0;
 }
 #else
 static void run_pp(void* p) {
@@ -1145,3 +1188,154 @@ def test_multisection_source_ranks_and_branches(multisection_lib, q, iters, bran
     delta = _multisection_delta("at_mids", (45, 70), seed=int(q * 10) + branches)
     _assert_multisection_equal(multisection_lib, delta, q, iters, branches, 3)
 
+
+
+# --- CA removal's EAG resamples ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def eag_lib(tmp_path_factory):
+    dll = _build(tmp_path_factory, "eag_resample.cu", "EMULATE_EAG", n_ptrs=3, n_ints=0)
+    dll.emulate.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong] * 3 + [ctypes.c_int]
+    dll.emulate_upsample.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    dll.emulate_upsample.restype = ctypes.c_int
+    return dll
+
+
+def _fill_emulated(eag_lib, g1, g2, weighted):
+    h, w = g1.shape[-2:]
+    f1, f2 = g1.reshape(-1, h, w), g2.reshape(-1, h, w)
+    assert f1.stride() == f2.stride()
+    out = torch.full((f1.shape[0], 2 * h, 2 * w), float("nan"))
+    eag_lib.emulate(_ptr(f1), _ptr(f2), _ptr(out), f1.shape[0], h, w, *f1.stride(),
+                    int(weighted))
+    return out.view(*g1.shape[:-2], 2 * h, 2 * w)
+
+
+# Quarter planes: one photosite quad, 2x2 up, odd sizes, and sizes around the
+# fill's 4 x 64 quads a block.
+EAG_FILL_SHAPES = [(1, 1), (2, 2), (1, 7), (3, 5), (4, 64), (5, 65), (37, 133)]
+
+
+@pytest.mark.parametrize("kind", EAG_KINDS)
+@pytest.mark.parametrize("layout", ["mosaic", "burst", "planes"])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("shape", EAG_FILL_SHAPES)
+def test_eag_fill_source_bit_exact(eag_lib, shape, weighted, layout, kind):
+    """The green fill's device code equals ``resample_g_to_full_resolution_plain``
+    bit for bit: reading the green phases in place as strided views of a
+    mosaic (H, W) or of a burst of three (N, H, W), or as contiguous planes,
+    with the direction-weighted infill and the plain mean, on noise, on
+    three levels (four equal greens: a sum of deltas of 0), on signed zeros
+    and with NaN and infinite samples."""
+    from pysp_tpu_torch.core.bayer import bayer_to_rgbg
+    from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution_plain
+
+    h, w = shape
+    lead = (3,) if layout == "burst" else ()
+    mosaic = torch.from_numpy(eag_case((*lead, 2 * h, 2 * w), kind, seed=h * 131 + w))
+    _, g1, _, g2 = bayer_to_rgbg(mosaic)
+    if layout == "planes":
+        g1, g2 = g1.contiguous(), g2.contiguous()
+    got = _fill_emulated(eag_lib, g1, g2, weighted)
+    want = resample_g_to_full_resolution_plain(g1, g2, weighted)
+    if kind == "special":
+        assert same_bits(got.numpy(), want.numpy())
+    else:
+        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _upsample_case(n, h, w, kind, seed, pad=0):
+    """A burst's quarter planes (n, h, w) and greens (n, 2h, 2w); ``pad``
+    floats shift both off their 16-byte alignment."""
+    sub_store = torch.zeros(n * h * w + pad)
+    g_store = torch.zeros(n * 4 * h * w + pad)
+    sub = sub_store[pad:].view(n, h, w)
+    g = g_store[pad:].view(n, 2 * h, 2 * w)
+    sub.copy_(torch.from_numpy(eag_case((n, h, w), kind, seed)))
+    g.copy_(torch.from_numpy(eag_case((n, 2 * h, 2 * w), kind, seed + 1)))
+    return sub, g
+
+
+def _upsample_emulated(eag_lib, sub, g, position):
+    n, h, w = sub.shape
+    out = torch.full_like(g, float("nan"))
+    rc = eag_lib.emulate_upsample(_ptr(sub), _ptr(g), _ptr(out), n, h, w, int(position),
+                                  K._eag_taps(position).ctypes.data)
+    assert rc == 0
+    return out
+
+
+# Quarter planes from 2x2 up, odd, off and on whole tiles (16 x 64 quads), and
+# (50, 200): interior blocks that take the 16-byte path beside border blocks.
+EAG_UPSAMPLE_SHAPES = [(2, 2), (2, 3), (3, 2), (3, 5), (16, 64), (17, 65), (20, 40),
+                       (50, 200), (50, 202), (51, 258)]
+
+
+@pytest.mark.parametrize("kind", EAG_KINDS)
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("position", K.EAG_POSITIONS)
+@pytest.mark.parametrize("shape", EAG_UPSAMPLE_SHAPES)
+def test_eag_upsample_source_bit_exact(eag_lib, shape, position, n, kind):
+    """The channel upsample's device code equals ``resample_channel_plain``
+    bit for bit, for R (TOP_LEFT) and B (BOTTOM_RIGHT), one frame and a
+    burst of three, on noise, on three levels, on signed zeros and with NaN
+    and infinite samples in both inputs."""
+    from pysp_tpu_torch.demosaic.eag import resample_channel_plain
+
+    h, w = shape
+    sub, g = _upsample_case(n, h, w, kind, seed=h * 7 + w + n)
+    got = _upsample_emulated(eag_lib, sub, g, position)
+    want = resample_channel_plain(sub, g, position)
+    if kind == "special":
+        assert same_bits(got.numpy(), want.numpy())
+    else:
+        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("position", K.EAG_POSITIONS)
+def test_eag_upsample_source_unaligned_planes(eag_lib, position):
+    """Planes that start off a 16-byte boundary take the path without 16-byte
+    accesses in every block and give the same bits as aligned ones."""
+    from pysp_tpu_torch.demosaic.eag import resample_channel_plain
+
+    sub, g = _upsample_case(2, 50, 200, "noise", seed=3, pad=1)
+    assert sub.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0
+    got = _upsample_emulated(eag_lib, sub, g, position)
+    assert torch.equal(got.view(torch.int32),
+                       resample_channel_plain(sub, g, position).view(torch.int32))
+
+
+def test_eag_upsample_source_refuses_other_positions(eag_lib):
+    from pysp_tpu_torch.ops.phase_kernels import BayerPatternPosition
+
+    sub, g = _upsample_case(1, 4, 4, "noise", seed=1)
+    out = torch.zeros_like(g)
+    taps = K._eag_taps(BayerPatternPosition.TOP_LEFT)
+    for position in (BayerPatternPosition.TOP_RIGHT, BayerPatternPosition.BOTTOM_LEFT):
+        assert eag_lib.emulate_upsample(_ptr(sub), _ptr(g), _ptr(out), 1, 4, 4, int(position),
+                                        taps.ctypes.data) == 1
+
+
+@pytest.mark.parametrize("position", K.EAG_POSITIONS)
+def test_eag_taps_zero_pattern_is_the_kernels(position):
+    """The upsample kernel sums each phase's taps over fixed rows and columns
+    (``tap_lo`` / ``tap_hi`` in ``csrc/eag_resample.cu``): all three on the
+    plane's side of the quad, else the two nearer it. Those are exactly the
+    nonzero taps of ``get_rgbg_kernel``, so the kernel skips the zero taps
+    that ``_conv_valid`` skips."""
+    by, bx = divmod(int(position), 2)
+
+    def span(phase, base):
+        return range(3) if phase == base else (range(1, 3) if base == 0 else range(2))
+
+    kernels = K._eag_taps(position)[:36].reshape(4, 3, 3)
+    for ty in (0, 1):
+        for tx in (0, 1):
+            want = np.zeros((3, 3), bool)
+            want[np.ix_(list(span(ty, by)), list(span(tx, bx)))] = True
+            assert np.array_equal(kernels[2 * ty + tx] != 0, want)

@@ -302,13 +302,14 @@ def test_the_counters_split_between_kernel_and_plain_maps(recorder, scenes, monk
 
 def test_a_cpu_frame_takes_the_plain_maps(recorder, scenes):
     """On CPU tensors every model builds its plain coordinate maps, whatever
-    its form: nothing counts in ``ca.maps_in_kernel``."""
+    its form, and the resamples run their plain versions: nothing counts in
+    ``ca.maps_in_kernel`` or ``ca.resample_in_kernel``."""
     before = tracing.counters()
     remove_ca_from_raw(_program_frame(scenes[SHAPES[1]]), *_models())
     rec = recorder.drain()
-    assert {k: rec.counters.get(k, 0) - before.get(k, 0)
-            for k in ("ca.maps_in_kernel", "ca.maps_built")} == {"ca.maps_in_kernel": 0,
-                                                                  "ca.maps_built": 4}
+    names = ("ca.maps_in_kernel", "ca.maps_built", "ca.resample_in_kernel")
+    assert {k: rec.counters.get(k, 0) - before.get(k, 0) for k in names} == {
+        "ca.maps_in_kernel": 0, "ca.maps_built": 4, "ca.resample_in_kernel": 0}
 
 
 def test_the_recorder_off_records_nothing(scenes):

@@ -88,7 +88,7 @@ def test_the_chain_spans_on_the_card(counts):
     _chain(counts)
     torch.cuda.synchronize()
     tracing.drain()
-    launches = K.launch_counts["remap"]
+    launches = K.launch_counts["remap"], K.launch_counts["eag_resample"]
     tracing.enable()
     try:
         before = tracing.counters()
@@ -96,15 +96,17 @@ def test_the_chain_spans_on_the_card(counts):
     finally:
         tracing.disable()
     rec = tracing.drain()
-    assert K.launch_counts["remap"] - launches == 5
+    assert K.launch_counts["remap"] - launches[0] == 5
+    assert K.launch_counts["eag_resample"] - launches[1] == 3
     names = [s.name for s in rec.spans]
     assert names.count("ca.remap") == 4 and names.count("warp.remap") == 1
     # the Poly3 models' coordinates are computed in the remap kernel: no
     # plain coordinate field, no ca.maps span
     assert names.count("ca.maps") == 0 and names.count("warp.maps") == 1
-    assert {k: rec.counters.get(k, 0) - before.get(k, 0)
-            for k in ("ca.maps_in_kernel", "ca.maps_built")} == {"ca.maps_in_kernel": 4,
-                                                                  "ca.maps_built": 0}
+    # and the resamples run in the EAG kernels
+    names = ("ca.maps_in_kernel", "ca.maps_built", "ca.resample_in_kernel")
+    assert {k: rec.counters.get(k, 0) - before.get(k, 0) for k in names} == {
+        "ca.maps_in_kernel": 4, "ca.maps_built": 0, "ca.resample_in_kernel": 3}
     # the chain's own spans are timed on the device; the develop's children
     # (develop.color_matrix, ...) are not
     timed = {s.name: s.device_ms for s in rec.spans

@@ -118,6 +118,36 @@ def test_resample_r_and_b_alone_equal_resample_rb():
     assert torch.equal(eag.resample_b(planes[1], g_up), b_up)
 
 
+def test_resample_rb_blurs_the_green_once_on_the_cpu(monkeypatch):
+    """On CPU tensors R and B share one 3x3 blur of the full-resolution
+    green, and each channel is ``resample_channel_plain``'s."""
+    _, tf = _frames(seed=5)
+    r, g1, b, g2 = eag.bayer_to_rgbg(tf.bayer)
+    g_up = eag.resample_g_to_full_resolution(g1, g2)
+    blurs = []
+    blur = eag.gaussian_blur3
+    monkeypatch.setattr(eag, "gaussian_blur3", lambda x: blurs.append(x) or blur(x))
+    r_up, b_up = eag.resample_rb(r, b, g_up)
+    assert len(blurs) == 1
+    monkeypatch.setattr(eag, "gaussian_blur3", blur)
+    P = eag.BayerPatternPosition
+    assert torch.equal(r_up, eag.resample_channel_plain(r, g_up, P.TOP_LEFT))
+    assert torch.equal(b_up, eag.resample_channel_plain(b, g_up, P.BOTTOM_RIGHT))
+
+
+def test_the_eag_kernels_take_cuda_tensors_only():
+    """The EAG kernels' wrappers launch on CUDA tensors alone; the plain
+    versions of ``demosaic.eag`` serve the CPU."""
+    from pysp_tpu_torch.ops import cuda_kernels as K
+
+    g1 = torch.rand(4, 6)
+    assert not eag.resamples_in_kernel(g1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.eag_fill_kernel(g1, g1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.eag_upsample_kernel(g1, torch.rand(8, 12), eag.BayerPatternPosition.TOP_LEFT)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_demosaic_draft_channels_bit_exact(seed):
     jf, tf = _frames(seed=seed)

@@ -25,7 +25,7 @@ from pysp_tpu_torch.utils.testing import make_scene, mosaic_rggb
 torch.set_num_threads(1)
 
 KERNELS = ("ahd", "postprocess", "rl", "remap", "heal", "median5", "homogeneity", "decision",
-           "multisection")
+           "multisection", "eag_resample")
 
 
 @pytest.fixture

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Times and checks the AHD, RL, postprocess, remap, heal, AHD decision, 5x5
-median, homogeneity and multisection kernels of pysp_tpu_torch on one NVIDIA GPU, for one or
+median, homogeneity, multisection and EAG resample kernels of pysp_tpu_torch on one NVIDIA GPU, for one or
 more builds of the kernel sources inside one process, so that two versions are
 compared on the same card within one call.
 
     python3 tools/time_kernels.py [--variant NAME[:FLAG,FLAG...][@CSRC_DIR]]...
                                   [--kernels ahd,rl,postprocess,remap,heal,decision,
-                                             median5,homogeneity,multisection,ca_radial]
+                                             median5,homogeneity,multisection,ca_radial,
+                                             eag_resample]
                                   [--no-check]
 
 Each variant is a build of the CUDA sources: NAME labels its lines, the FLAGs
@@ -15,7 +16,7 @@ holds another version of the sources (default: the package's own ``csrc``).
 Without ``--variant`` the package's own build is the only one. The variants
 are visited in the order given and then once more in reverse (a, b, b, a).
 
-``--kernels`` keeps the named groups only (default: all ten).
+``--kernels`` keeps the named groups only (default: all eleven).
 
 For every variant it prints the ptxas lines of the chosen kernels and holds
 them against their plain versions: the AHD kernel over the whole frame at
@@ -80,6 +81,13 @@ ways there, as lone calls and back to back, beside the bilinear kind alone on
 the plain maps and ``grid_sample`` on them, with the radial kind's bound
 (8 B a pixel and plane; the plain version's float32 operations) and the SASS
 instructions of a thread, which serves up to four mirrored pixels.
+The ``eag_resample`` group checks the EAG fill kernel (on the green phases of
+a mosaic, read in place) and the upsample kernel for R and B against their
+plain versions (``torch.equal``) at mf102's 8736x11648 frame and at config 5's
+stack of 16 x 1000x1504 mosaics, and times each there, as lone calls and back
+to back, beside its plain version and its bound by bytes: the fill reads the
+mosaic's rows and writes the green (8 B a pixel), an upsample reads the green
+and the quarter plane and writes the channel (9 B a pixel).
 """
 
 from __future__ import annotations
@@ -118,7 +126,11 @@ from pysp_tpu_torch.demosaic.ahd import (  # noqa: E402
     ahd_decision_plain,
     postprocess_color_channels,
 )
-from pysp_tpu_torch.demosaic.eag import resample_g_to_full_resolution  # noqa: E402
+from pysp_tpu_torch.demosaic.eag import (  # noqa: E402
+    resample_channel_plain,
+    resample_g_to_full_resolution,
+    resample_g_to_full_resolution_plain,
+)
 from pysp_tpu_torch.demosaic.homogeneity import homogeneity_map_channels  # noqa: E402
 from pysp_tpu_torch.filters.blur import get_1d_gaussian_filter  # noqa: E402
 from pysp_tpu_torch.ops import cuda_kernels as K  # noqa: E402
@@ -140,7 +152,7 @@ CAM = np.array([[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float
 WB = np.array([0.45, 1.0, 0.62], np.float32)
 FULL = (4000, 6000)
 GROUPS = ("ahd", "rl", "postprocess", "remap", "heal", "decision", "median5", "homogeneity",
-          "multisection", "ca_radial")
+          "multisection", "ca_radial", "eag_resample")
 # The lens warp of the finishing path: about 11 px at the corners of 4000x6000.
 WARP_COEFFS = (1.0, -0.003, 0.0, 0.0, 0.0, 0.0)
 WARP_CENTER = (0.5, 0.5)
@@ -406,6 +418,34 @@ def check_ca_radial(name: str, state: dict) -> bool:
                   flush=True)
             ok &= same
             del want
+    return ok
+
+
+def eag_state() -> dict:
+    """The EAG resamples' inputs at mf102's frame and at config 5's stack:
+    {key: (mosaic (N, H, W), its green phases as views, quarter planes for R
+    and B, the filled green)}, from random mosaics."""
+    out = {}
+    for key, (n, h, w) in (("mf102", MF102_SHAPE), ("ca16", CA_SHAPE)):
+        g = torch.Generator(device="cuda").manual_seed(h + n)
+        mosaic = torch.rand((n, h, w), generator=g, device="cuda")
+        r, g1, b, g2 = bayer_to_rgbg(mosaic)
+        subs = {K.EAG_POSITIONS[0]: r.contiguous(), K.EAG_POSITIONS[1]: b.contiguous()}
+        out[key] = (mosaic, (g1, g2), subs, K.eag_fill_kernel(g1, g2))
+    return out
+
+
+def check_eag(name: str, state: dict) -> bool:
+    ok = True
+    for key, (mosaic, phases, subs, green) in state.items():
+        same = torch.equal(K.eag_fill_kernel(*phases), resample_g_to_full_resolution_plain(*phases))
+        print(f"{name}: eag_fill {key} {tuple(mosaic.shape)}: bit-exact {same}", flush=True)
+        ok &= same
+        for position, sub in subs.items():
+            same = torch.equal(K.eag_upsample_kernel(sub, green, position),
+                               resample_channel_plain(sub, green, position))
+            print(f"{name}: eag_upsample {key} {position.name}: bit-exact {same}", flush=True)
+            ok &= same
     return ok
 
 
@@ -747,6 +787,30 @@ def times(name: str, state: dict, groups) -> dict:
                 out[f"{k}_sass_instructions_a_thread"] = radial_sass_instructions(
                     list(K.RADIAL_FORMS).index(form[0]), inverse)
                 del mx, my, library
+    if "eag_resample" in groups:
+        # each kernel beside its plain version, lone calls (median_ms) and
+        # back to back (queued_ms), with its bound by bytes
+        from chip_smoke import bound, queued_ms
+
+        for key, (mosaic, phases, subs, green) in state["eag"].items():
+            px = mosaic.numel()
+            calls = {"eag_fill": ((lambda: K.eag_fill_kernel(*phases)),
+                                  (lambda: resample_g_to_full_resolution_plain(*phases)), 8)}
+            for position, sub in subs.items():
+                calls[f"eag_upsample_{position.name.lower()}"] = (
+                    (lambda sub=sub, position=position: K.eag_upsample_kernel(sub, green,
+                                                                               position)),
+                    (lambda sub=sub, position=position: resample_channel_plain(sub, green,
+                                                                                position)),
+                    9)
+            for label, (kernel, plain, bytes_per_px) in calls.items():
+                k = f"{label}_{key}"
+                out[f"{k}_ms"] = median_ms(kernel)
+                out[f"{k}_queued_ms"] = queued_ms(kernel)
+                out[f"{k}_sha"] = digest(kernel())
+                out[f"{k}_plain_ms"] = median_ms(plain, runs=5)
+                out[f"{k}_plain_queued_ms"] = queued_ms(plain, runs=1)
+                out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound(bytes_per_px * px, 0)
     if "heal" in groups:
         hs = state["heal"]
         planes = hs["planes"]
@@ -852,6 +916,8 @@ def main() -> int:
         state["ca"] = ca_stack_state()
     if "ca_radial" in groups:
         state["ca_radial"] = ca_radial_state(state["ca"])
+    if "eag_resample" in groups:
+        state["eag"] = eag_state()
     if "heal" in groups:
         state["heal"] = heal_state()
         print(f"heal inputs: planes {tuple(state['heal']['planes'].shape)}, "
@@ -868,7 +934,8 @@ def main() -> int:
             "remap": ("remap_kernel", "lanczos4_kernel", "bilinear_kernel"),
             "heal": ("heal",), "decision": ("decision_kernel",),
             "median5": ("median5_kernel",), "homogeneity": ("homogeneity_kernel",),
-            "multisection": ("multisection_kernel",), "ca_radial": ("RadialCoords",)}
+            "multisection": ("multisection_kernel",), "ca_radial": ("RadialCoords",),
+            "eag_resample": ("eag_",)}
     entry_tags = [tag for g in groups for tag in tags[g]]
     order = variants + variants[::-1] if len(variants) > 1 else variants
     seen = set()
@@ -893,7 +960,8 @@ def main() -> int:
                       "decision": check_decision, "median5": check_median5,
                       "homogeneity": check_homogeneity,
                       "multisection": lambda n: check_multisection(n, state["multisection"]),
-                      "ca_radial": lambda n: check_ca_radial(n, state["ca_radial"])}
+                      "ca_radial": lambda n: check_ca_radial(n, state["ca_radial"]),
+                      "eag_resample": lambda n: check_eag(n, state["eag"])}
             if not args.no_check:
                 for g in groups:
                     ok &= checks[g](name)
